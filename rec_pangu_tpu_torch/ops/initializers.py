@@ -1,0 +1,34 @@
+"""Initializers matching the reference's effective init, drawn from an
+explicit ``torch.Generator``.
+
+* Embedding tables ``[rows, D]``: kaiming normal with torch's fan-in
+  ``shape[1]``, i.e. std ``sqrt(2 / D)`` whatever the vocabulary size.
+* Linear kernels: fan-in normal, std ``sqrt(2 / in)`` (the flax
+  ``variance_scaling(2.0, "fan_in", "normal")`` the JAX package uses, which
+  is :func:`kaiming_normal_` on a torch ``Linear.weight`` ``[out, in]``).
+* Linear biases: torch's default ``U(-1/sqrt(in), 1/sqrt(in))``.
+
+The same seed gives other numbers than the JAX package's ``jax.random``:
+parity tests carry weights across with :mod:`rec_pangu_tpu_torch.convert`.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+
+@torch.no_grad()
+def kaiming_normal_(t: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    """std = sqrt(2 / fan_in) with torch's fan_in = shape[1] * prod(shape[2:])."""
+    if t.dim() < 2:
+        raise ValueError("kaiming_normal_ is for >=2-D tensors")
+    fan_in = t.shape[1] * math.prod(t.shape[2:])
+    return t.normal_(0.0, math.sqrt(2.0 / fan_in), generator=generator)
+
+
+@torch.no_grad()
+def torch_linear_bias_(bias: torch.Tensor, fan_in: int,
+                       generator: torch.Generator) -> torch.Tensor:
+    bound = 1.0 / math.sqrt(max(fan_in, 1))
+    return bias.uniform_(-bound, bound, generator=generator)

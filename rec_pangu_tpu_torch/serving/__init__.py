@@ -1,0 +1,3 @@
+from .scorer import construct_dummy_data, make_ranking_scorer
+
+__all__ = ["construct_dummy_data", "make_ranking_scorer"]

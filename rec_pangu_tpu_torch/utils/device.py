@@ -1,0 +1,22 @@
+"""The one place where an entry point's ``device`` argument is resolved.
+
+``None`` means the CUDA card.  Where CUDA is absent that raises instead of
+quietly running on the CPU: a caller who wants the CPU asks for it
+(``device="cpu"``), as the tests do.
+"""
+from __future__ import annotations
+
+from typing import Optional, Union
+
+import torch
+
+DeviceLike = Optional[Union[str, torch.device]]
+
+
+def resolve_device(device: DeviceLike = None) -> torch.device:
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(dev)!r} requested (the default when device=None) "
+            f"but CUDA is not available; pass device='cpu' to run on the CPU")
+    return dev
