@@ -5,10 +5,11 @@ nothing of JAX or of the JAX package: that package is the reference its
 tests hold it against.  The JAX package's Pallas kernels become kernels
 written by hand for Hopper (``ops/kernels``, sources in ``csrc``).
 
-Ported so far: DeepFM ranking served end to end (data, encoders, metrics,
-model, checkpoints in the JAX layout, ``RankTrainer``'s inference methods,
-``make_ranking_scorer``).  Entry points run on the CUDA card unless the
-caller passes ``device="cpu"``.
+Ported so far: DeepFM ranking served and trained end to end (data,
+encoders, metrics, model, checkpoints in the JAX layout, ``RankTrainer``
+with ``fit`` on the fused or the standard train step, ``make_ranking_scorer``).
+Entry points run on the CUDA card unless the caller passes
+``device="cpu"``.
 """
 __version__ = "0.1.0"
 

@@ -14,7 +14,7 @@ A missing, extra or wrongly shaped leaf raises ``ValueError``.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -67,16 +67,36 @@ def load_jax_variables(model, variables: Dict[str, Any]) -> None:
             tensor.copy_(torch.from_numpy(np.array(staged[key])))
 
 
+def jax_tree(model, value_of: Callable[[torch.Tensor], Optional[torch.Tensor]] = None,
+             collection: str = "params") -> Optional[Dict[str, Any]]:
+    """A nested numpy tree in the JAX package's layout of ``value_of(weight)``
+    for each weight of ``collection`` (the weight itself by default; a
+    weight whose value is None is left out), transposed as the weight is.
+    None when no weight has a value."""
+    tree: Dict[str, Any] = {}
+    for coll, path, tensor, transposed in model.jax_leaves():
+        value = tensor if value_of is None else value_of(tensor)
+        if coll != collection or value is None:
+            continue
+        arr = value.detach().cpu().numpy()
+        node = tree
+        for name in path[:-1]:
+            node = node.setdefault(name, {})
+        # a copy: on the CPU .numpy() shares the live weight's memory
+        node[path[-1]] = np.array(arr.T if transposed else arr, order="C")
+    return tree or None
+
+
+def jax_path(model, weight: torch.Tensor) -> str:
+    """The ``/``-joined flax path of one of the model's weights."""
+    for _, path, tensor, _ in model.jax_leaves():
+        if tensor is weight:
+            return "/".join(path)
+    raise ValueError(f"{type(model).__name__} lists no such weight")
+
+
 def jax_variables(model) -> Dict[str, Any]:
     """The model's weights as the JAX package's nested numpy variables
     (``batch_stats`` is None when the model has none)."""
-    out: Dict[str, Any] = {"params": {}, "batch_stats": None}
-    for coll, path, tensor, transposed in model.jax_leaves():
-        arr = tensor.detach().cpu().numpy()
-        if out[coll] is None:
-            out[coll] = {}
-        node = out[coll]
-        for name in path[:-1]:
-            node = node.setdefault(name, {})
-        node[path[-1]] = np.ascontiguousarray(arr.T if transposed else arr)
-    return out
+    return {"params": jax_tree(model) or {},
+            "batch_stats": jax_tree(model, collection="batch_stats")}

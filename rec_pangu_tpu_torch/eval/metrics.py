@@ -50,6 +50,13 @@ def log_loss(y_true: Sequence[float], y_pred: Sequence[float], eps: float = 1e-7
 _METRIC_FNS = {"roc_auc_score": roc_auc_score, "log_loss": log_loss}
 
 
+def _host(arr) -> np.ndarray:
+    """A numpy array or a tensor on any device, as a numpy array on the host."""
+    if hasattr(arr, "detach"):
+        return arr.detach().cpu().numpy()
+    return np.asarray(arr)
+
+
 class RollingMetricBuffer:
     """Bounded accumulator for train-metric samples.
 
@@ -61,7 +68,7 @@ class RollingMetricBuffer:
     over the trailing window — the epoch-scale analogue of the reference's
     rolling last-1000 AUC (model_pipeline.py:63).
 
-    Appended arrays may be device arrays; nothing is fetched until
+    Appended arrays may be tensors on the card; nothing is fetched until
     ``concat()``, so the hot loop stays async.
     """
 
@@ -87,7 +94,7 @@ class RollingMetricBuffer:
 
     def concat(self) -> np.ndarray:
         out = np.concatenate(
-            [np.asarray(c).reshape(len(c), -1) for c in self._chunks])
+            [_host(c).reshape(len(c), -1) for c in self._chunks])
         return out[-self.window:] if len(out) > self.window else out
 
 

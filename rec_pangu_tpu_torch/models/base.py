@@ -3,7 +3,8 @@
 A ranking model is an ``nn.Module`` whose ``forward(batch, train=False)``
 takes a dict of tensors ``{'sparse': [B, F] i32, 'dense': [B, Nd] f32}``
 and returns ``{'pred': [B, 1]}``, plus ``'loss'`` when ``train`` and a
-label are given.
+label are given.  ``forward(..., capture=list)`` is the fused train step's
+capture mode (``ops/embedding.FusedEmbedding.forward``).
 """
 from __future__ import annotations
 
@@ -63,10 +64,12 @@ class RankModelBase(nn.Module):
     def jax_leaves(self) -> List[Tuple[str, tuple, torch.Tensor, bool]]:
         raise NotImplementedError
 
-    def upload_batch(self, batch: Dict[str, np.ndarray],
-                     device: torch.device) -> Dict[str, torch.Tensor]:
+    def upload_batch(self, batch: Dict[str, np.ndarray], device: torch.device,
+                     train: bool = False) -> Dict[str, torch.Tensor]:
         """Check a host batch's ids against the table (ValueError before any
-        upload) and copy the keys the model reads to ``device``."""
+        upload) and copy the keys the model reads to ``device``; a training
+        batch (``train``) also uploads its float32 ``label``."""
         check_ids(self.spec, batch["sparse"], self.embedding.table.shape[0])
+        dtypes = dict(self.input_dtypes, label=np.float32) if train else self.input_dtypes
         return {k: torch.from_numpy(np.ascontiguousarray(batch[k], dtype=dt)).to(device)
-                for k, dt in self.input_dtypes.items()}
+                for k, dt in dtypes.items()}

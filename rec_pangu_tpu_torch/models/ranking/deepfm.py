@@ -27,8 +27,8 @@ class DeepFM(RankModelBase):
                        output_dim=1, hidden_activations="relu", dropout_rates=0.0,
                        generator=gen)
 
-    def forward(self, batch, train: bool = False):
-        emb = self.embedding(batch["sparse"])                      # [B, F, D]
+    def forward(self, batch, train: bool = False, capture=None):
+        emb = self.embedding(batch["sparse"], capture)             # [B, F, D]
         fm_logit = inner_product(emb, "product_sum_pooling")       # [B, 1]
         dnn_input = torch.cat([emb.reshape(emb.shape[0], -1), batch["dense"]], dim=1)
         y_pred = torch.sigmoid(fm_logit + self.mlp(dnn_input, train))

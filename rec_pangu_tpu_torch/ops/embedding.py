@@ -5,7 +5,9 @@ batch lookup is a single ``[B, F]`` (+offsets) -> ``[B, F, D]`` gather, run
 by the lookup kernel (``ops/kernels/embedding_lookup.py``) on the card.
 
 The table keeps the JAX package's shape, ``[padded_rows(total_rows), D]``,
-so weights carry across unchanged, pad rows included.
+so weights carry across unchanged, pad rows included.  In training the
+lookup's backward is the table gradient kernel; the fused train step holds
+the table out of autograd instead (``forward``'s ``capture``).
 """
 from __future__ import annotations
 
@@ -63,9 +65,22 @@ class FusedEmbedding(nn.Module):
             else:
                 kaiming_normal_(self.table, generator)
 
-    def forward(self, sparse_ids: torch.Tensor) -> torch.Tensor:
-        """[B, F] int32 per-feature ids -> [B, F, D]."""
-        return fused_embedding_lookup(self.table, sparse_ids, self.offsets)
+    def forward(self, sparse_ids: torch.Tensor,
+                capture: Optional[List[torch.Tensor]] = None) -> torch.Tensor:
+        """[B, F] int32 per-feature ids -> [B, F, D].
+
+        ``capture`` (a list) is the fused train step's capture mode
+        (``train/fused_update.py``): the table is held out of autograd, the
+        gathered rows become a leaf that requires grad, and they are
+        appended to ``capture`` so that the step differentiates the loss by
+        them and hands their gradient to the fused table Adam.  The value is
+        the same either way."""
+        if capture is None:
+            return fused_embedding_lookup(self.table, sparse_ids, self.offsets)
+        rows = fused_embedding_lookup(self.table.detach(), sparse_ids, self.offsets)
+        rows.requires_grad_(True)
+        capture.append(rows)
+        return rows
 
     def jax_leaves(self) -> List[Tuple[str, tuple, torch.Tensor, bool]]:
         """(collection, flax path, tensor, transposed) of each weight."""

@@ -3,8 +3,8 @@
 Each source under ``rec_pangu_tpu_torch/csrc/`` becomes one shared library
 with a plain C interface, compiled for ``sm_90a``.  The library is built at
 first use into ``rec_pangu_tpu_torch/_build/``, under a name keyed on a hash
-of the source and the flags, so an edited source is rebuilt and an unchanged
-one is loaded as it is.  A failed build raises with nvcc's output.
+of the source, the shared headers (``csrc/*.cuh``) and the flags, so an
+edited source is rebuilt and an unchanged one is loaded as it is.  A failed build raises with nvcc's output.
 """
 from __future__ import annotations
 
@@ -25,7 +25,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
 # library name -> its source under csrc/
-SOURCES = {"embedding_lookup": "embedding_lookup.cu"}
+SOURCES = {"embedding_lookup": "embedding_lookup.cu",
+           "embedding_grad": "embedding_grad.cu",
+           "fused_adam": "fused_adam.cu"}
 
 _BUILD_TIMEOUT_S = 600
 _LOCK = threading.Lock()
@@ -44,8 +46,10 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC_DIR / SOURCES[name]
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256((CSRC_DIR / SOURCES[name]).read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
 
 

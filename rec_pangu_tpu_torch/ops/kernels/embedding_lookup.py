@@ -21,13 +21,16 @@ matches no one-hot column).  Callers that take ids from outside check them
 on the host first and raise (``ops.embedding.check_ids``).
 
 The wrapper launches the kernel for CUDA tensors and raises if it cannot;
-it uses the plain version below only for tensors on the CPU.
+it uses the plain version below only for tensors on the CPU.  On the card
+the lookup's backward is the table gradient kernel (``embedding_grad.py``).
 """
 from __future__ import annotations
 
 import ctypes
 
 import torch
+
+from .embedding_grad import table_grad
 
 # kernel launches so far; a run resets it and reads it to show the path
 # went through the kernel
@@ -94,16 +97,27 @@ def _launch(table: torch.Tensor, sparse: torch.Tensor,
     return out
 
 
+def fused_ids(sparse: torch.Tensor, offsets: torch.Tensor) -> torch.Tensor:
+    """[B, F] per-field ids + [F] offsets -> the [B*F] int32 fused ids."""
+    return (sparse + offsets).reshape(-1)
+
+
 class _KernelLookup(torch.autograd.Function):
+    """The lookup kernel forward; the table gradient kernel (K2,
+    ``embedding_grad.py``) backward."""
+
     @staticmethod
     def forward(ctx, table, sparse, offsets):
+        ctx.save_for_backward(sparse, offsets)
+        ctx.num_rows = table.shape[0]
         return _launch(table, sparse, offsets)
 
     @staticmethod
     def backward(ctx, grad):
-        raise NotImplementedError(
-            "the embedding lookup kernel has no backward yet: the table "
-            "gradient kernel arrives with the training slice of the port")
+        sparse, offsets = ctx.saved_tensors
+        rows = grad.reshape(-1, grad.shape[-1])
+        return (table_grad(fused_ids(sparse, offsets), rows, ctx.num_rows),
+                None, None)
 
 
 def fused_embedding_lookup(table: torch.Tensor, sparse: torch.Tensor,

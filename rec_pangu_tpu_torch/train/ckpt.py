@@ -8,6 +8,24 @@ turns every class from ``jax``, ``jaxlib``, ``flax``, ``optax`` or
 ``rec_pangu_tpu`` into an inert placeholder instead: serving needs only
 ``params``, ``batch_stats`` and ``enc_dict``.
 
+A checkpoint the port's trainer writes (``save_all``, ``save_train_model``)
+carries its optimizer state in the port's own layout, plain dicts of numpy
+arrays that the JAX package's ``load_checkpoint`` reads as they are::
+
+    opt_state = {
+        "layout": "rec_pangu_tpu_torch/adam-1",
+        "step": <steps taken>,
+        # Adam moments of every parameter torch.optim.Adam steps, keyed and
+        # transposed like ``params`` (the table too on the standard step)
+        "params": {"mu": {...}, "nu": {...}},
+        # the fused step's table moments, keyed by the table's flax path
+        "tables": {"FusedEmbedding_0/table": {"mu": [rows, D], "nu": [rows, D]}},
+    }
+
+The JAX trainer cannot resume from it (its ``resume`` wants optax's state
+and restores only the params when the structure differs); the port cannot
+resume yet either.
+
 Unpickling runs code named in the file: load only checkpoints this program
 or the JAX package wrote.
 """

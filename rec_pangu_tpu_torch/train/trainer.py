@@ -1,26 +1,50 @@
-"""RankTrainer: the serving half of the JAX package's trainer API.
+"""RankTrainer: the JAX package's trainer API on PyTorch.
 
-``load_model``, ``save_model``, ``evaluate_model``, ``predict_dataloader``
-and ``predict_dataframe`` keep the JAX package's names, signatures and
-metric names.  The weights live in the model module itself: ``load_model``
-copies a checkpoint into it and moves it to the trainer's device.
+``fit``, ``load_model``, ``save_model``, ``save_all``, ``save_train_model``,
+``evaluate_model``, ``predict_dataloader`` and ``predict_dataframe`` keep the
+JAX package's names, signatures, checkpoint file names and metric names.
+The weights live in the model module itself: ``load_model`` copies a
+checkpoint into it, and ``fit`` trains it where it stands, on the trainer's
+device.
+
+``fit`` takes the fused train step (``fused_update.py``: the table's Adam
+update in one kernel pass) from a fresh state with Adam, as the JAX package
+does, and the standard step (``steps.py``) when ``REC_PANGU_TPU_FUSED_ADAM=0``.
+Two differences from the JAX ``fit``: it trains the module's weights as they
+are (the JAX ``fit`` initializes new ones from ``seed``; here ``seed`` seeds
+torch's generator, which dropout draws from), and ``resume_from``, ``mesh``,
+``profile_dir`` and ``steps_per_call > 1`` raise ``NotImplementedError``.
 
 ``device=None`` means the CUDA card (see ``utils/device.py``); a method's
 ``device`` argument, when given, overrides the trainer's.
 """
 from __future__ import annotations
 
+import logging
 import os
-from typing import Dict
+import time
+from typing import Dict, Optional
 
 import numpy as np
 import torch
 
 from ..convert import jax_variables, load_jax_variables
 from ..data.loader import DataLoader
-from ..eval.metrics import compute_ranking_metrics
+from ..eval.metrics import RollingMetricBuffer, compute_ranking_metrics
 from ..utils.device import DeviceLike, resolve_device
 from .ckpt import load_checkpoint, save_checkpoint
+from .fused_update import maybe_enable_fused_update
+from .steps import StandardStep, strip_host_keys
+
+logger = logging.getLogger("rec_pangu_tpu_torch")
+
+# fit's arguments the port does not run yet, with the ROADMAP item that ports each
+_NOT_PORTED = {
+    "resume_from": "resume (ROADMAP Queue 1 item 11)",
+    "mesh": "data-parallel and sharded training (ROADMAP Queue 1 item 10)",
+    "profile_dir": "the trainer's profiler trace (ROADMAP Queue 1 item 11)",
+    "steps_per_call": "K-step calls (ROADMAP Queue 1 item 11)",
+}
 
 
 class RankTrainer:
@@ -29,12 +53,103 @@ class RankTrainer:
         self.num_task = num_task
         self.model_ckpt_dir = model_ckpt_dir
         self.device = resolve_device(device)
-        self.step = 0  # carried from the loaded checkpoint into saved ones
+        self.step = 0  # optimizer steps taken; carried from a loaded checkpoint
+        self.model = None
+        self._train_step = None  # StandardStep or FusedStep, built by fit
 
-    def fit(self, *args, **kwargs):
-        raise NotImplementedError(
-            "training is not ported yet: RankTrainer.fit arrives with the "
-            "training slice of the port")
+    # ----------------------------------------------------------------- train
+    def fit(self, model, train_loader: DataLoader, valid_loader: Optional[DataLoader] = None,
+            epoch: int = 10, lr: float = 1e-3, device: DeviceLike = None,
+            use_earlystopping: bool = False, max_patience: int = 999,
+            monitor_metric: Optional[str] = None, lr_scheduler_type: str = "",
+            scheduler_params: Optional[dict] = None, seed: int = 1029,
+            log_rounds: int = 100, mesh=None, resume_from: Optional[str] = None,
+            profile_dir: Optional[str] = None, steps_per_call: int = 1) -> Dict[str, float]:
+        asked = {"resume_from": resume_from, "mesh": mesh, "profile_dir": profile_dir,
+                 "steps_per_call": steps_per_call if int(steps_per_call) > 1 else None}
+        for name, value in asked.items():
+            if value is not None:
+                raise NotImplementedError(f"fit({name}=...) is not ported yet: "
+                                          f"{_NOT_PORTED[name]}")
+        dev = self._device(device)
+        os.makedirs(self.model_ckpt_dir, exist_ok=True)
+        torch.manual_seed(seed)
+        self.model = model.to(dev)
+        self._fit_device = dev
+        self.step = 0
+        steps_per_epoch = len(train_loader)
+        self._train_step = maybe_enable_fused_update(
+            model, lr, steps_per_epoch, lr_scheduler_type, scheduler_params)
+        if self._train_step is not None:
+            logger.info("Embedding Adam update fused into the table kernel")
+        else:
+            self._train_step = StandardStep(model, lr, steps_per_epoch, lr_scheduler_type,
+                                            scheduler_params)
+        n_params = sum(p.numel() for p in model.parameters())
+        logger.info(f"Model initialized: {n_params:,} parameters")
+
+        logger.info("Model Starting Training")
+        best_epoch, best_metric = -1, -np.inf
+        train_metric: Dict[str, float] = {}
+        for i in range(1, epoch + 1):
+            train_metric = self._train_one_epoch(train_loader, log_rounds)
+            logger.info(f"Epoch {i} Train Metric:{train_metric}")
+            if valid_loader is not None:
+                valid_metric = self.evaluate_model(self.model, valid_loader, dev)
+                self.save_train_model(self.model, self.model_ckpt_dir, f"e_{i}")
+                if use_earlystopping:
+                    if monitor_metric not in valid_metric:
+                        raise KeyError(f"{monitor_metric} not in Valid Metric "
+                                       f"{valid_metric.keys()}")
+                    if valid_metric[monitor_metric] > best_metric:
+                        best_epoch = i
+                        best_metric = valid_metric[monitor_metric]
+                        self.save_train_model(self.model, self.model_ckpt_dir, "best")
+                    if i - best_epoch >= max_patience:
+                        logger.info(f"EarlyStopping at the Epoch {i} Valid Metric:{valid_metric}")
+                        break
+                logger.info(f"Epoch {i} Valid Metric:{valid_metric}")
+        return train_metric
+
+    def _step(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+        """One train step on a host batch: id check, upload, the step."""
+        inputs = self.model.upload_batch(batch, self._fit_device, train=True)
+        out = self._train_step(inputs, self.step)
+        self.step += 1
+        return out
+
+    def _train_one_epoch(self, train_loader, log_rounds: int):
+        # bounded train-metric accumulation: constant host memory per epoch
+        window = int(os.environ.get("REC_PANGU_TPU_TRAIN_METRIC_WINDOW", str(1 << 20)))
+        preds = RollingMetricBuffer(window)
+        labels = RollingMetricBuffer(window)
+        max_iter = len(train_loader)
+        self.model.train()
+        start = time.time()
+        n_seen = 0
+        for idx, batch in enumerate(train_loader):
+            batch, _ = strip_host_keys(batch)
+            out = self._step(batch)
+            if self.num_task == 1:
+                pred = out["pred"]
+            else:
+                pred = torch.cat([out[f"task{t + 1}_pred"].reshape(-1, 1)
+                                  for t in range(self.num_task)], dim=1)
+            preds.append(pred.detach())  # stays on the device until the epoch ends
+            labels.append(batch["label"])
+            n_seen += len(batch["label"])
+            if idx % log_rounds == 0:
+                loss = float(out["loss"].detach())
+                elapsed = time.time() - start
+                remaining = round(((elapsed / (idx + 1)) * (max_iter - idx + 1)) / 60, 2)
+                logger.info(f"Iter {idx}/{max_iter} Remaining time:{remaining} min "
+                            f"Loss:{round(loss, 4)}")
+        pred_arr = preds.concat()
+        label_arr = labels.concat()
+        elapsed = time.time() - start
+        logger.info(f"Epoch throughput: {n_seen / max(elapsed, 1e-9):,.0f} examples/s")
+        return compute_ranking_metrics(label_arr, pred_arr, prefix="train_",
+                                       num_task=self.num_task)
 
     # ------------------------------------------------------------- ckpt api
     def load_model(self, model, path: str) -> dict:
@@ -51,6 +166,24 @@ class RankTrainer:
         """Weights-only checkpoint ``model.ckpt``, readable by both packages."""
         path = os.path.join(model_ckpt_dir, "model.ckpt")
         save_checkpoint(path, **jax_variables(model), step=self.step)
+        return path
+
+    def _opt_state(self):
+        return None if self._train_step is None else self._train_step.opt_state(self.step)
+
+    def save_all(self, model, enc_dict: dict, model_ckpt_dir: str) -> str:
+        """Weights, optimizer state and enc_dict in ``model.ckpt``."""
+        path = os.path.join(model_ckpt_dir, "model.ckpt")
+        save_checkpoint(path, **jax_variables(model), opt_state=self._opt_state(),
+                        enc_dict=enc_dict, step=self.step)
+        logger.info(f"Model+enc_dict saved to {path}")
+        return path
+
+    def save_train_model(self, model, model_ckpt_dir: str, model_str: str) -> str:
+        """Per-epoch checkpoint ``model_{model_str}.ckpt`` with optimizer state."""
+        path = os.path.join(model_ckpt_dir, f"model_{model_str}.ckpt")
+        save_checkpoint(path, **jax_variables(model), opt_state=self._opt_state(),
+                        step=self.step)
         return path
 
     # ------------------------------------------------------------- inference

@@ -1,0 +1,115 @@
+"""The port's fused table Adam (K3's counterpart) against the JAX package's K3.
+
+JAX runs ``planned_adam_update`` (``_adam_tile_kernel``) in interpret mode at
+``highest`` precision.  The gradient sums differ from the port's by rounding
+(one-hot matmuls against batch-order adds), and that difference passes
+through the Adam arithmetic: p within atol 1e-6, m and v within atol 1e-6 /
+rtol 1e-5 after three steps.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from rec_pangu_tpu.ops.kernels import embedding_grad as jgrad
+from rec_pangu_tpu.ops.kernels import fused_adam as jadam
+from rec_pangu_tpu_torch.ops.kernels import _build
+from rec_pangu_tpu_torch.ops.kernels import fused_adam as adam
+
+ROWS, DIM, N = 73_728, 32, 8192  # a padded 4 x 16,385-row table, 2048 x 4 ids
+LR = 1e-3
+
+
+@pytest.fixture(autouse=True)
+def _interpret_kernels(monkeypatch):
+    monkeypatch.setenv("REC_PANGU_TPU_PALLAS_INTERPRET", "1")
+    monkeypatch.setenv("REC_PANGU_TPU_EMB_GRAD_PRECISION", "highest")
+
+
+@pytest.mark.parametrize("step", [1, 2, 3, 10, 1000, 123_457])
+def test_adam_hyper_equals_jax_in_f32(step):
+    for lr in (1e-3, 0.37):
+        want = np.asarray(jadam.adam_hyper(jnp.asarray(step, jnp.int32), lr))
+        got = adam.adam_hyper(step, lr)
+        assert got.dtype == torch.float32 and got.shape == (8,)
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_three_steps_match_jax_k3_and_absent_rows_decay():
+    rng = np.random.default_rng(0)
+    p0 = (rng.standard_normal((ROWS, DIM)) * 0.01).astype(np.float32)
+    jp, jm, jv = jnp.asarray(p0), jnp.zeros((ROWS, DIM)), jnp.zeros((ROWS, DIM))
+    tp, tm, tv = torch.from_numpy(p0.copy()), torch.zeros(ROWS, DIM), torch.zeros(ROWS, DIM)
+    batches = []
+    for t in (1, 2, 3):
+        ids = rng.integers(0, ROWS, N)
+        ids[:500] = ids[500:1000]  # duplicates
+        rows = rng.standard_normal((N, DIM)).astype(np.float32)
+        batches.append((ids, rows))
+        plan = {k: jnp.asarray(v) for k, v in jgrad.make_sort_plan(ids, ROWS, dim=DIM).items()}
+        stream = jgrad.stream_ids(plan, jnp.asarray(ids, jnp.int32), ROWS)
+        jp, jm, jv = jadam.planned_adam_update(
+            plan, stream, jnp.asarray(rows), jp, jm, jv,
+            jadam.adam_hyper(jnp.asarray(t, jnp.int32), LR))
+        m_before = tm.clone()
+        adam.planned_adam_update(torch.from_numpy(ids.astype(np.int32)), torch.from_numpy(rows),
+                                 tp, tm, tv, adam.adam_hyper(t, LR))
+        if t == 2:  # rows of step 1 that step 2 does not touch: moments decay
+            absent = np.setdiff1d(batches[0][0], ids)
+            np.testing.assert_array_equal(tm.numpy()[absent],
+                                          (np.float32(0.9) * m_before.numpy()[absent]))
+            assert np.all(tp.numpy()[absent] != p_after_1[absent])  # still nudged
+        p_after_1 = tp.numpy().copy()
+    np.testing.assert_allclose(tp.numpy(), np.asarray(jp), rtol=0, atol=1e-6)
+    np.testing.assert_allclose(tm.numpy(), np.asarray(jm), rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(tv.numpy(), np.asarray(jv), rtol=1e-5, atol=1e-6)
+    never = np.setdiff1d(np.arange(ROWS), np.concatenate([b[0] for b in batches]))
+    np.testing.assert_array_equal(tm.numpy()[never], 0.0)
+    np.testing.assert_array_equal(tp.numpy()[never], p0[never])
+
+
+def test_matches_dense_torch_adam_on_one_step():
+    """Adam over the dense gradient: one step equals torch.optim.Adam on the
+    table with the plain gradient.  torch rounds its update in another order,
+    which can move the result by one ulp of p (atol 1e-6 for |p| < 4)."""
+    rng = np.random.default_rng(1)
+    ids = torch.from_numpy(rng.integers(0, 300, 1000).astype(np.int32))
+    rows = torch.from_numpy(rng.standard_normal((1000, 4)).astype(np.float32))
+    table = torch.from_numpy(rng.standard_normal((300, 4)).astype(np.float32))
+    ref = table.clone().requires_grad_()
+    opt = torch.optim.Adam([ref], lr=LR, betas=(0.9, 0.999), eps=1e-8)
+    ref.grad = torch.zeros(300, 4).index_add_(0, ids.long(), rows)
+    opt.step()
+    m, v = torch.zeros(300, 4), torch.zeros(300, 4)
+    adam.planned_adam_update(ids, rows, table, m, v, adam.adam_hyper(1, LR))
+    np.testing.assert_allclose(table.numpy(), ref.detach().numpy(), rtol=0, atol=1e-6)
+    np.testing.assert_allclose(m.numpy(), opt.state[ref]["exp_avg"].numpy(), rtol=1e-6)
+
+
+def test_empty_batch_still_decays_every_row():
+    table, m, v = torch.ones(5, 2), torch.full((5, 2), 0.5), torch.full((5, 2), 0.25)
+    adam.planned_adam_update(torch.zeros(0, dtype=torch.int32), torch.zeros(0, 2), table, m, v,
+                             adam.adam_hyper(2, LR))
+    np.testing.assert_array_equal(m.numpy(), np.float32(0.9) * np.float32(0.5))
+    assert np.all(table.numpy() < 1.0)
+
+
+def test_inputs_are_checked_and_cpu_builds_nothing(monkeypatch):
+    def no_build(*args, **kwargs):
+        raise AssertionError("a CPU update must not build a kernel")
+
+    monkeypatch.setattr(_build, "build_all", no_build)
+    ids, rows = torch.zeros(3, dtype=torch.int32), torch.ones(3, 2)
+    t, m, v = torch.zeros(4, 2), torch.zeros(4, 2), torch.zeros(4, 2)
+    with pytest.raises(ValueError, match="mu must be"):
+        adam.planned_adam_update(ids, rows, t, torch.zeros(4, 3), v, adam.adam_hyper(1, LR))
+    with pytest.raises(ValueError, match="hyper"):
+        adam.planned_adam_update(ids, rows, t, m, v, torch.zeros(6))
+    adam.planned_adam_update(ids, rows, t, m, v, adam.adam_hyper(1, LR))
+    assert adam.LAUNCHES == 0 and adam._FN is None
+    assert adam.tile_rows(32) == 256 and adam.tile_rows(1) == 8192
+    with pytest.raises(ValueError, match="at most"):
+        adam.planned_adam_update(ids, torch.ones(3, 8193), torch.zeros(4, 8193),
+                                 torch.zeros(4, 8193), torch.zeros(4, 8193),
+                                 adam.adam_hyper(1, LR))
+    np.testing.assert_allclose(t.numpy()[0], -LR, rtol=1e-6)  # the first step is lr*sign(g)

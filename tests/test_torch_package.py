@@ -30,6 +30,8 @@ def test_imports_without_jax_flax_optax_or_pandas():
         import rec_pangu_tpu_torch.serving, rec_pangu_tpu_torch.models
         import rec_pangu_tpu_torch.train, rec_pangu_tpu_torch.convert
         import rec_pangu_tpu_torch.ops.kernels.embedding_lookup
+        import rec_pangu_tpu_torch.ops.kernels.fused_adam
+        import rec_pangu_tpu_torch.train.fused_update
         loaded = sorted(m for m in sys.modules if sys.modules[m] is not None
                         and m.split(".")[0] in {"rec_pangu_tpu", "jax", "flax", "optax"})
         assert not loaded, loaded
