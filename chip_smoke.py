@@ -12,10 +12,11 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 3. kernel   -- each kernel against its plain PyTorch version on the card, at
                the bench shape and at edge shapes, and run twice for the same
                bits; median times of the kernel, the plain version and one
-               PyTorch library call, and the kernel's byte bound.  The lookup
+               PyTorch library call, and the kernel's bound.  The lookup
                (a gather) is bit-equal; the table gradient and the fused Adam
                sum in another order than the plain version's atomics, within
-               the rounding bound stated at ``sum_tolerance``.
+               the rounding bound stated at ``sum_tolerance``; the fused
+               encoder (K4f) within the tolerances at ``check_encoder``.
 4. serving  -- DeepFM at the bench's full width (16 sparse fields x 100,000
                vocab, 9 dense, D=32, MLP (64, 64, 64)) from a checkpoint in
                the JAX package's layout, random weights from a seed: requests
@@ -31,6 +32,18 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                torch.optim.Adam).  Step times and examples/s for both.
 7. card_vs_cpu -- the first three fused steps on the card and on the CPU.
 8. train_profile -- torch.profiler over a few fused training steps.
+9. seq_checkpoint -- a SASRec checkpoint in the JAX layout at bench.py's
+               sequence width (1,000,000 items, D=64, L=50, 2 blocks of 4
+               heads, inner 32, gelu), random weights from a seed.
+10. seq_serving -- SequenceTrainer.load_model and make_retrieval_scorer:
+               requests of 1024 histories, top-200 of the L2-normalized
+               corpus (K1 + K4f); latency, users/s, launches per request;
+               a few requests held against the same model on the CPU.
+11. seq_profile -- host stages of a request (id check, upload, encoder,
+               scoring, top-k, copy back) and torch.profiler's device time
+               by operation and idle share.
+12. seq_eval -- SequenceTrainer.evaluate_model on the bundled MovieLens
+               sample (max_length 50), card against CPU.
 
 Then the kernels line, the card's name and power limit as nvidia-smi gives
 them, and last {"ok": true, "device": {...}}.
@@ -38,6 +51,7 @@ them, and last {"ok": true, "device": {...}}.
 Float32 matmuls are held to full precision for the comparisons:
 torch.backends.cuda.matmul.allow_tf32 = False (and the cuDNN flag too).
 """
+import copy
 import json
 import math
 import os
@@ -51,14 +65,17 @@ import numpy as np
 import torch
 
 import rec_pangu_tpu_torch as port
-from rec_pangu_tpu_torch.data import DataLoader
-from rec_pangu_tpu_torch.ops.embedding import check_ids, padded_rows
+from rec_pangu_tpu_torch.data import DataLoader, get_dataloader
+from rec_pangu_tpu_torch.eval.retrieval import l2_normalize
+from rec_pangu_tpu_torch.ops.embedding import check_ids, check_item_ids, padded_rows
 from rec_pangu_tpu_torch.ops.kernels import _build
 from rec_pangu_tpu_torch.ops.kernels import embedding_grad as grad
 from rec_pangu_tpu_torch.ops.kernels import embedding_lookup as lookup
 from rec_pangu_tpu_torch.ops.kernels import fused_adam as adam
-from rec_pangu_tpu_torch.serving import make_ranking_scorer
-from rec_pangu_tpu_torch.train import RankTrainer, save_checkpoint
+from rec_pangu_tpu_torch.ops.kernels import fused_encoder as encoder
+from rec_pangu_tpu_torch.ops.sequence_enc import TransformerEncoder
+from rec_pangu_tpu_torch.serving import make_ranking_scorer, make_retrieval_scorer
+from rec_pangu_tpu_torch.train import RankTrainer, SequenceTrainer, save_checkpoint
 from rec_pangu_tpu_torch.train.fused_update import maybe_enable_fused_update
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -81,20 +98,44 @@ TABLE_ATOL = 1e-6          # ... the table, on all but HANDFUL elements
 HANDFUL = 64
 EDGE_ROWS = 3001           # edge tables: not a multiple of any tile
 
+# SASRec retrieval at bench.py's sequence shape with SASRec's own defaults
+SEQ_VOCAB, SEQ_L, SEQ_DIM, SEQ_BATCH, SEQ_TOPK = 1_000_000, 50, 64, 1024, 200
+SEQ_CONFIG = {"embedding_dim": SEQ_DIM, "max_length": SEQ_L, "n_layers": 2, "n_heads": 4,
+              "inner_size": 32, "hidden_act": "gelu", "layer_norm_eps": 1e-3,
+              "item_col": "item_id"}
+SEQ_WARMUP, SEQ_REQUESTS = 3, 200
+SEQ_CPU_CHECKS = 2         # requests held against the same model on the CPU
+SEQ_PROFILED = 10          # requests traced by the profiler
+ENCODER_ATOL = 1e-5        # kernel against plain: query rows with a valid key
+MASKED_ROW_ATOL = 5e-2     # ... rows without one (see check_encoder; first run: 0.0092)
+USER_EMB_ATOL = 1e-5       # card against CPU: user embeddings
+SCORE_ATOL = 1e-5          # ... and the retrieval scores
+SEQ_DATA = os.path.join(ROOT, "examples", "sequence_recall", "sample_data")
+
 # data-sheet memory bandwidth (bytes/s) of the cards this targets
 _BANDWIDTH = (("H100 PCIe", 2.0e12), ("H100 NVL", 3.9e12), ("H200", 4.8e12),
               ("H100", 3.35e12))
+# data-sheet float32 rate outside the tensor cores (FLOP/s)
+_FP32_PEAK = (("H100 PCIe", 51e12), ("H100 NVL", 60e12), ("H200", 67e12), ("H100", 67e12))
 
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def peak_bandwidth(name: str) -> float:
-    for key, rate in _BANDWIDTH:
+def _lookup_rate(table, name: str, what: str) -> float:
+    for key, rate in table:
         if key in name:
             return rate
-    raise RuntimeError(f"no data-sheet bandwidth known for {name!r}")
+    raise RuntimeError(f"no data-sheet {what} known for {name!r}")
+
+
+def peak_bandwidth(name: str) -> float:
+    return _lookup_rate(_BANDWIDTH, name, "bandwidth")
+
+
+def peak_fp32(name: str) -> float:
+    return _lookup_rate(_FP32_PEAK, name, "float32 rate")
 
 
 def median_ms(fns, launches: int = 100, reps: int = TIMING_REPS) -> float:
@@ -517,7 +558,7 @@ def phase_serving(path: str, enc_dict: dict, device: str = "cuda"):
         preds.append(pred)
     launches = read_launches()
     require_launches(launches, {"embedding_lookup": len(requests), "embedding_grad": 0,
-                                "fused_adam": 0}, "serving")
+                                "fused_adam": 0, "fused_encoder": 0}, "serving")
 
     max_err = 0.0
     for req, pred in zip(requests[:3], preds[:3]):
@@ -610,12 +651,12 @@ def labelled_loader(score, batches: int, seed: int) -> DataLoader:
 
 
 def reset_launches() -> None:
-    lookup.LAUNCHES = grad.LAUNCHES = adam.LAUNCHES = 0
+    lookup.LAUNCHES = grad.LAUNCHES = adam.LAUNCHES = encoder.LAUNCHES = 0
 
 
 def read_launches() -> dict:
     return {"embedding_lookup": lookup.LAUNCHES, "embedding_grad": grad.LAUNCHES,
-            "fused_adam": adam.LAUNCHES}
+            "fused_adam": adam.LAUNCHES, "fused_encoder": encoder.LAUNCHES}
 
 
 def require_launches(got: dict, want: dict, what: str) -> None:
@@ -678,7 +719,8 @@ def phase_training(path: str, enc_dict: dict, score, ckpt_dir: str, device: str 
     launches = read_launches()
     steps = EPOCHS * TRAIN_BATCHES
     require_launches(launches, {"embedding_lookup": steps + EPOCHS * VALID_BATCHES,
-                                "embedding_grad": 0, "fused_adam": steps}, "fused fit")
+                                "embedding_grad": 0, "fused_adam": steps,
+                                "fused_encoder": 0}, "fused fit")
     if not trainer._train_step.fused:
         raise RuntimeError("fit did not take the fused step")
     first, last = float(np.mean(losses[:3])), float(np.mean(losses[-3:]))
@@ -703,8 +745,8 @@ def phase_training(path: str, enc_dict: dict, score, ckpt_dir: str, device: str 
     finally:
         del os.environ["REC_PANGU_TPU_FUSED_ADAM"]
     require_launches(std_launches, {"embedding_lookup": STD_STEPS,
-                                    "embedding_grad": STD_STEPS, "fused_adam": 0},
-                     "standard-step fit")
+                                    "embedding_grad": STD_STEPS, "fused_adam": 0,
+                                    "fused_encoder": 0}, "standard-step fit")
     if std_trainer._train_step.fused or not np.all(np.isfinite(std_losses)):
         raise RuntimeError(f"the standard step did not run cleanly: {std_losses}")
 
@@ -790,6 +832,396 @@ def phase_train_profile(trainer: RankTrainer, batches) -> dict:
             "device_idle_share": 1.0 - busy_s / wall_s, "device_ops": ops}
 
 
+# ----------------------------------------------------------------- sequence
+def random_encoder(dim: int, heads: int, inner: int, layers: int, act: str, seed: int,
+                   dev) -> TransformerEncoder:
+    """A TransformerEncoder with seeded random weights: the JAX package's
+    init, plus small random biases and LayerNorm terms so that every term
+    of a block counts."""
+    gen = torch.Generator().manual_seed(seed)
+    enc = TransformerEncoder(dim, layers, heads, inner, 0.0, 0.0, act,
+                             SEQ_CONFIG["layer_norm_eps"], gen)
+    with torch.no_grad():
+        for p in enc.parameters():
+            if p.dim() == 1:
+                p.add_(torch.randn(p.shape, generator=gen) * 0.1)
+    return enc.to(dev).eval()
+
+
+def prefix_masks(n: int, length: int, gen, min_len: int = 0) -> torch.Tensor:
+    """[n, length] float32 masks of histories whose lengths are uniform in
+    [min_len, length]: valid items first, then padding."""
+    lengths = torch.randint(min_len, length + 1, (n,), generator=gen, device=gen.device)
+    return (torch.arange(length, device=gen.device)[None] < lengths[:, None]).float()
+
+
+def density_masks(n: int, length: int, gen) -> torch.Tensor:
+    """bench.py's sequence masks: each position valid with probability 0.9."""
+    return (torch.rand(n, length, generator=gen, device=gen.device) < 0.9).float()
+
+
+def rows_with_key(key_valid: torch.Tensor, causal: bool) -> torch.Tensor:
+    """[N, L] bool: query l of sample n may see at least one valid key."""
+    ok = key_valid != 0
+    if causal:
+        return ok.cumsum(dim=1) > 0
+    return ok.any(dim=1, keepdim=True).expand_as(ok)
+
+
+def check_encoder(x, key_valid, enc: TransformerEncoder, causal: bool, what: str) -> dict:
+    """K4f against its plain version on the same inputs, run twice for the
+    same bits.  Rows with a valid key within ENCODER_ATOL.  A row without
+    one scores every key s - 1e6, which float32 rounds to a multiple of
+    1/16: two sums of s that differ in their last bit can round to
+    neighbouring multiples and move one key's weight by e^(1/16), so those
+    rows are held within MASKED_ROW_ATOL (a masking fault, such as a
+    skipped key or a -inf, moves them by order 1 or makes them NaN)."""
+    with torch.no_grad():
+        packed = enc.packed()
+        args = (x, key_valid, packed, enc.n_heads, causal, enc.hidden_act, enc.layer_norm_eps)
+        y = encoder.fused_encoder(*args)
+        require_equal(encoder.fused_encoder(*args), y, f"{what}, run twice")
+        ref = encoder.fused_encoder_reference(*args)
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(y).all()):
+        raise RuntimeError(f"{what}: non-finite encoder output")
+    err = (y - ref).abs().amax(dim=-1)
+    has = rows_with_key(key_valid, causal)
+    out = {"case": what, "max_abs_err": err.max().item(),
+           "rows_with_key_err": err[has].max().item() if bool(has.any()) else 0.0,
+           "rows_without_key": int((~has).sum().item()),
+           "rows_without_key_err": err[~has].max().item() if bool((~has).any()) else 0.0}
+    if out["rows_with_key_err"] > ENCODER_ATOL or out["rows_without_key_err"] > MASKED_ROW_ATOL:
+        raise RuntimeError(f"{what}: kernel differs from its plain version: {out}")
+    return out
+
+
+def library_encoder(enc: TransformerEncoder) -> torch.nn.TransformerEncoder:
+    """torch.nn.TransformerEncoder (post-LN, batch_first, tanh-gelu, dropout
+    0, the same eps) holding ``enc``'s weights."""
+    first = enc.blocks[0]
+    dim, inner = first.query.weight.shape[0], first.ffn_1.weight.shape[0]
+    layer = torch.nn.TransformerEncoderLayer(
+        dim, enc.n_heads, dim_feedforward=inner, dropout=0.0,
+        activation=lambda h: torch.nn.functional.gelu(h, approximate="tanh"),
+        layer_norm_eps=enc.layer_norm_eps, batch_first=True, norm_first=False)
+    lib = torch.nn.TransformerEncoder(layer, len(enc.blocks), enable_nested_tensor=False)
+    lib = lib.to(first.query.weight.device).eval()
+    with torch.no_grad():
+        for blk, lay in zip(enc.blocks, lib.layers):
+            attn = lay.self_attn
+            attn.in_proj_weight.copy_(torch.cat([blk.query.weight, blk.key.weight,
+                                                 blk.value.weight]))
+            attn.in_proj_bias.copy_(torch.cat([blk.query.bias, blk.key.bias, blk.value.bias]))
+            for dst, src in ((attn.out_proj, blk.dense), (lay.linear1, blk.ffn_1),
+                             (lay.linear2, blk.ffn_2), (lay.norm1, blk.LayerNorm_0),
+                             (lay.norm2, blk.LayerNorm_1)):
+                dst.weight.copy_(src.weight)
+                dst.bias.copy_(src.bias)
+    return lib
+
+
+def encoder_work(n: int, length: int, dim: int, inner: int, layers: int, packed) -> tuple:
+    """(flop, bytes) the encoder function needs: every product of the
+    projections, the full L x L scores and the probabilities times v, as
+    the function defines them; x read and y written once, the mask and the
+    weights read once."""
+    flop = 2 * n * length * layers * (4 * dim * dim + 2 * dim * inner + 2 * length * dim)
+    moved = 2 * n * length * dim * 4 + n * length * 4 + sum(t.numel() * 4 for t in packed)
+    return flop, moved
+
+
+def phase_fused_encoder(bandwidth: float, fp32: float) -> dict:
+    """K4f against its plain version at the bench shape (prefix masks with
+    empty histories, bench.py's 0.9-density masks) and at edge shapes; times
+    of the kernel, the plain version and torch.nn.TransformerEncoder."""
+    t_start = time.perf_counter()
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 41)
+    heads, inner, layers = SEQ_CONFIG["n_heads"], SEQ_CONFIG["inner_size"], SEQ_CONFIG["n_layers"]
+
+    def x_of(n, length, dim):  # embedding-sized rows, as the item table holds
+        return torch.randn(n, length, dim, generator=gen, device=dev) * math.sqrt(2.0 / dim)
+
+    enc = random_encoder(SEQ_DIM, heads, inner, layers, "gelu", SEED + 40, dev)
+    x = x_of(SEQ_BATCH, SEQ_L, SEQ_DIM)
+    masks = {"prefix": prefix_masks(SEQ_BATCH, SEQ_L, gen),
+             "density_0.9": density_masks(SEQ_BATCH, SEQ_L, gen)}
+    cases = [check_encoder(x, kv, enc, True, f"bench shape, {kind} masks")
+             for kind, kv in masks.items()]
+    for n in (1, 3, 1027):
+        cases.append(check_encoder(x_of(n, SEQ_L, SEQ_DIM), prefix_masks(n, SEQ_L, gen), enc,
+                                   True, f"N={n}"))
+    for length in (1, 20):
+        cases.append(check_encoder(x_of(64, length, SEQ_DIM), prefix_masks(64, length, gen),
+                                   enc, True, f"L={length}"))
+    for dim, n_heads, act, causal in ((32, 2, "gelu", True), (SEQ_DIM, heads, "relu", True),
+                                      (SEQ_DIM, heads, "swish", True),
+                                      (SEQ_DIM, heads, "gelu", False)):
+        e = random_encoder(dim, n_heads, inner, layers, act, SEED + 42, dev)
+        cases.append(check_encoder(x_of(256, SEQ_L, dim), prefix_masks(256, SEQ_L, gen), e,
+                                   causal, f"D={dim} heads={n_heads} {act} causal={causal}"))
+
+    kv = masks["prefix"]
+    eps = enc.layer_norm_eps
+    with torch.no_grad():
+        packed = enc.packed()
+        lib = library_encoder(enc)
+        lib_mask = encoder.additive_mask(kv, True)[:, 0].repeat_interleave(heads, dim=0)
+        y = encoder.fused_encoder(x, kv, packed, heads, True, "gelu", eps)
+        lib_y = lib(x, mask=lib_mask)
+        has = rows_with_key(kv, True)
+        lib_err = (lib_y - y).abs().amax(dim=-1)[has].max().item()
+        if lib_err > ENCODER_ATOL:
+            raise RuntimeError(f"torch.nn.TransformerEncoder differs from the kernel by "
+                               f"{lib_err} on rows with a valid key")
+        ms = median_ms([lambda: encoder.fused_encoder(x, kv, packed, heads, True, "gelu", eps)])
+        plain_ms = median_ms([lambda: encoder.fused_encoder_reference(
+            x, kv, packed, heads, True, "gelu", eps)])
+        library_ms = median_ms([lambda: lib(x, mask=lib_mask)])
+        call = call_ms(lambda: encoder.fused_encoder(x, kv, packed, heads, True, "gelu", eps))
+    flop, moved = encoder_work(SEQ_BATCH, SEQ_L, SEQ_DIM, inner, layers, packed)
+    by_ops, by_bytes = flop / fp32 * 1e3, moved / bandwidth * 1e3
+    return {
+        "name": "fused_encoder", "route": "cuda",
+        "source": "rec_pangu_tpu_torch/csrc/fused_encoder.cu",
+        "replaces": "rec_pangu_tpu/ops/kernels/fused_encoder.py:175",
+        "max_abs_err": max(c["max_abs_err"] for c in cases),
+        "tolerance": f"rows with a valid key atol {ENCODER_ATOL}, rows without one atol "
+                     f"{MASKED_ROW_ATOL} (s - 1e6 rounds to multiples of 1/16)",
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": max(by_ops, by_bytes),
+        "bound_by": "operations" if by_ops >= by_bytes else "bytes",
+        "library_ms": library_ms,
+        "library": "torch.nn.TransformerEncoder (post-LN, batch_first, tanh gelu, "
+                   "additive float mask [N*H, L, L])",
+        "library_max_abs_err_rows_with_key": lib_err, "call_ms": call,
+        "flop": flop, "bytes": moved, "ops_bound_ms": by_ops, "bytes_bound_ms": by_bytes,
+        "shape": {"N": SEQ_BATCH, "L": SEQ_L, "D": SEQ_DIM, "heads": heads, "inner": inner,
+                  "layers": layers, "act": "gelu", "causal": True, "masks": "prefix"},
+        "cases": cases, "seconds": time.perf_counter() - t_start,
+    }
+
+
+def write_seq_checkpoint(path: str) -> dict:
+    """A SASRec checkpoint in the JAX package's layout at full width, made
+    with numpy from the seed: the item table [padded_rows(1,000,000), 64]
+    and two blocks of flax-named weights (small random biases and LayerNorm
+    terms)."""
+    rng = np.random.default_rng(SEED + 50)
+    f = np.float32
+    D, inner = SEQ_DIM, SEQ_CONFIG["inner_size"]
+
+    def dense(n_in, n_out):
+        return {"kernel": rng.standard_normal((n_in, n_out), dtype=f) * f(math.sqrt(2.0 / n_in)),
+                "bias": rng.standard_normal(n_out, dtype=f) * f(0.1)}
+
+    def norm():
+        return {"scale": f(1) + rng.standard_normal(D, dtype=f) * f(0.1),
+                "bias": rng.standard_normal(D, dtype=f) * f(0.1)}
+
+    blocks = {}
+    for i in range(SEQ_CONFIG["n_layers"]):
+        blocks[f"TransformerBlock_{i}"] = {
+            **{n: dense(D, D) for n in ("query", "key", "value", "dense")},
+            "ffn_1": dense(D, inner), "ffn_2": dense(inner, D),
+            "LayerNorm_0": norm(), "LayerNorm_1": norm()}
+    table = rng.standard_normal((padded_rows(SEQ_VOCAB), D), dtype=f) * f(math.sqrt(2.0 / D))
+    enc_dict = {"item_id": {"vocab_size": SEQ_VOCAB}}
+    save_checkpoint(path, {"item_emb": {"table": table}, "self_attention": blocks}, None,
+                    enc_dict=enc_dict)
+    return enc_dict
+
+
+def load_seq_model(path: str, enc_dict: dict, device: str):
+    """SASRec at full width loaded from ``path`` onto ``device``."""
+    model = port.get_model("SASRec")(enc_dict=enc_dict, config=SEQ_CONFIG)
+    SequenceTrainer(device=device).load_model(model, path)
+    return model
+
+
+def make_seq_requests(count: int, seed: int):
+    """``count`` requests of SEQ_BATCH histories: lengths uniform in
+    [1, SEQ_L], items first, then padding, as the sequence datasets lay
+    them out."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(count):
+        lengths = rng.integers(1, SEQ_L + 1, SEQ_BATCH)
+        mask = (np.arange(SEQ_L)[None, :] < lengths[:, None]).astype(np.float32)
+        items = rng.integers(1, SEQ_VOCAB, (SEQ_BATCH, SEQ_L))
+        out.append({"hist_item_list": np.where(mask > 0, items, 0).astype(np.int32),
+                    "hist_mask_list": mask})
+    return out
+
+
+def compare_topk(ids, scores, cpu_ids, cpu_scores) -> int:
+    """Card top-k against the CPU's top-(k+1) of the same requests: scores
+    within SCORE_ATOL everywhere, ids equal except at positions whose CPU
+    score lies within SCORE_ATOL of a neighbour's.  Returns the count of
+    such positions."""
+    k = ids.shape[1]
+    score_err = float(np.abs(scores - cpu_scores[:, :k]).max())
+    if score_err > SCORE_ATOL:
+        raise RuntimeError(f"card scores differ from the CPU's by {score_err}")
+    near = np.abs(np.diff(cpu_scores, axis=1)) <= SCORE_ATOL  # [B, k]: p and p+1 tie
+    tied = near.copy()
+    tied[:, 1:] |= near[:, :-1]
+    differ = ids != cpu_ids[:, :k]
+    if bool((differ & ~tied).any()):
+        raise RuntimeError("card top-k ids differ from the CPU's at untied positions")
+    return int(differ.sum())
+
+
+def phase_seq_serving(path: str, enc_dict: dict, device: str = "cuda"):
+    """SASRec retrieval at full width from a JAX-layout checkpoint:
+    SequenceTrainer.load_model, make_retrieval_scorer, 1024 histories a
+    request, top-200 of the whole L2-normalized corpus."""
+    t_start = time.perf_counter()
+    model = load_seq_model(path, enc_dict, device)
+    retrieve = make_retrieval_scorer(model, topk=SEQ_TOPK, device=device)
+    setup_s = time.perf_counter() - t_start
+    requests = make_seq_requests(SEQ_WARMUP + SEQ_REQUESTS, SEED + 51)
+
+    # the main path: every count is 0 just before it and read just after
+    reset_launches()
+    outs, latencies = [], []
+    for i, req in enumerate(requests):
+        t0 = time.perf_counter()
+        scores, ids = retrieve(req)
+        if i >= SEQ_WARMUP:
+            latencies.append(time.perf_counter() - t0)
+        if (scores.shape != (SEQ_BATCH, SEQ_TOPK) or ids.shape != scores.shape
+                or not np.all(np.isfinite(scores)) or bool((np.diff(scores, axis=1) > 0).any())
+                or ids.min() < 1 or ids.max() >= SEQ_VOCAB):
+            raise RuntimeError(f"bad retrieval answer for request {i}")
+        if i < SEQ_CPU_CHECKS:
+            outs.append((scores, ids))
+    launches = read_launches()
+    n = len(requests)
+    require_launches(launches, {"embedding_lookup": n, "embedding_grad": 0, "fused_adam": 0,
+                                "fused_encoder": n}, "seq_serving")
+
+    cpu_model = load_seq_model(path, enc_dict, "cpu")
+    cpu_retrieve = make_retrieval_scorer(cpu_model, topk=SEQ_TOPK + 1, device="cpu")
+    emb_err, differing = 0.0, 0
+    for req, (scores, ids) in zip(requests, outs):
+        with torch.inference_mode():
+            card_emb = model(model.upload_batch(req, torch.device(device)))["user_emb"]
+            cpu_emb = cpu_model(cpu_model.upload_batch(req, torch.device("cpu")))["user_emb"]
+        emb_err = max(emb_err, (card_emb.cpu() - cpu_emb).abs().max().item())
+        cpu_scores, cpu_ids = cpu_retrieve(req)
+        differing += compare_topk(ids, scores, cpu_ids, cpu_scores)
+    if emb_err > USER_EMB_ATOL:
+        raise RuntimeError(f"card user_emb differs from the CPU's by {emb_err} > {USER_EMB_ATOL}")
+    del cpu_model, cpu_retrieve
+
+    summary = {
+        "phase": "seq_serving", "model": "SASRec", "config": SEQ_CONFIG, "vocab": SEQ_VOCAB,
+        "table_rows": int(model.item_emb.table.shape[0]), "batch": SEQ_BATCH, "topk": SEQ_TOPK,
+        "requests": SEQ_REQUESTS, "warmup": SEQ_WARMUP, "launches": launches,
+        "launches_per_request": {k: v / n for k, v in launches.items()},
+        "p50_ms": statistics.median(latencies) * 1e3,
+        "p90_ms": float(np.percentile(latencies, 90)) * 1e3,
+        "users_per_s": SEQ_REQUESTS * SEQ_BATCH / sum(latencies),
+        "cpu_checked_requests": len(outs), "user_emb_max_abs_err_vs_cpu": emb_err,
+        "user_emb_atol": USER_EMB_ATOL, "score_atol": SCORE_ATOL,
+        "topk_positions_compared": len(outs) * SEQ_BATCH * SEQ_TOPK,
+        "topk_positions_differing_at_ties": differing,
+        "setup_s": setup_s, "seconds": time.perf_counter() - t_start,
+    }
+    return summary, model, requests[SEQ_WARMUP:SEQ_WARMUP + SEQ_PROFILED]
+
+
+def phase_seq_profile(model, requests) -> dict:
+    """Where a retrieval request's time goes.  Host stages, each ended by a
+    synchronize: the id check, the check plus upload, the encoder (lookup,
+    K4f, the last-position gather), the scoring (normalize and the
+    [1024, 64] x [64, 1,000,000] product), the top-200, the copy back.
+    Then torch.profiler over the scorer: device time by operation and the
+    card's idle share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    t_start = time.perf_counter()
+    dev = torch.device("cuda")
+    with torch.inference_mode():
+        items = l2_normalize(model.output_items())
+    stages = {k: [] for k in ("check_ids", "check_and_upload", "encoder", "scoring", "topk",
+                              "download")}
+    for req in requests:
+        t = [time.perf_counter()]
+        check_item_ids(req["hist_item_list"], model.item_emb.vocab_size)
+        t.append(time.perf_counter())
+        inputs = model.upload_batch(req, dev)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        with torch.inference_mode():
+            user_emb = model(inputs)["user_emb"]
+            torch.cuda.synchronize()
+            t.append(time.perf_counter())
+            scores = torch.matmul(l2_normalize(user_emb), items.T)
+            torch.cuda.synchronize()
+            t.append(time.perf_counter())
+            top, ids = torch.topk(scores, SEQ_TOPK, dim=-1)
+            ids = ids.to(torch.int32)
+            torch.cuda.synchronize()
+            t.append(time.perf_counter())
+        top.cpu().numpy(), ids.cpu().numpy()
+        t.append(time.perf_counter())
+        for key, a, b in zip(stages, t, t[1:]):
+            stages[key].append(b - a)
+    del items, scores
+
+    retrieve = make_retrieval_scorer(model, topk=SEQ_TOPK, device=dev)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for req in requests:
+            retrieve(req)
+        wall_s = time.perf_counter() - t0
+    busy_s, ops = profile_ops(prof, len(requests), "request")
+    n = len(requests)
+    return {
+        "phase": "seq_profile", "requests": n,
+        "host_stage_p50_ms": {k: statistics.median(v) * 1e3 for k, v in stages.items()},
+        "wall_ms_per_request": wall_s * 1e3 / n,
+        "device_busy_ms_per_request": busy_s * 1e3 / n,
+        "device_idle_share": 1.0 - busy_s / wall_s, "device_ops": ops,
+        "seconds": time.perf_counter() - t_start,
+    }
+
+
+def phase_seq_eval(device: str = "cuda") -> dict:
+    """SequenceTrainer.evaluate_model on the bundled MovieLens sample
+    (get_dataloader, task_type "sequence", max_length 50), SASRec at D=64
+    from seeded weights, on the card and on the CPU: recall, ndcg and hit
+    rate at 20, 50 and 100 must be equal (both are rounded to 4 dp)."""
+    import pandas as pd
+
+    t_start = time.perf_counter()
+    dfs = [pd.read_csv(os.path.join(SEQ_DATA, f"sample_{n}.csv"))
+           for n in ("train", "valid", "test")]
+    schema = {"user_col": "user_id", "item_col": "item_id", "time_col": "timestamp",
+              "max_length": SEQ_L, "task_type": "sequence"}
+    loaders = get_dataloader(*dfs, schema, batch_size=SEQ_BATCH)
+    model = port.get_model("SASRec")(enc_dict=loaders[3], config=SEQ_CONFIG, seed=SEED)
+    cpu_model = copy.deepcopy(model)  # the same weights, kept on the CPU
+    splits = {"valid": loaders[1], "test": loaders[2]}
+    reset_launches()
+    card = {k: SequenceTrainer(device=device).evaluate_model(model, v)
+            for k, v in splits.items()}
+    launches = read_launches()
+    batches = sum(len(v) for v in splits.values())
+    require_launches(launches, {"embedding_lookup": batches, "embedding_grad": 0,
+                                "fused_adam": 0, "fused_encoder": batches}, "seq_eval")
+    cpu = {k: SequenceTrainer(device="cpu").evaluate_model(cpu_model, v)
+           for k, v in splits.items()}
+    if card != cpu:
+        raise RuntimeError(f"card metrics {card} differ from the CPU's {cpu}")
+    return {"phase": "seq_eval", "model": "SASRec", "users": {k: len(v.dataset)
+                                                             for k, v in splits.items()},
+            "vocab": loaders[3]["item_id"]["vocab_size"], "launches": launches,
+            "metrics": card, "equal_to_cpu": True, "seconds": time.perf_counter() - t_start}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -810,7 +1242,8 @@ def main() -> int:
           "libraries": sorted(os.path.relpath(p, ROOT) for p in libs.values())})
 
     bandwidth = peak_bandwidth(kind)
-    rows = [phase_kernel(bandwidth), phase_table_grad(bandwidth), phase_fused_adam(bandwidth)]
+    rows = [phase_kernel(bandwidth), phase_table_grad(bandwidth), phase_fused_adam(bandwidth),
+            phase_fused_encoder(bandwidth, peak_fp32(kind))]
     for row in rows:
         emit({"phase": "kernel", **row})
 
@@ -827,12 +1260,26 @@ def main() -> int:
         batches = [b for _, b in zip(range(TRAIN_PROFILED), train_loader)]
         emit(phase_card_vs_cpu(path, enc_dict, batches[:CPU_STEPS]))
         emit(phase_train_profile(trainer, batches))
+        del trainer, train_loader, batches
+
+        t0 = time.perf_counter()
+        seq_path = os.path.join(tmp, "sasrec.ckpt")
+        seq_enc_dict = write_seq_checkpoint(seq_path)
+        emit({"phase": "seq_checkpoint", "seconds": time.perf_counter() - t0,
+              "bytes": os.path.getsize(seq_path)})
+        seq_serving, seq_model, seq_profiled = phase_seq_serving(seq_path, seq_enc_dict)
+        emit(seq_serving)
+        emit(phase_seq_profile(seq_model, seq_profiled))
+        del seq_model
+        emit(phase_seq_eval())
 
     # launches on each kernel's own main path: the lookup's on serving, the
-    # fused Adam's on the fused fit, the gradient's on the standard-step fit
+    # fused Adam's on the fused fit, the gradient's on the standard-step fit,
+    # the encoder's on SASRec serving
     launches = {"embedding_lookup": serving["launches"]["embedding_lookup"],
                 "fused_adam": training["launches"]["fused_adam"],
-                "embedding_grad": training["standard_launches"]["embedding_grad"]}
+                "embedding_grad": training["standard_launches"]["embedding_grad"],
+                "fused_encoder": seq_serving["launches"]["fused_encoder"]}
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     emit({"kernels": [{k: launches[row["name"]] if k == "launches" else row[k] for k in keys}

@@ -7,7 +7,10 @@ written by hand for Hopper (``ops/kernels``, sources in ``csrc``).
 
 Ported so far: DeepFM ranking served and trained end to end (data,
 encoders, metrics, model, checkpoints in the JAX layout, ``RankTrainer``
-with ``fit`` on the fused or the standard train step, ``make_ranking_scorer``).
+with ``fit`` on the fused or the standard train step, ``make_ranking_scorer``);
+SASRec retrieval served and evaluated (sequence datasets, the fused
+transformer encoder, ``SequenceTrainer.evaluate_model``,
+``make_retrieval_scorer``).
 Entry points run on the CUDA card unless the caller passes
 ``device="cpu"``.
 """
@@ -15,6 +18,6 @@ __version__ = "0.1.0"
 
 from .data import get_dataloader
 from .models import get_model
-from .train import RankTrainer
+from .train import RankTrainer, SequenceTrainer
 
-__all__ = ["get_dataloader", "get_model", "RankTrainer", "__version__"]
+__all__ = ["get_dataloader", "get_model", "RankTrainer", "SequenceTrainer", "__version__"]

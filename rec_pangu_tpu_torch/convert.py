@@ -8,7 +8,8 @@ under those names (``jax_leaves``), so the mapping is explicit:
   ``[out, in]``: transposed.
 * the fused embedding table is copied as it is, pad rows included.
 * BatchNorm ``scale``/``bias``/``mean``/``var`` map to
-  ``weight``/``bias``/``running_mean``/``running_var``.
+  ``weight``/``bias``/``running_mean``/``running_var``; LayerNorm
+  ``scale``/``bias`` to ``weight``/``bias``.
 
 A missing, extra or wrongly shaped leaf raises ``ValueError``.
 """

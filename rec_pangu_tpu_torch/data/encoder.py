@@ -49,6 +49,17 @@ def fit_enc_dict(df, schema: dict) -> Dict[str, dict]:
     return enc_dict
 
 
+def fit_sequence_enc_dict(df, schema: dict) -> Dict[str, dict]:
+    """Fit a sequence enc_dict: ids 1..n, 0 = padding/OOV, vocab_size = n+1."""
+    enc_dict: Dict[str, dict] = {}
+    for f in [schema["item_col"]] + list(schema.get("cate_cols", []) or []):
+        uniques = sorted(df[f].astype(str).unique())
+        mapping = dict(zip(uniques, range(1, 1 + len(uniques))))
+        mapping[OOV_SENTINEL] = len(uniques) + 1
+        enc_dict[f] = mapping
+    return enc_dict
+
+
 @dataclasses.dataclass(frozen=True)
 class FeatureSpec:
     """Static description of the fused feature layout, derived from enc_dict.

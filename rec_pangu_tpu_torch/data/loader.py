@@ -3,6 +3,8 @@
 The dataset is already encoded, so a batch is one fancy-index of each array;
 batches are dicts of numpy arrays, uploaded by the trainer or scorer.
 ``drop_last=False`` keeps every row (all rows contribute to metrics).
+A dataset with a ``resample(epoch)`` method (the sequence datasets) gets
+it called at the start of every iteration, with the epoch counted here.
 """
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ class DataLoader:
         self.shard_rank = int(shard_rank)
         self.num_shards = int(num_shards)
         self._rng = np.random.default_rng(seed)
+        self._epoch = 0
 
     def _shard_size(self) -> int:
         return len(range(self.shard_rank, len(self.dataset), self.num_shards))
@@ -35,6 +38,9 @@ class DataLoader:
         return (n + self.batch_size - 1) // self.batch_size
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        if hasattr(self.dataset, "resample"):
+            self.dataset.resample(self._epoch)
+        self._epoch += 1
         arrays = self.dataset.arrays
         idx = np.arange(len(self.dataset))
         if self.shuffle:

@@ -9,6 +9,7 @@ from typing import Tuple
 
 from .dataset import MultiTaskDataset, RankingDataset
 from .loader import DataLoader
+from .sequence import SequenceDataset, SequenceDatasetV2
 
 DEFAULT_BATCH_SIZE = 512 * 3
 
@@ -23,6 +24,30 @@ def _split_loaders(cls, train_df, valid_df, test_df, schema, batch_size):
         DataLoader(test_ds, batch_size, shuffle=False),
         train_ds.enc_dict,
     )
+
+
+def _sequence_dataloader(cls, train_df, valid_df, test_df, schema, batch_size):
+    train_ds = cls(schema, train_df, phase="train")
+    valid_ds = cls(schema, valid_df, enc_dict=train_ds.enc_dict, phase="valid")
+    test_ds = cls(schema, test_df, enc_dict=train_ds.enc_dict, phase="test")
+    return (
+        DataLoader(train_ds, batch_size, shuffle=True),
+        DataLoader(valid_ds, batch_size, shuffle=False),
+        DataLoader(test_ds, batch_size, shuffle=False),
+        train_ds.enc_dict,
+    )
+
+
+def get_sequence_dataloader(train_df, valid_df, test_df, schema,
+                            batch_size: int = DEFAULT_BATCH_SIZE) -> Tuple:
+    return _sequence_dataloader(SequenceDataset, train_df, valid_df, test_df, schema,
+                                batch_size)
+
+
+def get_sequence_dataloader_v2(train_df, valid_df, test_df, schema,
+                               batch_size: int = DEFAULT_BATCH_SIZE) -> Tuple:
+    return _sequence_dataloader(SequenceDatasetV2, train_df, valid_df, test_df, schema,
+                                batch_size)
 
 
 def get_single_dataloader(test_df, schema: dict, enc_dict: dict,
@@ -47,7 +72,7 @@ def get_dataloader(train_df, valid_df, test_df, schema: dict,
         return _split_loaders(MultiTaskDataset, train_df, valid_df, test_df,
                               schema, batch_size)
     if task_type == "sequence":
-        raise NotImplementedError(
-            "task_type='sequence' is not ported yet: the sequence datasets "
-            "arrive with the sequence-recall slice of the port")
+        if schema.get("protocol", "v1") == "v2":
+            return get_sequence_dataloader_v2(train_df, valid_df, test_df, schema, batch_size)
+        return get_sequence_dataloader(train_df, valid_df, test_df, schema, batch_size)
     raise ValueError(f"Unknown task_type: {task_type!r}")

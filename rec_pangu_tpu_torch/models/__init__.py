@@ -1,6 +1,8 @@
-from .base import MODEL_REGISTRY, RankModelBase, get_model, register_model
+from .base import (MODEL_REGISTRY, RankModelBase, SequenceModelBase, get_model,
+                   register_model)
 from .losses import get_loss_fn
 from .ranking import *  # noqa: F401,F403
+from .sequence import *  # noqa: F401,F403
 
-__all__ = ["MODEL_REGISTRY", "RankModelBase", "get_model", "register_model",
-           "get_loss_fn"]
+__all__ = ["MODEL_REGISTRY", "RankModelBase", "SequenceModelBase", "get_model",
+           "register_model", "get_loss_fn"]

@@ -1,7 +1,8 @@
 from .activations import get_activation
-from .embedding import FusedEmbedding, check_ids, host_fused_ids, padded_rows
+from .embedding import (FusedEmbedding, ItemEmbedding, check_ids, host_fused_ids,
+                        padded_rows)
 from .interactions import inner_product
 from .mlp import MLP
 
-__all__ = ["get_activation", "FusedEmbedding", "check_ids", "host_fused_ids",
+__all__ = ["get_activation", "FusedEmbedding", "ItemEmbedding", "check_ids", "host_fused_ids",
            "padded_rows", "inner_product", "MLP"]

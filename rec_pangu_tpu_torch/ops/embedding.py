@@ -1,4 +1,7 @@
-"""Fused embedding: one ``[padded_rows, D]`` table behind all sparse fields.
+"""Embedding tables: ``FusedEmbedding`` (ranking) and ``ItemEmbedding``
+(sequence recall).
+
+``FusedEmbedding``: one ``[padded_rows, D]`` table behind all sparse fields.
 
 All F features share one table with static per-feature row offsets, so a
 batch lookup is a single ``[B, F]`` (+offsets) -> ``[B, F, D]`` gather, run
@@ -87,6 +90,45 @@ class FusedEmbedding(nn.Module):
         return [("params", ("table",), self.table, False)]
 
 
+class ItemEmbedding(nn.Module):
+    """Sequence item vocabulary: a ``[padded_rows(vocab), D]`` table whose
+    row 0 (padding and out-of-vocabulary) reads as zero.
+
+    The init is torch's kaiming normal (std sqrt(2/D)) or, with ``init_std``
+    (``config['emb_init_std']``), a normal of that std, as in the JAX
+    package.  The lookup is the same kernel as ``FusedEmbedding``'s (one
+    zero offset over the flattened ids) times ``ids != 0``."""
+
+    def __init__(self, vocab_size: int, embedding_dim: int,
+                 init_std: Optional[float] = None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.vocab_size = int(vocab_size)
+        self.embedding_dim = int(embedding_dim)
+        self.table = nn.Parameter(torch.empty(padded_rows(self.vocab_size),
+                                              self.embedding_dim))
+        self.register_buffer("offsets", torch.zeros(1, dtype=torch.int32), persistent=False)
+        generator = generator if generator is not None else torch.Generator().manual_seed(0)
+        with torch.no_grad():
+            if init_std is None:
+                kaiming_normal_(self.table, generator)
+            else:
+                self.table.normal_(0.0, float(init_std), generator=generator)
+
+    def all_items(self) -> torch.Tensor:
+        """[vocab, D]: the table without its pad rows, row 0 zeroed."""
+        keep = torch.arange(self.vocab_size, device=self.table.device) != 0
+        return self.table[:self.vocab_size] * keep[:, None]
+
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        """[...] int32 item ids -> [..., D]; id 0 gives a zero row."""
+        rows = fused_embedding_lookup(self.table, ids.reshape(-1, 1), self.offsets)
+        return rows.view(*ids.shape, self.embedding_dim) * (ids != 0).unsqueeze(-1)
+
+    def jax_leaves(self) -> List[Tuple[str, tuple, torch.Tensor, bool]]:
+        return [("params", ("table",), self.table, False)]
+
+
 def host_fused_ids(spec: FeatureSpec, sparse) -> np.ndarray:
     """Host (numpy) replica of the fused ids the lookup computes, flattened."""
     return (np.asarray(sparse, dtype=np.int64)
@@ -99,4 +141,13 @@ def check_ids(spec: FeatureSpec, sparse, num_rows: int) -> None:
     ids = host_fused_ids(spec, sparse)
     if ids.size and (int(ids.min()) < 0 or int(ids.max()) >= num_rows):
         raise ValueError(f"id out of range for a {num_rows}-row table: fused ids "
+                         f"span [{int(ids.min())}, {int(ids.max())}]")
+
+
+def check_item_ids(ids, vocab_size: int) -> None:
+    """Raise ValueError when an item id falls outside ``[0, vocab_size)``
+    (0 is padding); the rows past the vocabulary are the table's padding."""
+    ids = np.asarray(ids)
+    if ids.size and (int(ids.min()) < 0 or int(ids.max()) >= vocab_size):
+        raise ValueError(f"item id out of range for a vocabulary of {vocab_size}: ids "
                          f"span [{int(ids.min())}, {int(ids.max())}]")

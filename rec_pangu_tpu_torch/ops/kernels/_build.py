@@ -27,7 +27,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # library name -> its source under csrc/
 SOURCES = {"embedding_lookup": "embedding_lookup.cu",
            "embedding_grad": "embedding_grad.cu",
-           "fused_adam": "fused_adam.cu"}
+           "fused_adam": "fused_adam.cu",
+           "fused_encoder": "fused_encoder.cu"}
 
 _BUILD_TIMEOUT_S = 600
 _LOCK = threading.Lock()

@@ -1,3 +1,3 @@
-from .scorer import construct_dummy_data, make_ranking_scorer
+from .scorer import construct_dummy_data, make_ranking_scorer, make_retrieval_scorer
 
-__all__ = ["construct_dummy_data", "make_ranking_scorer"]
+__all__ = ["construct_dummy_data", "make_ranking_scorer", "make_retrieval_scorer"]

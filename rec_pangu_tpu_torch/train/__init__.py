@@ -1,4 +1,4 @@
 from .ckpt import load_checkpoint, save_checkpoint
-from .trainer import RankTrainer
+from .trainer import RankTrainer, SequenceTrainer
 
-__all__ = ["RankTrainer", "load_checkpoint", "save_checkpoint"]
+__all__ = ["RankTrainer", "SequenceTrainer", "load_checkpoint", "save_checkpoint"]

@@ -1,8 +1,9 @@
-"""RankTrainer: the JAX package's trainer API on PyTorch.
+"""RankTrainer and SequenceTrainer: the JAX package's trainer API on PyTorch.
 
-``fit``, ``load_model``, ``save_model``, ``save_all``, ``save_train_model``,
-``evaluate_model``, ``predict_dataloader`` and ``predict_dataframe`` keep the
-JAX package's names, signatures, checkpoint file names and metric names.
+RankTrainer's ``fit``, ``load_model``, ``save_model``, ``save_all``,
+``save_train_model``, ``evaluate_model``, ``predict_dataloader`` and
+``predict_dataframe`` keep the JAX package's names, signatures, checkpoint
+file names and metric names.
 The weights live in the model module itself: ``load_model`` copies a
 checkpoint into it, and ``fit`` trains it where it stands, on the trainer's
 device.
@@ -15,6 +16,11 @@ are (the JAX ``fit`` initializes new ones from ``seed``; here ``seed`` seeds
 torch's generator, which dropout draws from), and ``resume_from``, ``mesh``,
 ``profile_dir`` and ``steps_per_call > 1`` raise ``NotImplementedError``.
 
+SequenceTrainer serves sequence-recall models: ``load_model``, the
+``save_*`` methods and ``evaluate_model`` (top-200 retrieval over the whole
+corpus, then recall/ndcg/hitrate at each k, as in the JAX package); its
+``fit`` arrives with sequence training.
+
 ``device=None`` means the CUDA card (see ``utils/device.py``); a method's
 ``device`` argument, when given, overrides the trainer's.
 """
@@ -23,7 +29,7 @@ from __future__ import annotations
 import logging
 import os
 import time
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -31,6 +37,7 @@ import torch
 from ..convert import jax_variables, load_jax_variables
 from ..data.loader import DataLoader
 from ..eval.metrics import RollingMetricBuffer, compute_ranking_metrics
+from ..eval.retrieval import evaluate_recall, get_recall_predict
 from ..utils.device import DeviceLike, resolve_device
 from .ckpt import load_checkpoint, save_checkpoint
 from .fused_update import maybe_enable_fused_update
@@ -47,15 +54,60 @@ _NOT_PORTED = {
 }
 
 
-class RankTrainer:
-    def __init__(self, num_task: int = 1, model_ckpt_dir: str = "./model_ckpt",
-                 device: DeviceLike = None):
-        self.num_task = num_task
+class _BaseTrainer:
+    """Checkpoints and the device, shared by the trainers."""
+
+    def __init__(self, model_ckpt_dir: str = "./model_ckpt", device: DeviceLike = None):
         self.model_ckpt_dir = model_ckpt_dir
         self.device = resolve_device(device)
         self.step = 0  # optimizer steps taken; carried from a loaded checkpoint
         self.model = None
         self._train_step = None  # StandardStep or FusedStep, built by fit
+
+    def _device(self, device: DeviceLike) -> torch.device:
+        return self.device if device is None else resolve_device(device)
+
+    # ------------------------------------------------------------- ckpt api
+    def load_model(self, model, path: str) -> dict:
+        """Load a checkpoint (the JAX package's layout) into ``model``, move
+        it to the trainer's device in eval mode, and return the checkpoint."""
+        ckpt = load_checkpoint(path)
+        load_jax_variables(model, {"params": ckpt["params"],
+                                   "batch_stats": ckpt.get("batch_stats")})
+        model.to(self.device).eval()
+        self.step = int(ckpt.get("step", 0))
+        return ckpt
+
+    def save_model(self, model, model_ckpt_dir: str) -> str:
+        """Weights-only checkpoint ``model.ckpt``, readable by both packages."""
+        path = os.path.join(model_ckpt_dir, "model.ckpt")
+        save_checkpoint(path, **jax_variables(model), step=self.step)
+        return path
+
+    def _opt_state(self):
+        return None if self._train_step is None else self._train_step.opt_state(self.step)
+
+    def save_all(self, model, enc_dict: dict, model_ckpt_dir: str) -> str:
+        """Weights, optimizer state and enc_dict in ``model.ckpt``."""
+        path = os.path.join(model_ckpt_dir, "model.ckpt")
+        save_checkpoint(path, **jax_variables(model), opt_state=self._opt_state(),
+                        enc_dict=enc_dict, step=self.step)
+        logger.info(f"Model+enc_dict saved to {path}")
+        return path
+
+    def save_train_model(self, model, model_ckpt_dir: str, model_str: str) -> str:
+        """Per-epoch checkpoint ``model_{model_str}.ckpt`` with optimizer state."""
+        path = os.path.join(model_ckpt_dir, f"model_{model_str}.ckpt")
+        save_checkpoint(path, **jax_variables(model), opt_state=self._opt_state(),
+                        step=self.step)
+        return path
+
+
+class RankTrainer(_BaseTrainer):
+    def __init__(self, num_task: int = 1, model_ckpt_dir: str = "./model_ckpt",
+                 device: DeviceLike = None):
+        super().__init__(model_ckpt_dir, device)
+        self.num_task = num_task
 
     # ----------------------------------------------------------------- train
     def fit(self, model, train_loader: DataLoader, valid_loader: Optional[DataLoader] = None,
@@ -151,45 +203,7 @@ class RankTrainer:
         return compute_ranking_metrics(label_arr, pred_arr, prefix="train_",
                                        num_task=self.num_task)
 
-    # ------------------------------------------------------------- ckpt api
-    def load_model(self, model, path: str) -> dict:
-        """Load a checkpoint (the JAX package's layout) into ``model``, move
-        it to the trainer's device in eval mode, and return the checkpoint."""
-        ckpt = load_checkpoint(path)
-        load_jax_variables(model, {"params": ckpt["params"],
-                                   "batch_stats": ckpt.get("batch_stats")})
-        model.to(self.device).eval()
-        self.step = int(ckpt.get("step", 0))
-        return ckpt
-
-    def save_model(self, model, model_ckpt_dir: str) -> str:
-        """Weights-only checkpoint ``model.ckpt``, readable by both packages."""
-        path = os.path.join(model_ckpt_dir, "model.ckpt")
-        save_checkpoint(path, **jax_variables(model), step=self.step)
-        return path
-
-    def _opt_state(self):
-        return None if self._train_step is None else self._train_step.opt_state(self.step)
-
-    def save_all(self, model, enc_dict: dict, model_ckpt_dir: str) -> str:
-        """Weights, optimizer state and enc_dict in ``model.ckpt``."""
-        path = os.path.join(model_ckpt_dir, "model.ckpt")
-        save_checkpoint(path, **jax_variables(model), opt_state=self._opt_state(),
-                        enc_dict=enc_dict, step=self.step)
-        logger.info(f"Model+enc_dict saved to {path}")
-        return path
-
-    def save_train_model(self, model, model_ckpt_dir: str, model_str: str) -> str:
-        """Per-epoch checkpoint ``model_{model_str}.ckpt`` with optimizer state."""
-        path = os.path.join(model_ckpt_dir, f"model_{model_str}.ckpt")
-        save_checkpoint(path, **jax_variables(model), opt_state=self._opt_state(),
-                        step=self.step)
-        return path
-
     # ------------------------------------------------------------- inference
-    def _device(self, device: DeviceLike) -> torch.device:
-        return self.device if device is None else resolve_device(device)
-
     def _predict(self, model, batch, device: torch.device) -> np.ndarray:
         """[B, num_task] predictions of one host batch."""
         inputs = model.upload_batch(batch, device)
@@ -235,3 +249,36 @@ class RankTrainer:
         else:
             loader = get_single_dataloader(test_df, schema, enc_dict, batch_size)
         return self.predict_dataloader(model, loader, device)
+
+
+class SequenceTrainer(_BaseTrainer):
+    """Driver for sequence-recall models: checkpoints and evaluation."""
+
+    def fit(self, model, train_loader: DataLoader, valid_loader: Optional[DataLoader] = None,
+            epoch: int = 50, lr: float = 1e-3, device: DeviceLike = None,
+            use_earlystopping: bool = False, max_patience: int = 999,
+            monitor_metric: Optional[str] = None, log_rounds: int = 100,
+            topk_list: Optional[List[int]] = None, lr_scheduler_type: str = "",
+            scheduler_params: Optional[dict] = None, seed: int = 1029, mesh=None,
+            steps_per_call: int = 1) -> None:
+        raise NotImplementedError("SequenceTrainer.fit is not ported yet: it arrives with "
+                                  "SASRec training (ROADMAP Queue 1 item 3b)")
+
+    def evaluate_model(self, model, test_loader: DataLoader, device: DeviceLike = None,
+                       topk_list: Optional[List[int]] = None,
+                       approx_recall_target: Optional[float] = None) -> Dict[str, float]:
+        """Top-200 retrieval for every user of ``test_loader`` (a sequence
+        loader of the valid or test phase), then 'recall@k', 'ndcg@k' and
+        'hitrate@k' for each k of ``topk_list`` (20, 50, 100 by default),
+        rounded to 4 dp.  ``approx_recall_target`` is answered exactly."""
+        topk_list = topk_list or [20, 50, 100]
+        model.to(self._device(device)).eval()
+        test_gd = test_loader.dataset.get_test_gd()
+        preds = get_recall_predict(model, test_loader, topn=200,
+                                   approx_recall_target=approx_recall_target)
+        metric_dict: Dict[str, float] = {}
+        for k in topk_list:
+            res = evaluate_recall(preds, test_gd, k)
+            logger.info(res)
+            metric_dict.update(res)
+        return metric_dict

@@ -10,7 +10,7 @@ import rec_pangu_tpu.eval.metrics as jmetrics
 import rec_pangu_tpu_torch.data as tdata
 import rec_pangu_tpu_torch.eval.metrics as tmetrics
 
-from conftest import MULTITASK_SCHEMA, RANKING_SCHEMA
+from conftest import MULTITASK_SCHEMA, RANKING_SCHEMA, SEQ_SCHEMA
 
 
 def _assert_batches_equal(jax_loader, torch_loader):
@@ -67,10 +67,14 @@ def test_label_less_frame_encodes_like_jax(ranking_df):
         np.testing.assert_array_equal(a[k], b[k])
 
 
-def test_sequence_task_type_waits(ranking_df):
-    with pytest.raises(NotImplementedError, match="sequence"):
-        tdata.get_dataloader(ranking_df, ranking_df, ranking_df,
-                             {**RANKING_SCHEMA, "task_type": "sequence"})
+def test_sequence_task_type_waits(ranking_df, seq_dfs):
+    # the sequence datasets are ported now: task_type "sequence" routes to
+    # them by protocol (tests/test_torch_sequence_data.py holds their arrays)
+    for protocol, cls in (("v1", tdata.SequenceDataset), ("v2", tdata.SequenceDatasetV2)):
+        loaders = tdata.get_dataloader(*seq_dfs, {**SEQ_SCHEMA, "protocol": protocol})
+        assert [type(ld.dataset) for ld in loaders[:3]] == [cls] * 3
+        assert [ld.dataset.phase for ld in loaders[:3]] == ["train", "valid", "test"]
+        assert loaders[3] is loaders[0].dataset.enc_dict
     with pytest.raises(ValueError, match="task_type"):
         tdata.get_dataloader(ranking_df, ranking_df, ranking_df,
                              {**RANKING_SCHEMA, "task_type": "graph"})
