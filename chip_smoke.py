@@ -15,8 +15,13 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                PyTorch library call, and the kernel's bound.  The lookup
                (a gather) is bit-equal; the table gradient and the fused Adam
                sum in another order than the plain version's atomics, within
-               the rounding bound stated at ``sum_tolerance``; the fused
-               encoder (K4f) within the tolerances at ``check_encoder``.
+               the rounding bound stated at ``sum_tolerance``; the fused Adam
+               also at the sequence shape with its dense gradient stream and
+               bfloat16 moments (``phase_fused_adam_seq``); the fused
+               encoder (K4f) within the tolerances at ``check_encoder``; its
+               backward (K4b) and dropout forward against the plain version's
+               autograd with the same dropout masks, within the tolerances at
+               ``check_encoder_bwd``, and the masks' seed and keep share.
 4. serving  -- DeepFM at the bench's full width (16 sparse fields x 100,000
                vocab, 9 dense, D=32, MLP (64, 64, 64)) from a checkpoint in
                the JAX package's layout, random weights from a seed: requests
@@ -44,6 +49,19 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                by operation and idle share.
 12. seq_eval -- SequenceTrainer.evaluate_model on the bundled MovieLens
                sample (max_length 50), card against CPU.
+13. seq_ce  -- the streamed softmax CE's forward and backward at the bench
+               shape against F.cross_entropy over the materialized
+               [1024, 1,000,000] logits: loss, d_user, item gradient, times.
+14. seq_training -- SequenceTrainer.fit on SASRec at full width (dropout 0.1)
+               from the checkpoint: 2 epochs of 16 bench-shape batches with
+               validation, log.csv, checkpoints and early stopping on the
+               sequence fused step (K1 + K4f + K4b + K3 once a step); then a
+               few standard steps (K1 + K4f + K4b + K2) and a few fused steps
+               with bfloat16 moments.  Step times and examples/s.
+15. seq_card_vs_cpu -- the first three sequence fused steps on the card and
+               on the CPU (100,000 items, batches of 256, the same dropout).
+16. seq_train_profile -- host stages and torch.profiler over a few
+               sequence fused steps.
 
 Then the kernels line, the card's name and power limit as nvidia-smi gives
 them, and last {"ok": true, "device": {...}}.
@@ -55,6 +73,7 @@ import copy
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -387,36 +406,83 @@ def adam_state(num_rows: int, dim: int, gen):
     return p, m, v
 
 
-def check_adam_step(ids, rows, state, hyper, what: str) -> float:
+def check_adam_step(ids, rows, state, hyper, what: str, dense=None) -> float:
     """One K3 step from ``state`` against the plain version from the same
     state; run twice for the same bits.  Rows hit at most once sum the same
     terms in the same order: bit-equal.  Rows hit more often: the moments
     within the gradient's sum bound (scaled by 1-b1, resp. 2|g|(1-b2)) plus
     two ulps, the table within 2*lr (a gradient within rounding of zero may
-    change sign, and Adam's step is lr*m_hat/(sqrt(v_hat)+eps)).
+    change sign, and Adam's step is lr*m_hat/(sqrt(v_hat)+eps)).  With
+    bfloat16 moments the moments also within one bfloat16 ulp (2^-8
+    relative) of their rounding.  ``dense``: K3's dense gradient stream.
     Returns the largest difference over p, m and v."""
     lr, b1, b2 = (float(x) for x in hyper[:3])
     num_rows = state[0].shape[0]
     outs = []
     for _ in range(2):
         p, m, v = (t.clone() for t in state)
-        adam.planned_adam_update(ids, rows, p, m, v, hyper)
+        adam.planned_adam_update(ids, rows, p, m, v, hyper, dense)
         outs.append((p, m, v))
     for a, b in zip(*outs):
         require_equal(a, b, f"{what}, run twice")
     ref = [t.clone() for t in state]
-    adam.planned_adam_update_reference(ids, rows, *ref, hyper)
+    adam.planned_adam_update_reference(ids, rows, *ref, hyper, dense)
     g_bound, hits = sum_tolerance(ids, rows, num_rows)
     once = (hits <= 1)[:, None]
-    g = grad.table_grad_reference(ids, rows, num_rows).abs()
+    g = grad.table_grad_reference(ids, rows, num_rows)
+    if dense is not None:
+        g = g + dense
+    g = g.abs()
+    ulp = 2 ** -7 if state[1].dtype == torch.bfloat16 else 2 ** -22
     bounds = (torch.full_like(g, 2 * lr),
-              (1 - b1) * g_bound + 2 ** -22 * ref[1].abs(),
-              (1 - b2) * (2 * g + g_bound) * g_bound + 2 ** -22 * ref[2].abs())
+              (1 - b1) * g_bound + ulp * ref[1].float().abs(),
+              (1 - b2) * (2 * g + g_bound) * g_bound + ulp * ref[2].float().abs())
     err = 0.0
     for name, got, want, bound in zip("pmv", outs[0], ref, bounds):
-        err = max(err, require_within(got, want, torch.where(once, 0.0, bound),
+        err = max(err, require_within(got.float(), want.float(), torch.where(once, 0.0, bound),
                                       f"{what}: {name}"))
     return err
+
+
+def phase_fused_adam_seq(bandwidth: float) -> dict:
+    """K3 at the sequence shape (the SASRec table, 1024 histories of 50),
+    with the dense gradient stream, f32 and bfloat16 moments, uniform and
+    skewed ids, against the plain version; times and byte bounds."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 21)
+    num_rows, n = padded_rows(SEQ_VOCAB), SEQ_BATCH * SEQ_L
+    hist = [torch.randint(0, SEQ_VOCAB, (n,), generator=gen, device="cuda", dtype=torch.int32)
+            for _ in range(ID_SETS)]
+    rng = np.random.default_rng(SEED + 31)
+    skewed = {"all_equal": torch.full((n,), SEQ_VOCAB // 2, dtype=torch.int32, device="cuda"),
+              "zipf": torch.from_numpy(np.minimum(rng.zipf(ZIPF_A, n), SEQ_VOCAB - 1)
+                                       .astype(np.int32)).cuda()}
+    cot = torch.randn(n, SEQ_DIM, generator=gen, device="cuda") * 1e-3
+    dense = torch.randn(num_rows, SEQ_DIM, generator=gen, device="cuda") * 1e-6
+    hyper = adam.adam_hyper(2, LR)
+    out, max_abs_err = {}, 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        key = "f32" if dtype == torch.float32 else "bf16"
+        p, m, v = adam_state(num_rows, SEQ_DIM, gen)
+        m, v = m.to(dtype), v.to(dtype)
+        state = (p, m, v)
+        max_abs_err = max(max_abs_err, check_adam_step(hist[0], cot, state, hyper,
+                                                       f"sequence shape, dense, {key}", dense))
+        for kind, x in skewed.items():
+            max_abs_err = max(max_abs_err, check_adam_step(
+                x, cot, state, hyper, f"sequence shape, dense, {key}, {kind}", dense))
+        elem = 4 + 4 + 2 * 2 * m.element_size()  # p read and written, m and v too
+        moved = num_rows * SEQ_DIM * (elem + 4) + n * SEQ_DIM * 4 + n * 4  # + dense, rows, ids
+        out[key] = {
+            "ms": median_ms([lambda x=x: adam.planned_adam_update(x, cot, p, m, v, hyper, dense)
+                             for x in hist]),
+            "plain_ms": median_ms([lambda x=x: adam.planned_adam_update_reference(
+                x, cot, p, m, v, hyper, dense) for x in hist]),
+            "bytes": moved, "bound_ms": moved / bandwidth * 1e3,
+            "skewed_ms": {kind: median_ms([lambda x=x: adam.planned_adam_update(
+                x, cot, p, m, v, hyper, dense)], SKEW_LAUNCHES) for kind, x in skewed.items()},
+        }
+        del p, m, v, state
+    return {"table_rows": num_rows, "ids": n, "dim": SEQ_DIM, "max_abs_err": max_abs_err, **out}
 
 
 def phase_fused_adam(bandwidth: float) -> dict:
@@ -463,11 +529,12 @@ def phase_fused_adam(bandwidth: float) -> dict:
         lib_p.grad.zero_().index_add_(0, x, cot)
         lib_opt.step()
 
+    seq = phase_fused_adam_seq(bandwidth)
     return {
         "name": "fused_adam", "route": "cuda",
         "source": "rec_pangu_tpu_torch/csrc/fused_adam.cu",
         "replaces": "rec_pangu_tpu/ops/kernels/fused_adam.py:54",
-        "max_abs_err": max_abs_err,
+        "max_abs_err": max(max_abs_err, seq["max_abs_err"]),
         "tolerance": "rows hit <= once bit-equal; more: m, v within the gradient's sum "
                      "bound, p within 2*lr",
         "ms": median_ms([lambda x=x: adam.planned_adam_update(x, cot, p, m, v, hyper)
@@ -481,6 +548,7 @@ def phase_fused_adam(bandwidth: float) -> dict:
         "library": "index_add_ into a zeroed gradient, then torch.optim.Adam(fused=True).step",
         "call_ms": call_ms(lambda: adam.planned_adam_update(ids, cot, p, m, v, hyper)),
         "bytes": moved, "edge_cases": edges, "skewed": skewed,
+        "sequence_shape": seq,
     }
 
 
@@ -652,6 +720,7 @@ def labelled_loader(score, batches: int, seed: int) -> DataLoader:
 
 def reset_launches() -> None:
     lookup.LAUNCHES = grad.LAUNCHES = adam.LAUNCHES = encoder.LAUNCHES = 0
+    encoder.BACKWARD_LAUNCHES = 0
 
 
 def read_launches() -> dict:
@@ -1002,6 +1071,264 @@ def phase_fused_encoder(bandwidth: float, fp32: float) -> dict:
     }
 
 
+BWD_REL_TOL = 1e-5         # K4b against plain autograd, dy on rows with a valid key
+                           # (first run: 1.7e-6)
+MASKED_BWD_REL_TOL = 5e-2  # ... dy on every row (see check_encoder_bwd)
+DROP = 0.1                 # SASRec's hidden and attention dropout
+BWD_LAUNCHES = 20          # backward calls a timing graph holds
+
+
+def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got - want| over the largest |want| (at least 1e-30): gradients
+    are sums of many terms, so their rounding scales with the array."""
+    return ((got - want).abs().max() / want.abs().max().clamp(min=1e-30)).item()
+
+
+def encoder_grads(x, kv, packed, dy, heads, causal, act, eps, rate, seed, plain=False):
+    """(y, dx, the 8 packed gradients) of one forward and backward, through
+    the kernels (K4f in training mode, K4b) or the plain version's autograd."""
+    xs = x.detach().clone().requires_grad_()
+    ps = [t.detach().clone().requires_grad_() for t in packed]
+    fn = encoder.fused_encoder_reference if plain else encoder.fused_encoder
+    y = fn(xs, kv, ps, heads, causal, act, eps, True, rate, rate, seed)
+    grads = torch.autograd.grad(y, [xs] + ps, dy)
+    return y.detach(), grads[0], grads[1:]
+
+
+def check_encoder_bwd(x, kv, enc: TransformerEncoder, causal: bool, what: str,
+                      rate: float = DROP, seed: int = 7) -> dict:
+    """K4b (and K4f in training mode) against the plain version's autograd
+    on the same inputs and dropout masks, run twice for the same bits.  With
+    dy zero on the query rows that see no valid key, no value depends on
+    such a row (a valid query gives an invalid key weight exp(-1e6) = 0), so
+    dx and the 8 gradients are held within BWD_REL_TOL of each array's
+    largest entry.  With dy on every row, such rows' probabilities (scores
+    s - 1e6 round to multiples of 1/16, see check_encoder) reach every
+    gradient, which are held within MASKED_BWD_REL_TOL."""
+    heads, act, eps = enc.n_heads, enc.hidden_act, enc.layer_norm_eps
+    packed = [t.detach() for t in enc.packed()]
+    has = rows_with_key(kv, causal)
+    gen = torch.Generator(device=x.device).manual_seed(seed + 1)
+    dy_all = torch.randn(x.shape, generator=gen, device=x.device)
+    out = {"case": what, "dropout": rate}
+    for name, dy in (("key_rows", dy_all * has[..., None]), ("all_rows", dy_all)):
+        y, dx, grads = encoder_grads(x, kv, packed, dy, heads, causal, act, eps, rate, seed)
+        y2, dx2, grads2 = encoder_grads(x, kv, packed, dy, heads, causal, act, eps, rate, seed)
+        for a, b, part in zip((y, dx) + grads, (y2, dx2) + grads2,
+                              ("y", "dx") + encoder.PACKED_NAMES):
+            require_equal(a, b, f"{what}, {part}, run twice")
+        ref_y, ref_dx, ref_grads = encoder_grads(x, kv, packed, dy, heads, causal, act, eps, rate,
+                                                 seed, plain=True)
+        torch.cuda.synchronize()
+        if not all(bool(torch.isfinite(t).all()) for t in (y, dx) + grads):
+            raise RuntimeError(f"{what}: non-finite encoder output or gradient")
+        errs = {"dx": rel_err(dx, ref_dx)}
+        errs.update({n: rel_err(g, r) for n, g, r in zip(encoder.PACKED_NAMES, grads, ref_grads)})
+        out[name] = errs
+        limit = BWD_REL_TOL if name == "key_rows" else MASKED_BWD_REL_TOL
+        if max(errs.values()) > limit:
+            raise RuntimeError(f"{what}: K4b differs from plain autograd ({name}): {errs}")
+        if name == "key_rows":
+            err = (y - ref_y).abs().amax(dim=-1)
+            out["y_rows_with_key_err"] = err[has].max().item() if bool(has.any()) else 0.0
+            if out["y_rows_with_key_err"] > ENCODER_ATOL:
+                raise RuntimeError(f"{what}: the training forward differs from the plain "
+                                   f"version: {out}")
+    out["max_rel_err"] = max(max(out[k].values()) for k in ("key_rows", "all_rows"))
+    return out
+
+
+def phase_fused_encoder_bwd(bandwidth: float, fp32: float) -> dict:
+    """K4b (and K4f's dropout forward) against the plain version's autograd
+    at the bench shape (prefix masks with empty histories, bench.py's
+    0.9-density masks), dropout 0 and 0.1 from one seed, and at edge shapes;
+    the dropout masks' seed dependence and keep share; times of the kernel's
+    backward, the plain backward and torch.nn.TransformerEncoder's."""
+    t_start = time.perf_counter()
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 43)
+    heads, inner, layers = SEQ_CONFIG["n_heads"], SEQ_CONFIG["inner_size"], SEQ_CONFIG["n_layers"]
+
+    def x_of(n, length, dim):
+        return torch.randn(n, length, dim, generator=gen, device=dev) * math.sqrt(2.0 / dim)
+
+    enc = random_encoder(SEQ_DIM, heads, inner, layers, "gelu", SEED + 44, dev)
+    x = x_of(SEQ_BATCH, SEQ_L, SEQ_DIM)
+    masks = {"prefix": prefix_masks(SEQ_BATCH, SEQ_L, gen),
+             "density_0.9": density_masks(SEQ_BATCH, SEQ_L, gen)}
+    cases = [check_encoder_bwd(x, kv, enc, True, f"bench shape, {kind} masks, dropout {rate}",
+                               rate)
+             for kind, kv in masks.items() for rate in (0.0, DROP)]
+    for n in (1, 3, 1027):
+        cases.append(check_encoder_bwd(x_of(n, SEQ_L, SEQ_DIM), prefix_masks(n, SEQ_L, gen),
+                                       enc, True, f"N={n}"))
+    for length in (1, 20):
+        cases.append(check_encoder_bwd(x_of(64, length, SEQ_DIM),
+                                       prefix_masks(64, length, gen), enc, True, f"L={length}"))
+    for dim, n_heads, act, causal in ((32, 2, "gelu", True), (SEQ_DIM, heads, "relu", True),
+                                      (SEQ_DIM, heads, "swish", True),
+                                      (SEQ_DIM, heads, "gelu", False)):
+        e = random_encoder(dim, n_heads, inner, layers, act, SEED + 45, dev)
+        cases.append(check_encoder_bwd(x_of(256, SEQ_L, dim), prefix_masks(256, SEQ_L, gen), e,
+                                       causal, f"D={dim} heads={n_heads} {act} causal={causal}"))
+    # the widest shape: its backward arena exceeds shared memory and lies in
+    # device memory instead
+    e = random_encoder(128, heads, 512, layers, "gelu", SEED + 46, dev)
+    cases.append(check_encoder_bwd(x_of(64, 64, 128), prefix_masks(64, 64, gen), e, True,
+                                   "D=128 inner=512 L=64 (arena in device memory)"))
+
+    # the masks: another seed changes them; the keep share at the bench shape
+    kv = masks["prefix"]
+    packed = [t.detach() for t in enc.packed()]
+    eps = enc.layer_norm_eps
+    with torch.no_grad():
+        args = (x, kv, packed, heads, True, "gelu", eps, True, DROP, DROP)
+        seed_changes = not torch.equal(encoder.fused_encoder(*args, 7),
+                                       encoder.fused_encoder(*args, 8))
+    kept = sum(float((encoder.dropout_scale(7, SEQ_BATCH, li, site, shape, DROP, dev) > 0)
+                     .float().sum())
+               for li in range(layers)
+               for site, shape in ((encoder.ATTN_SITE, (heads, SEQ_L, SEQ_L)),
+                                   (encoder.ATTN_OUT_SITE, (SEQ_L, SEQ_DIM)),
+                                   (encoder.FFN_OUT_SITE, (SEQ_L, SEQ_DIM))))
+    drawn = SEQ_BATCH * layers * (heads * SEQ_L * SEQ_L + 2 * SEQ_L * SEQ_DIM)
+    keep_share = kept / drawn
+    if not seed_changes or abs(keep_share - (1 - DROP)) > 1e-3:
+        raise RuntimeError(f"dropout masks: another seed changes them {seed_changes}, keep "
+                           f"share {keep_share}")
+
+    # times at the bench shape: the backward alone, from the saved forward
+    dy = torch.randn(x.shape, generator=gen, device=dev)
+    opts = (heads, True, "gelu", eps)
+
+    def backward_calls(rate):
+        _, saved = encoder.launch_train(x, kv, packed, *opts, rate, rate, 7, save=True)
+        return [lambda: encoder.launch_backward(saved, kv, dy, packed, *opts, rate, rate, 7)]
+
+    def fwd_bwd(fn, params):
+        def call():
+            xs = x.detach().requires_grad_()
+            torch.autograd.grad(fn(xs), [xs] + params, dy)
+        return [call]
+
+    def forward(fn):
+        def call():
+            with torch.no_grad():
+                fn(x)
+        return [call]
+
+    grad_packed = [t.detach().clone().requires_grad_() for t in packed]
+    kernel = lambda xs: encoder.fused_encoder(xs, kv, grad_packed, *opts, True, DROP, DROP, 7)  # noqa: E731,E501
+    plain = lambda xs: encoder.fused_encoder_reference(xs, kv, grad_packed, *opts, True,  # noqa: E731
+                                                       DROP, DROP, 7)
+    lib = library_encoder(enc).train()
+    lib_mask = encoder.additive_mask(kv, True)[:, 0].repeat_interleave(heads, dim=0)
+    library = lambda xs: lib(xs, mask=lib_mask)  # noqa: E731
+    lib_params = list(lib.parameters())
+
+    # autograd's backward runs where its forward ran, so the plain version's
+    # and the library's backward are timed as forward+backward minus forward
+    times = {
+        "ms": median_ms(backward_calls(DROP), BWD_LAUNCHES),
+        "ms_no_dropout": median_ms(backward_calls(0.0), BWD_LAUNCHES),
+        "forward_ms": median_ms([lambda: encoder.launch_train(x, kv, packed, *opts, DROP, DROP,
+                                                              7, save=True)]),
+        "fwd_bwd_ms": median_ms(fwd_bwd(kernel, grad_packed), BWD_LAUNCHES),
+        "plain_fwd_bwd_ms": median_ms(fwd_bwd(plain, grad_packed), BWD_LAUNCHES),
+        "plain_forward_ms": median_ms(forward(plain), BWD_LAUNCHES),
+        "library_fwd_bwd_ms": median_ms(fwd_bwd(library, lib_params), BWD_LAUNCHES),
+        "library_forward_ms": median_ms(forward(library), BWD_LAUNCHES),
+    }
+    times["plain_ms"] = times["plain_fwd_bwd_ms"] - times["plain_forward_ms"]
+    times["library_ms"] = times["library_fwd_bwd_ms"] - times["library_forward_ms"]
+    flop, moved = encoder_work(SEQ_BATCH, SEQ_L, SEQ_DIM, inner, layers, packed)
+    flop *= 3  # the recomputed forward, then the weight and the input gradients
+    n_el = SEQ_BATCH * SEQ_L * SEQ_DIM
+    # each layer's saved input, dy and the mask read; dx and the gradients written
+    moved = (layers + 2) * n_el * 4 + SEQ_BATCH * SEQ_L * 4 + 2 * sum(t.numel() * 4
+                                                                      for t in packed)
+    by_ops, by_bytes = flop / fp32 * 1e3, moved / bandwidth * 1e3
+    return {
+        "name": "fused_encoder_bwd", "route": "cuda",
+        "source": "rec_pangu_tpu_torch/csrc/fused_encoder.cu",
+        "replaces": "rec_pangu_tpu/ops/kernels/fused_encoder.py:205",
+        "max_abs_err": max(c["max_rel_err"] for c in cases),
+        "tolerance": f"dx and each gradient within {BWD_REL_TOL} of the array's largest entry "
+                     f"(dy on rows with a valid key), {MASKED_BWD_REL_TOL} (dy on every row); "
+                     f"max_abs_err is that relative error",
+        **times, "bound_ms": max(by_ops, by_bytes),
+        "bound_by": "operations" if by_ops >= by_bytes else "bytes",
+        "library": "torch.nn.TransformerEncoder backward, dropout 0 (ms: K4b alone; "
+                   "plain_ms and library_ms: forward+backward minus forward)",
+        "flop": flop, "bytes": moved, "ops_bound_ms": by_ops, "bytes_bound_ms": by_bytes,
+        "keep_share": keep_share, "masks_drawn": drawn, "seed_changes_masks": seed_changes,
+        "shape": {"N": SEQ_BATCH, "L": SEQ_L, "D": SEQ_DIM, "heads": heads, "inner": inner,
+                  "layers": layers, "act": "gelu", "causal": True, "masks": "prefix",
+                  "dropout": DROP},
+        "cases": cases, "seconds": time.perf_counter() - t_start,
+    }
+
+
+CE_RTOL = 1e-4             # streamed CE against F.cross_entropy: the loss
+CE_GRAD_REL_TOL = 1e-4     # ... d_user and the item gradient, of each array's largest entry
+CE_CHUNK_SWEEP = (32_768, 65_536, 262_144)  # timed beside CHUNK_V
+
+
+def phase_seq_ce(fp32: float) -> dict:
+    """The streamed softmax CE (ops/softmax_ce.py) forward and backward at
+    the bench shape, against F.cross_entropy over the materialized
+    [1024, 1,000,000] logits of the same corpus (row 0 zeroed, the pad rows
+    left out): the loss, d_user and the item gradient; times of both."""
+    from rec_pangu_tpu_torch.ops import softmax_ce as ce
+
+    t_start = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 60)
+    rows = padded_rows(SEQ_VOCAB)
+    table = torch.randn(rows, SEQ_DIM, generator=gen, device="cuda") * math.sqrt(2.0 / SEQ_DIM)
+    user = torch.randn(SEQ_BATCH, SEQ_DIM, generator=gen, device="cuda") * 0.5
+    pos = torch.randint(1, SEQ_VOCAB, (SEQ_BATCH,), generator=gen, device="cuda")
+    keep = (torch.arange(SEQ_VOCAB, device="cuda") != 0)[:, None]
+
+    def streamed(chunk=None):
+        u = user.detach().requires_grad_()
+        t = table.detach().requires_grad_()
+        loss = ce.fused_softmax_ce_padded(u, t, pos, SEQ_VOCAB, chunk=chunk)
+        return (loss,) + torch.autograd.grad(loss, [u, t])
+
+    def library():
+        u = user.detach().requires_grad_()
+        t = table.detach().requires_grad_()
+        logits = torch.matmul(u, (t[:SEQ_VOCAB] * keep).t())
+        loss = torch.nn.functional.cross_entropy(logits, pos)
+        return (loss,) + torch.autograd.grad(loss, [u, t])
+
+    loss, d_user, d_items = streamed()
+    again = streamed()
+    for a, b, what in zip((loss, d_user, d_items), again, ("loss", "d_user", "d_items")):
+        require_equal(a, b, f"streamed CE {what}, run twice")
+    lib_loss, lib_user, lib_items = library()
+    torch.cuda.synchronize()
+    errs = {"loss_rel": abs(loss.item() - lib_loss.item()) / abs(lib_loss.item()),
+            "d_user_rel": rel_err(d_user, lib_user), "d_items_rel": rel_err(d_items, lib_items)}
+    if (errs["loss_rel"] > CE_RTOL or errs["d_user_rel"] > CE_GRAD_REL_TOL
+            or errs["d_items_rel"] > CE_GRAD_REL_TOL or bool(d_items[SEQ_VOCAB:].any())
+            or bool(d_items[0].any())):
+        raise RuntimeError(f"the streamed CE differs from F.cross_entropy: {errs}")
+    del again, lib_user, lib_items
+    flop = 4 * 2 * SEQ_BATCH * rows * SEQ_DIM  # logits, their recompute, d_user, d_items
+    out = {"phase": "seq_ce", "batch": SEQ_BATCH, "items": SEQ_VOCAB, "table_rows": rows,
+           "dim": SEQ_DIM, "chunk": ce.CHUNK_V, "chunks": -(-rows // ce.CHUNK_V),
+           "loss": loss.item(), **errs, "loss_rtol": CE_RTOL, "grad_rel_tol": CE_GRAD_REL_TOL,
+           "ms": median_ms([streamed], 5), "library_ms": median_ms([library], 5),
+           # the same call at other chunk sizes: what CHUNK_V trades
+           "ms_by_chunk": {c: median_ms([lambda c=c: streamed(c)], 5) for c in CE_CHUNK_SWEEP},
+           "library": "F.cross_entropy over the materialized [1024, 1,000,000] logits, "
+                      "forward and backward",
+           "flop": flop, "bound_ms": flop / fp32 * 1e3, "bound_by": "operations (f32)"}
+    out["seconds"] = time.perf_counter() - t_start
+    return out
+
+
 def write_seq_checkpoint(path: str) -> dict:
     """A SASRec checkpoint in the JAX package's layout at full width, made
     with numpy from the seed: the item table [padded_rows(1,000,000), 64]
@@ -1222,6 +1549,269 @@ def phase_seq_eval(device: str = "cuda") -> dict:
             "metrics": card, "equal_to_cpu": True, "seconds": time.perf_counter() - t_start}
 
 
+SEQ_TRAIN_BATCHES, SEQ_VALID_BATCHES = 16, 2   # an epoch; bench-shape batches
+SEQ_STD_STEPS, SEQ_BF16_STEPS = 6, 6            # standard-step and bf16-moment legs
+SEQ_CPU_VOCAB, SEQ_CPU_BATCH = 100_000, 256     # card against CPU: a cut corpus
+SEQ_LOSS_RTOL = 1e-5       # card against CPU: losses over three steps
+SEQ_DENSE_ATOL = 1e-4      # ... dense parameters after one step (first run: 1.5e-5;
+                           # key biases within 2 lr, see phase_seq_card_vs_cpu)
+SEQ_TABLE_ATOL = 1e-6      # ... the table, on all but SEQ_HANDFUL elements
+SEQ_HANDFUL = 512          # (first run: 72 of 6,815,744, the largest 5.5e-5)
+SEQ_TRAIN_PROFILED = 6     # fused steps traced by the profiler
+
+
+class _SeqArrays:
+    """Sequence batches for DataLoader: ``arrays`` and, for a valid set,
+    ``get_test_gd`` (each user's held-out items)."""
+
+    def __init__(self, arrays, test_gd=None):
+        self.arrays = arrays
+        self.test_gd = test_gd
+
+    def __len__(self):
+        return len(self.arrays["hist_item_list"])
+
+    def get_test_gd(self):
+        return self.test_gd
+
+
+def seq_train_loader(batches: int, seed: int, vocab: int = 0, batch: int = 0) -> DataLoader:
+    """bench.py's sequence batches: ids uniform in [1, vocab) at every
+    position, masks of density 0.9, targets uniform in [1, vocab) (vocab
+    and batch 0: SEQ_VOCAB and SEQ_BATCH)."""
+    vocab, batch = vocab or SEQ_VOCAB, batch or SEQ_BATCH
+    rng = np.random.default_rng(seed)
+    n = batches * batch
+    arrays = {"hist_item_list": rng.integers(1, vocab, (n, SEQ_L), dtype=np.int32),
+              "hist_mask_list": (rng.random((n, SEQ_L)) < 0.9).astype(np.float32),
+              "target_item": rng.integers(1, vocab, n, dtype=np.int32)}
+    return DataLoader(_SeqArrays(arrays), batch_size=batch)
+
+
+def seq_valid_loader(batches: int, seed: int) -> DataLoader:
+    """Valid users: prefix histories and five held-out items each."""
+    rng = np.random.default_rng(seed)
+    n = batches * SEQ_BATCH
+    lengths = rng.integers(1, SEQ_L + 1, n)
+    mask = (np.arange(SEQ_L)[None, :] < lengths[:, None]).astype(np.float32)
+    users = np.array([f"u{i}" for i in range(n)], dtype=object)
+    arrays = {"hist_item_list": np.where(mask > 0, rng.integers(1, SEQ_VOCAB, (n, SEQ_L)),
+                                         0).astype(np.int32),
+              "hist_mask_list": mask, "user": users}
+    gd = {u: rng.integers(1, SEQ_VOCAB, 5).tolist() for u in users}
+    return DataLoader(_SeqArrays(arrays, gd), batch_size=SEQ_BATCH)
+
+
+def seq_launch_counts() -> dict:
+    return {**read_launches(), "fused_encoder_bwd": encoder.BACKWARD_LAUNCHES}
+
+
+def timed_seq_fit(trainer: SequenceTrainer, model, train_loader, valid_loader, epochs: int,
+                  device: str = "cuda"):
+    """trainer.fit with each step timed to the end of its device work (a
+    synchronize after each step).  Returns (step seconds, step losses)."""
+    inner = trainer._step
+    times, losses = [], []
+
+    def step(batch):
+        t0 = time.perf_counter()
+        out = inner(batch)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(out["loss"].detach())
+        return out
+
+    trainer._step = step
+    trainer.fit(model, train_loader, valid_loader, epoch=epochs, lr=LR,
+                use_earlystopping=valid_loader is not None, monitor_metric="recall@20",
+                log_rounds=10 ** 9, seed=SEED)
+    del trainer._step
+    return times, [float(x) for x in losses]
+
+
+def phase_seq_training(path: str, enc_dict: dict, ckpt_dir: str, device: str = "cuda"):
+    """SequenceTrainer.fit on SASRec at full width (dropout 0.1) from the
+    JAX-layout checkpoint: 2 epochs of bench-shape batches with validation,
+    log.csv, checkpoints and early stopping, on the sequence fused step
+    (K1, K4f, K4b, K3 once a step).  Then standard steps (K1, K4f, K4b, K2)
+    and fused steps with bfloat16 moments."""
+    t_start = time.perf_counter()
+    train_loader = seq_train_loader(SEQ_TRAIN_BATCHES, SEED + 70)
+    valid_loader = seq_valid_loader(SEQ_VALID_BATCHES, SEED + 71)
+    model = load_seq_model(path, enc_dict, device)
+    trainer = SequenceTrainer(device=device, model_ckpt_dir=ckpt_dir)
+    setup_s = time.perf_counter() - t_start
+
+    # the main path: every count is 0 just before it and read just after
+    reset_launches()
+    t0 = time.perf_counter()
+    times, losses = timed_seq_fit(trainer, model, train_loader, valid_loader, EPOCHS, device)
+    fit_s = time.perf_counter() - t0
+    launches = seq_launch_counts()
+    steps, evals = EPOCHS * SEQ_TRAIN_BATCHES, EPOCHS * SEQ_VALID_BATCHES
+    require_launches(launches, {"embedding_lookup": steps + evals, "embedding_grad": 0,
+                                "fused_adam": steps, "fused_encoder": steps + evals,
+                                "fused_encoder_bwd": steps}, "seq fused fit")
+    if not trainer._train_step.fused:
+        raise RuntimeError("fit did not take the sequence fused step")
+    first, last = float(np.mean(losses[:3])), float(np.mean(losses[-3:]))
+    if not (np.all(np.isfinite(losses)) and last < first):
+        raise RuntimeError(f"the training loss did not fall: {losses}")
+    files = sorted(os.listdir(ckpt_dir))
+    want = ({f"model_e_{i}.ckpt" for i in range(1, EPOCHS + 1)}
+            | {"model_best.ckpt", "log.csv"})
+    if not want <= set(files):
+        raise RuntimeError(f"fit's files missing: {sorted(want - set(files))} of {files}")
+    with open(os.path.join(ckpt_dir, "log.csv")) as f:
+        log_rows = f.read().strip().splitlines()
+    del trainer, model
+
+    def leg(env: dict, count: int):
+        loader = DataLoader(_SeqArrays({k: v[:count * SEQ_BATCH] for k, v in
+                                        train_loader.dataset.arrays.items()}),
+                            batch_size=SEQ_BATCH)
+        leg_model = load_seq_model(path, enc_dict, device)
+        leg_trainer = SequenceTrainer(device=device, model_ckpt_dir=ckpt_dir)
+        os.environ.update(env)
+        try:
+            reset_launches()
+            leg_times, leg_losses = timed_seq_fit(leg_trainer, leg_model, loader, None, 1,
+                                                  device)
+            counts = seq_launch_counts()
+        finally:
+            for k in env:
+                del os.environ[k]
+        if not np.all(np.isfinite(leg_losses)):
+            raise RuntimeError(f"a training leg ({env}) did not run cleanly: {leg_losses}")
+        return leg_trainer._train_step, leg_times, leg_losses, counts
+
+    std_step, std_times, std_losses, std_launches = leg({"REC_PANGU_TPU_FUSED_ADAM": "0"},
+                                                        SEQ_STD_STEPS)
+    require_launches(std_launches, {"embedding_lookup": SEQ_STD_STEPS,
+                                    "embedding_grad": SEQ_STD_STEPS, "fused_adam": 0,
+                                    "fused_encoder": SEQ_STD_STEPS,
+                                    "fused_encoder_bwd": SEQ_STD_STEPS}, "seq standard fit")
+    bf_step, bf_times, bf_losses, bf_launches = leg({"REC_PANGU_TPU_MOMENT_DTYPE": "bf16"},
+                                                    SEQ_BF16_STEPS)
+    require_launches(bf_launches, {"embedding_lookup": SEQ_BF16_STEPS, "embedding_grad": 0,
+                                   "fused_adam": SEQ_BF16_STEPS,
+                                   "fused_encoder": SEQ_BF16_STEPS,
+                                   "fused_encoder_bwd": SEQ_BF16_STEPS}, "seq bf16 fit")
+    if std_step.fused or not bf_step.fused or bf_step.mu.dtype != torch.bfloat16:
+        raise RuntimeError("a training leg took the wrong step")
+    summary = {
+        "phase": "seq_training", "model": "SASRec", "config": SEQ_CONFIG, "dropout": DROP,
+        "vocab": SEQ_VOCAB, "batch": SEQ_BATCH, "epochs": EPOCHS,
+        "steps_per_epoch": SEQ_TRAIN_BATCHES, "valid_batches": SEQ_VALID_BATCHES, "lr": LR,
+        "launches": launches,
+        "launches_per_step": {k: launches[k] / steps for k in ("fused_adam", "fused_encoder_bwd")},
+        "fused": step_stats(times, SEQ_BATCH), "fit_s": fit_s, "setup_s": setup_s,
+        "loss_first3": first, "loss_last3": last, "losses": losses, "files": files,
+        "log_csv_rows": len(log_rows) - 1,
+        "standard_launches": std_launches, "standard": step_stats(std_times, SEQ_BATCH),
+        "standard_losses": std_losses,
+        "bf16_launches": bf_launches, "bf16": step_stats(bf_times, SEQ_BATCH),
+        "bf16_losses": bf_losses, "seconds": time.perf_counter() - t_start,
+    }
+    return summary, train_loader
+
+
+def phase_seq_card_vs_cpu(devices=("cuda", "cpu")) -> dict:
+    """The first three sequence fused steps on the card and on the CPU, from
+    the same weights, batches and dropout seeds (the masks are the same
+    hash on both): losses, dense parameters and the table."""
+    from rec_pangu_tpu_torch.train.fused_update import maybe_enable_seq_fused_update
+
+    t_start = time.perf_counter()
+    loader = seq_train_loader(CPU_STEPS, SEED + 81, SEQ_CPU_VOCAB, SEQ_CPU_BATCH)
+    runs = {}
+    enc_dict = {"item_id": {"vocab_size": SEQ_CPU_VOCAB}}
+    for dev in devices:
+        model = port.get_model("SASRec")(enc_dict=enc_dict, config=SEQ_CONFIG, seed=SEED + 80)
+        model = model.to(dev).train()
+        step = maybe_enable_seq_fused_update(model, LR, CPU_STEPS,
+                                             generator=torch.Generator().manual_seed(SEED))
+        losses = []
+        for i, batch in enumerate(loader):
+            out = step(model.upload_batch(batch, torch.device(dev), train=True), i)
+            losses.append(float(out["loss"].detach()))
+            if i == 0:
+                after_one = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+        runs[dev] = (losses, after_one)
+    (card_losses, card), (cpu_losses, cpu) = (runs[d] for d in devices)
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(card_losses, cpu_losses))
+    diffs = {k: (card[k] - cpu[k]).abs() for k in cpu}
+    table_key = "item_emb.table"
+    # Adam's first step is lr * g / (|g| + eps), so a gradient within rounding
+    # of 0 (the CE gives every item p * u / B) may move by up to lr: a table
+    # element beyond SEQ_TABLE_ATOL is such a one.  A key projection's bias
+    # has an exact gradient of 0 (the softmax does not change when a row of
+    # scores moves by one constant): rounding noise, held within 2 lr
+    key_bias = [k for k in cpu if k.endswith("key.bias")]
+    dense_err = max(d.max().item() for k, d in diffs.items()
+                    if k != table_key and k not in key_bias)
+    key_bias_err = max(diffs[k].max().item() for k in key_bias)
+    table = diffs[table_key]
+    beyond = int((table > SEQ_TABLE_ATOL).sum().item())
+    summary = {"phase": "seq_card_vs_cpu", "steps": CPU_STEPS, "vocab": SEQ_CPU_VOCAB,
+               "batch": SEQ_CPU_BATCH, "dropout": DROP, "card_losses": card_losses,
+               "cpu_losses": cpu_losses, "loss_max_rel_diff": loss_rel,
+               "dense_max_abs_diff": dense_err, "key_bias_max_abs_diff": key_bias_err,
+               "table_max_abs_diff": table.max().item(), "table_elements_beyond_atol": beyond,
+               "table_elements": table.numel(), "loss_rtol": SEQ_LOSS_RTOL,
+               "dense_atol": SEQ_DENSE_ATOL, "table_atol": SEQ_TABLE_ATOL,
+               "handful": SEQ_HANDFUL,
+               "seconds": time.perf_counter() - t_start}
+    if (loss_rel > SEQ_LOSS_RTOL or dense_err > SEQ_DENSE_ATOL or key_bias_err > 2 * LR
+            or beyond > SEQ_HANDFUL or table.max().item() > 2 * LR):
+        raise RuntimeError(f"the card's sequence training differs from the CPU's: {summary}")
+    return summary
+
+
+def phase_seq_train_profile(path: str, enc_dict: dict, batches, ckpt_dir: str) -> dict:
+    """Where a sequence fused step's time goes: host stages, each ended by a
+    synchronize (the id check and upload, the step), then torch.profiler's
+    device time by operation and the card's idle share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from rec_pangu_tpu_torch.train.fused_update import maybe_enable_seq_fused_update
+
+    t_start = time.perf_counter()
+    model = load_seq_model(path, enc_dict, "cuda").train()
+    trainer = SequenceTrainer(device="cuda", model_ckpt_dir=ckpt_dir)
+    trainer.model, trainer._fit_device = model, torch.device("cuda")
+    trainer._train_step = maybe_enable_seq_fused_update(
+        model, LR, len(batches), generator=torch.Generator().manual_seed(SEED))
+    for batch in batches[:2]:  # warm
+        trainer._step(batch)
+    torch.cuda.synchronize()
+    stages = {"check_and_upload": [], "step": []}
+    for i, batch in enumerate(batches):
+        t0 = time.perf_counter()
+        inputs = model.upload_batch(batch, trainer._fit_device, train=True)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        trainer._train_step(inputs, i)
+        torch.cuda.synchronize()
+        stages["check_and_upload"].append(t1 - t0)
+        stages["step"].append(time.perf_counter() - t1)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for batch in batches:
+            trainer._step(batch)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    busy_s, ops = profile_ops(prof, len(batches), "step")
+    n = len(batches)
+    return {"phase": "seq_train_profile", "steps": n,
+            "host_stage_p50_ms": {k: statistics.median(v) * 1e3 for k, v in stages.items()},
+            "wall_ms_per_step": wall_s * 1e3 / n,
+            "device_busy_ms_per_step": busy_s * 1e3 / n,
+            "device_idle_share": 1.0 - busy_s / wall_s, "device_ops": ops,
+            "seconds": time.perf_counter() - t_start}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1241,9 +1831,9 @@ def main() -> int:
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "libraries": sorted(os.path.relpath(p, ROOT) for p in libs.values())})
 
-    bandwidth = peak_bandwidth(kind)
+    bandwidth, fp32 = peak_bandwidth(kind), peak_fp32(kind)
     rows = [phase_kernel(bandwidth), phase_table_grad(bandwidth), phase_fused_adam(bandwidth),
-            phase_fused_encoder(bandwidth, peak_fp32(kind))]
+            phase_fused_encoder(bandwidth, fp32), phase_fused_encoder_bwd(bandwidth, fp32)]
     for row in rows:
         emit({"phase": "kernel", **row})
 
@@ -1261,6 +1851,7 @@ def main() -> int:
         emit(phase_card_vs_cpu(path, enc_dict, batches[:CPU_STEPS]))
         emit(phase_train_profile(trainer, batches))
         del trainer, train_loader, batches
+        shutil.rmtree(os.path.join(tmp, "ckpt"))
 
         t0 = time.perf_counter()
         seq_path = os.path.join(tmp, "sasrec.ckpt")
@@ -1272,18 +1863,35 @@ def main() -> int:
         emit(phase_seq_profile(seq_model, seq_profiled))
         del seq_model
         emit(phase_seq_eval())
+        emit(phase_seq_ce(fp32))
+        torch.cuda.empty_cache()
+        seq_training, seq_loader = phase_seq_training(seq_path, seq_enc_dict,
+                                                      os.path.join(tmp, "seq_ckpt"))
+        emit(seq_training)
+        emit(phase_seq_card_vs_cpu())
+        seq_batches = [b for _, b in zip(range(SEQ_TRAIN_PROFILED), seq_loader)]
+        emit(phase_seq_train_profile(seq_path, seq_enc_dict, seq_batches,
+                                     os.path.join(tmp, "seq_ckpt")))
 
     # launches on each kernel's own main path: the lookup's on serving, the
-    # fused Adam's on the fused fit, the gradient's on the standard-step fit,
-    # the encoder's on SASRec serving
+    # fused Adam's on the fused fit (and on the sequence fused fit), the
+    # gradient's on the standard-step fit, the encoder's on SASRec serving,
+    # its backward's on the sequence fused fit
     launches = {"embedding_lookup": serving["launches"]["embedding_lookup"],
                 "fused_adam": training["launches"]["fused_adam"],
                 "embedding_grad": training["standard_launches"]["embedding_grad"],
-                "fused_encoder": seq_serving["launches"]["fused_encoder"]}
+                "fused_encoder": seq_serving["launches"]["fused_encoder"],
+                "fused_encoder_bwd": seq_training["launches"]["fused_encoder_bwd"]}
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
-    emit({"kernels": [{k: launches[row["name"]] if k == "launches" else row[k] for k in keys}
-                      for row in rows]})
+    lines = [{k: launches[row["name"]] if k == "launches" else row[k] for k in keys}
+             for row in rows]
+    for line in lines:
+        if line["name"] == "fused_adam":
+            line["launches_seq_training"] = seq_training["launches"]["fused_adam"]
+        if line["name"] == "fused_encoder":
+            line["launches_seq_training"] = seq_training["launches"]["fused_encoder"]
+    emit({"kernels": lines})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -10,7 +10,9 @@ encoders, metrics, model, checkpoints in the JAX layout, ``RankTrainer``
 with ``fit`` on the fused or the standard train step, ``make_ranking_scorer``);
 SASRec retrieval served and evaluated (sequence datasets, the fused
 transformer encoder, ``SequenceTrainer.evaluate_model``,
-``make_retrieval_scorer``).
+``make_retrieval_scorer``) and trained (the encoder's dropout forward and
+backward kernels, the streamed full-softmax loss, the sequence fused step,
+``SequenceTrainer.fit``).
 Entry points run on the CUDA card unless the caller passes
 ``device="cpu"``.
 """

@@ -35,6 +35,18 @@
 // multiply-add), in the order above, so a row whose gradient sums the same
 // terms in the same order gets the same bits as the plain PyTorch version.
 // No atomics: the result is the same bits on every run.
+//
+// Two options, each a template flag, so the kernel without them is the one
+// above: a dense gradient [num_rows, dim] f32 added to each tile's run sums
+// before the Adam math (g = sums + dense, the JAX kernel's has_dense stream:
+// the streaming softmax-CE's item gradient, fused_adam.py:153-155), and m
+// and v stored as bfloat16 (REC_PANGU_TPU_MOMENT_DTYPE=bf16): loaded exactly
+// into f32, all arithmetic f32, stored rounded to nearest even, as
+// jnp.astype does (fused_adam.py:162-168).  At the sequence bench shape
+// (1,007,616 x 64, 51,200 history rows) the dense stream makes the bound
+// 1,818,959,872 B (0.543 ms) with f32 moments and 1,303,060,480 B (0.389 ms)
+// with bf16 ones.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -124,13 +136,26 @@ __device__ __forceinline__ void copy_runs(unsigned bits, int64_t chunk,
   }
 }
 
-template <typename V, int kCols>
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float from_f32(float x, float*) { return x; }
+__device__ __forceinline__ __nv_bfloat16 from_f32(float x, __nv_bfloat16*) {
+  return __float2bfloat16_rn(x);
+}
+
+// kW moment values of type MT, loaded and stored as one access
+template <typename MT, int kW>
+struct alignas(sizeof(MT) * kW) Pack {
+  MT v[kW];
+};
+
+template <typename V, int kCols, typename MT = float, bool kDense = false>
 __global__ void __launch_bounds__(256)
     fused_adam_kernel(const int32_t* __restrict__ sorted_ids, const float* __restrict__ sums,
                       const uint32_t* __restrict__ run_starts,
                       const int32_t* __restrict__ tile_starts, float* __restrict__ p,
-                      float* __restrict__ m, float* __restrict__ v, int64_t num_rows, int dim,
-                      int tile_rows, Hyper h) {
+                      MT* __restrict__ m, MT* __restrict__ v, int64_t num_rows, int dim,
+                      int tile_rows, Hyper h, const float* __restrict__ dense) {
   extern __shared__ float4 smem[];
   float* acc = reinterpret_cast<float*>(smem);
   const int64_t base = (int64_t)blockIdx.x * tile_rows;
@@ -166,18 +191,29 @@ __global__ void __launch_bounds__(256)
   const int64_t count = tile * dim / kWidth;
   const V* gs = reinterpret_cast<const V*>(acc);
   V* ps = reinterpret_cast<V*>(p + base * dim);
-  V* ms = reinterpret_cast<V*>(m + base * dim);
-  V* vs = reinterpret_cast<V*>(v + base * dim);
+  using MP = Pack<MT, kWidth>;
+  MP* ms = reinterpret_cast<MP*>(m + base * dim);
+  MP* vs = reinterpret_cast<MP*>(v + base * dim);
+  const V* ds = kDense ? reinterpret_cast<const V*>(dense + base * dim) : nullptr;
 #pragma unroll 4
   for (int64_t i = threadIdx.x; i < count; i += blockDim.x) {
-    V pv = ps[i], mv = ms[i], vv = vs[i];
-    const V gv = gs[i];
+    V pv = ps[i], gv = gs[i];
+    MP mv = ms[i], vv = vs[i];
     float* pf = reinterpret_cast<float*>(&pv);
-    float* mf = reinterpret_cast<float*>(&mv);
-    float* vf = reinterpret_cast<float*>(&vv);
-    const float* gf = reinterpret_cast<const float*>(&gv);
+    float* gf = reinterpret_cast<float*>(&gv);
+    if constexpr (kDense) {
+      const V dv = ds[i];
+      const float* df = reinterpret_cast<const float*>(&dv);
 #pragma unroll
-    for (int k = 0; k < kWidth; ++k) adam(gf[k], pf[k], mf[k], vf[k], h);
+      for (int k = 0; k < kWidth; ++k) gf[k] = __fadd_rn(gf[k], df[k]);
+    }
+#pragma unroll
+    for (int k = 0; k < kWidth; ++k) {
+      float mf = to_f32(mv.v[k]), vf = to_f32(vv.v[k]);
+      adam(gf[k], pf[k], mf, vf, h);
+      mv.v[k] = from_f32(mf, (MT*)nullptr);
+      vv.v[k] = from_f32(vf, (MT*)nullptr);
+    }
     ps[i] = pv;
     ms[i] = mv;
     vs[i] = vv;
@@ -206,6 +242,35 @@ Scratch carve(void* workspace, int64_t n, int dim, int64_t tiles) {
   return Scratch{sums, run_starts, tile_starts, tile_starts + tiles + 1};
 }
 
+// The tile kernel for one moment type and dense option, at the widths the
+// row allows (float4 when dim % 4 == 0 and the arrays are aligned).
+template <typename MT, bool kDense>
+cudaError_t launch_tiles(const int32_t* s, const Scratch& scratch, float* p, void* m, void* v,
+                         int64_t num_rows, int dim, int tile_rows, const Hyper& h,
+                         const float* dense, unsigned grid, size_t shared, cudaStream_t st) {
+  const auto aligned = [](const void* ptr, uintptr_t a) {
+    return reinterpret_cast<uintptr_t>(ptr) % a == 0;
+  };
+  const bool vec4 = dim % 4 == 0 && aligned(p, 16) && aligned(m, 4 * sizeof(MT)) &&
+                    aligned(v, 4 * sizeof(MT)) && (!kDense || aligned(dense, 16));
+  MT* mm = static_cast<MT*>(m);
+  MT* vv = static_cast<MT*>(v);
+#define RP_ADAM(V, COLS)                                                                  \
+  fused_adam_kernel<V, COLS, MT, kDense><<<grid, 256, shared, st>>>(                       \
+      s, scratch.sums, scratch.run_starts, scratch.tile_starts, p, mm, vv, num_rows, dim, \
+      tile_rows, h, dense)
+  switch (rp::cols_per_lane(dim) * (vec4 ? 1 : -1)) {
+    case 1: RP_ADAM(float4, 1); break;
+    case 2: RP_ADAM(float4, 2); break;
+    case 4: RP_ADAM(float4, 4); break;
+    case -1: RP_ADAM(float, 1); break;
+    case -2: RP_ADAM(float, 2); break;
+    default: RP_ADAM(float, 4);
+  }
+#undef RP_ADAM
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // 4-byte words of scratch rp_fused_adam_f32 needs.
@@ -215,17 +280,19 @@ extern "C" long long rp_fused_adam_workspace_words(long long n, long long num_ro
 }
 
 // sorted_ids [n] i32 ascending and perm [n] i32 (a stable sort of the fused
-// ids), rows [*, dim] f32; p, m, v [num_rows, dim] f32, updated in place;
-// workspace of workspace_words 4-byte words (at least
-// rp_fused_adam_workspace_words(n, num_rows, dim, tile_rows)), written before
-// it is read.  tile_rows * dim * 4 bytes of shared memory per block, at most
-// 48 KB.  All contiguous on the current device.  Returns cudaGetLastError()
-// after the launches (0 = launched).
+// ids), rows [*, dim] f32; p [num_rows, dim] f32 and m, v [num_rows, dim]
+// (f32, or bf16 when moments_bf16), updated in place; dense [num_rows, dim]
+// f32 added to the gradient, or null; workspace of workspace_words 4-byte
+// words (at least rp_fused_adam_workspace_words(n, num_rows, dim,
+// tile_rows)), written before it is read.  tile_rows * dim * 4 bytes of
+// shared memory per block, at most 48 KB.  All contiguous on the current
+// device.  Returns cudaGetLastError() after the launches (0 = launched).
 extern "C" int rp_fused_adam_f32(const void* sorted_ids, const void* perm, const void* rows,
                                  long long n, void* workspace, long long workspace_words,
                                  void* p, void* m, void* v, long long num_rows, int dim,
                                  int tile_rows, float lr, float b1, float b2, float eps,
-                                 float inv_b1c, float inv_b2c, void* stream) {
+                                 float inv_b1c, float inv_b2c, const void* dense,
+                                 int moments_bf16, void* stream) {
   if (n < 0 || n > 0x7fffffffLL || num_rows <= 0 || dim <= 0 || tile_rows <= 0 ||
       (long long)tile_rows * dim * 4 > 48 * 1024 ||
       workspace_words < rp_fused_adam_workspace_words(n, num_rows, dim, tile_rows))
@@ -246,26 +313,20 @@ extern "C" int rp_fused_adam_f32(const void* sorted_ids, const void* perm, const
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const size_t shared = (size_t)tile_rows * dim * sizeof(float);
-  const bool vec4 = dim % 4 == 0 && reinterpret_cast<uintptr_t>(p) % 16 == 0 &&
-                    reinterpret_cast<uintptr_t>(m) % 16 == 0 &&
-                    reinterpret_cast<uintptr_t>(v) % 16 == 0;
   const Hyper h{lr, b1, b2, eps, inv_b1c, inv_b2c};
   float* pp = static_cast<float*>(p);
-  float* mm = static_cast<float*>(m);
-  float* vv = static_cast<float*>(v);
+  const float* dd = static_cast<const float*>(dense);
   const unsigned grid = (unsigned)blocks;
-#define RP_ADAM(V, COLS)                                                                \
-  fused_adam_kernel<V, COLS><<<grid, threads, shared, st>>>(                             \
-      s, scratch.sums, scratch.run_starts, scratch.tile_starts, pp, mm, vv, num_rows, dim, \
-      tile_rows, h)
-  switch (rp::cols_per_lane(dim) * (vec4 ? 1 : -1)) {
-    case 1: RP_ADAM(float4, 1); break;
-    case 2: RP_ADAM(float4, 2); break;
-    case 4: RP_ADAM(float4, 4); break;
-    case -1: RP_ADAM(float, 1); break;
-    case -2: RP_ADAM(float, 2); break;
-    default: RP_ADAM(float, 4);
+  if (moments_bf16) {
+    err = dd ? launch_tiles<__nv_bfloat16, true>(s, scratch, pp, m, v, num_rows, dim, tile_rows,
+                                                 h, dd, grid, shared, st)
+             : launch_tiles<__nv_bfloat16, false>(s, scratch, pp, m, v, num_rows, dim,
+                                                  tile_rows, h, dd, grid, shared, st);
+  } else {
+    err = dd ? launch_tiles<float, true>(s, scratch, pp, m, v, num_rows, dim, tile_rows, h, dd,
+                                         grid, shared, st)
+             : launch_tiles<float, false>(s, scratch, pp, m, v, num_rows, dim, tile_rows, h, dd,
+                                          grid, shared, st);
   }
-#undef RP_ADAM
-  return (int)cudaGetLastError();
+  return (int)err;
 }

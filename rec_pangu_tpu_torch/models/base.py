@@ -8,12 +8,15 @@ capture mode (``ops/embedding.FusedEmbedding.forward``).
 
 A sequence-recall model takes ``{'hist_item_list': [B, L] i32,
 'hist_mask_list': [B, L] f32}`` and returns ``{'user_emb': [B, D]}``
-(``[B, K, D]`` for a multi-interest model).  Its losses arrive with
-sequence training.
+(``[B, K, D]`` for a multi-interest model), plus ``'loss'`` when ``train``
+(the batch then also holds ``'target_item'`` [B] i32).  Its
+``forward(batch, train, capture=None, seed=None)``: ``capture`` is the
+sequence fused step's ``{"hist": [], "ce": []}`` (the history rows and the
+softmax CE's dense item gradient), ``seed`` the step's dropout seed.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -21,6 +24,8 @@ from torch import nn
 
 from ..data.encoder import OOV_SENTINEL, FeatureSpec
 from ..ops.embedding import ItemEmbedding, check_ids, check_item_ids
+from ..ops.softmax_ce import (_FUSED_MIN_VOCAB, fused_ce_enabled, fused_softmax_ce_captured,
+                              fused_softmax_ce_padded, full_softmax_ce)
 
 MODEL_REGISTRY: Dict[str, type] = {}
 
@@ -80,9 +85,6 @@ class RankModelBase(nn.Module):
                 for k, dt in dtypes.items()}
 
 
-_SEQ_TRAINING = "sequence training arrives with SASRec training (ROADMAP Queue 1 item 3b)"
-
-
 class SequenceModelBase(nn.Module):
     """Shared machinery of the sequence-recall models.
 
@@ -93,6 +95,14 @@ class SequenceModelBase(nn.Module):
     max_length, item_col, emb_init_std, ...); ``seed`` seeds the weights."""
 
     input_dtypes = {"hist_item_list": np.int32, "hist_mask_list": np.float32}
+    # True on a model whose only item-table uses in the training forward are
+    # the history lookup and the full-softmax CE, the two the sequence fused
+    # step captures (train/fused_update.py); any other read of the table
+    # would lose its gradient there
+    fused_update_compatible = False
+    # False: the loss never reaches the captured CE, so the fused step passes
+    # no dense gradient to the table's Adam pass
+    fused_uses_ce = True
 
     def __init__(self, enc_dict: dict, config: dict, seed: int = 1029):
         super().__init__()
@@ -123,11 +133,49 @@ class SequenceModelBase(nn.Module):
         """The item corpus [vocab, D], row 0 zeroed."""
         return self.item_emb.all_items()
 
-    def calculate_loss(self, user_emb, pos_item):
-        raise NotImplementedError(_SEQ_TRAINING)
+    def calculate_loss(self, user_emb: torch.Tensor, pos_item: torch.Tensor,
+                       capture: Optional[List[torch.Tensor]] = None,
+                       seed: Optional[int] = None) -> torch.Tensor:
+        """The training loss of ``user_emb`` [B, D] against the item corpus,
+        on the JAX package's branches: the captured streaming CE when the
+        fused step passes ``capture`` (its backward appends the table's dense
+        gradient there; the table gets none), the sampled softmax for
+        ``config['loss_type'] == 'sampled'``, else the full softmax CE,
+        streamed over the raw table from 65,536 items (unless
+        ``REC_PANGU_TPU_FUSED_CE=0``), over ``output_items()`` below."""
+        table = self.item_emb.table
+        vocab = self.item_emb.vocab_size
+        if capture is not None:
+            return fused_softmax_ce_captured(user_emb, table.detach(), pos_item, capture, vocab)
+        if self.config.get("loss_type", "full") == "sampled":
+            gen = None
+            if seed is not None:
+                gen = torch.Generator(device=user_emb.device).manual_seed(int(seed) + 1)
+            return self.calculate_sampled_loss(
+                user_emb, pos_item, int(self.config.get("num_negatives", 1024)), gen)
+        if fused_ce_enabled() and vocab >= _FUSED_MIN_VOCAB:
+            return fused_softmax_ce_padded(user_emb, table, pos_item, vocab)
+        return full_softmax_ce(user_emb, self.output_items(), pos_item)
 
-    def calculate_sampled_loss(self, user_emb, pos_item, num_negatives: int = 1024):
-        raise NotImplementedError(_SEQ_TRAINING)
+    def calculate_sampled_loss(self, user_emb: torch.Tensor, pos_item: torch.Tensor,
+                               num_negatives: int = 1024,
+                               generator: Optional[torch.Generator] = None,
+                               neg_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Sampled-softmax CE: the positive against ``num_negatives`` item ids
+        shared by the batch, uniform in [1, vocab) (0 is padding), drawn from
+        ``generator`` (on ``user_emb``'s device; torch's default generator
+        when None), or the given ``neg_ids``.  The JAX package falls back to
+        a constant key here; the port always draws."""
+        all_items = self.output_items()
+        v = all_items.shape[0]
+        if neg_ids is None:
+            neg_ids = torch.randint(1, v, (num_negatives,), generator=generator,
+                                    device=user_emb.device)
+        pos = pos_item.reshape(-1).long()
+        pos_scores = (user_emb * all_items[pos]).sum(dim=-1, keepdim=True)
+        neg_scores = torch.matmul(user_emb, all_items[neg_ids.long()].t())
+        logits = torch.cat([pos_scores, neg_scores], dim=1)
+        return -torch.log_softmax(logits, dim=-1)[:, 0].mean()
 
     @staticmethod
     def gather_indexes(output: torch.Tensor, gather_index: torch.Tensor) -> torch.Tensor:
@@ -148,12 +196,15 @@ class SequenceModelBase(nn.Module):
                      train: bool = False) -> Dict[str, torch.Tensor]:
         """Check a host batch's item ids against the vocabulary (ValueError
         before any upload) and copy the history ids (int32) and mask (f32)
-        to ``device``."""
-        if train:
-            raise NotImplementedError(_SEQ_TRAINING)
+        to ``device``; a training batch (``train``) also checks and uploads
+        its ``target_item`` (int32)."""
+        dtypes = dict(self.input_dtypes)
         check_item_ids(batch["hist_item_list"], self.item_emb.vocab_size)
+        if train:
+            check_item_ids(batch["target_item"], self.item_emb.vocab_size)
+            dtypes["target_item"] = np.int32
         return {k: torch.from_numpy(np.ascontiguousarray(batch[k], dtype=dt)).to(device)
-                for k, dt in self.input_dtypes.items()}
+                for k, dt in dtypes.items()}
 
     def jax_leaves(self) -> List[Tuple[str, tuple, torch.Tensor, bool]]:
         raise NotImplementedError

@@ -10,6 +10,8 @@ from ..base import SequenceModelBase, register_model
 
 @register_model("SASRec")
 class SASRec(SequenceModelBase):
+    fused_update_compatible = True
+
     def __init__(self, enc_dict: dict, config: dict, seed: int = 1029):
         super().__init__(enc_dict, config, seed)
         self.setup_base()
@@ -25,17 +27,21 @@ class SASRec(SequenceModelBase):
             layer_norm_eps=float(cfg.get("layer_norm_eps", 0.001)),
             generator=self.generator)
 
-    def forward(self, batch, train: bool = False):
+    def forward(self, batch, train: bool = False, capture=None, seed=None):
+        """``capture``: the fused step's {"hist": [...], "ce": [...]} lists;
+        ``seed``: the step's dropout seed (see SequenceModelBase)."""
         mask = batch["hist_mask_list"]
         lengths = mask.sum(dim=-1).to(torch.int64)
-        seq_emb = self.item_emb(batch["hist_item_list"])
-        output = self.self_attention(seq_emb, mask, causal=True, train=train)
+        capture = capture or {}
+        seq_emb = self.item_emb(batch["hist_item_list"], capture.get("hist"))
+        output = self.self_attention(seq_emb, mask, causal=True, train=train, seed=seed)
         # the last valid position, or 0 for an empty history; with a mask
         # that is not a prefix this may be a padded query, as in the reference
         user_emb = self.gather_indexes(output, (lengths - 1).clamp(min=0))
         out = {"user_emb": user_emb}
         if train:
-            out["loss"] = self.calculate_loss(user_emb, batch["target_item"])
+            out["loss"] = self.calculate_loss(user_emb, batch["target_item"],
+                                              capture.get("ce"), seed)
         return out
 
     def jax_leaves(self):

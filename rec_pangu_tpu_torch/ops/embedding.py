@@ -120,9 +120,20 @@ class ItemEmbedding(nn.Module):
         keep = torch.arange(self.vocab_size, device=self.table.device) != 0
         return self.table[:self.vocab_size] * keep[:, None]
 
-    def forward(self, ids: torch.Tensor) -> torch.Tensor:
-        """[...] int32 item ids -> [..., D]; id 0 gives a zero row."""
-        rows = fused_embedding_lookup(self.table, ids.reshape(-1, 1), self.offsets)
+    def forward(self, ids: torch.Tensor,
+                capture: Optional[List[torch.Tensor]] = None) -> torch.Tensor:
+        """[...] int32 item ids -> [..., D]; id 0 gives a zero row.
+
+        ``capture`` (a list) is the sequence fused step's capture mode, as
+        ``FusedEmbedding.forward``'s: the table is held out of autograd, the
+        gathered rows [N, D] become a leaf appended to ``capture``, and the
+        output is still those rows times ``ids != 0``."""
+        if capture is None:
+            rows = fused_embedding_lookup(self.table, ids.reshape(-1, 1), self.offsets)
+        else:
+            rows = fused_embedding_lookup(self.table.detach(), ids.reshape(-1, 1), self.offsets)
+            rows.requires_grad_(True)
+            capture.append(rows)
         return rows.view(*ids.shape, self.embedding_dim) * (ids != 0).unsqueeze(-1)
 
     def jax_leaves(self) -> List[Tuple[str, tuple, torch.Tensor, bool]]:

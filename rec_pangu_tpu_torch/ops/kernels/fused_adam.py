@@ -23,12 +23,18 @@ updating them in place, so the dense gradient never reaches device memory.
 Bound: bytes, 6 table passes plus the rows and ids: 1.250 GB, 0.373 ms at
 3.35 TB/s at the bench shape.  No atomics: the bits repeat from run to run.
 
+Two options, as in the JAX kernel: ``dense``, a ``[V, D]`` f32 gradient
+added to the summed rows before the Adam math (the sequence step's streamed
+softmax-CE item gradient, K3's ``has_dense`` stream), and moments stored as
+bfloat16 (``mu``/``nu`` of that dtype; ``REC_PANGU_TPU_MOMENT_DTYPE=bf16``
+in the train steps), loaded exactly into f32 and stored rounded to nearest
+even, all arithmetic f32.  Without either the kernel is the one it was.
+
 The plain version runs the same operations, each rounded on its own, so a
 row whose gradient sums the same terms in the same order (a row hit at most
 once, always) gets the same bits; a row hit more often may differ by the
 rounding of its gradient sum (``index_add_`` sums in batch order on the CPU
 and with atomics on the card, the kernel by chunks of 32 sorted entries).
-The moment storage is f32 (the JAX package's bf16 option is not ported).
 
 The wrapper launches the kernel for CUDA tensors and raises if it cannot; it
 uses the plain version only for tensors on the CPU.
@@ -36,7 +42,7 @@ uses the plain version only for tensors on the CPU.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -82,30 +88,42 @@ def _hyper_values(hyper: torch.Tensor):
 
 def planned_adam_update_reference(ids: torch.Tensor, rows: torch.Tensor,
                                   table: torch.Tensor, mu: torch.Tensor, nu: torch.Tensor,
-                                  hyper: torch.Tensor
+                                  hyper: torch.Tensor, dense: Optional[torch.Tensor] = None
                                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch version, in place on ``table``, ``mu`` and ``nu``."""
     lr, b1, b2, eps, inv_b1c, inv_b2c = _hyper_values(hyper)
     g = table_grad_reference(ids, rows, table.shape[0])
+    if dense is not None:
+        g = g + dense
     # 1 - b1 and 1 - b2 are exact in float32 for f32 betas near 1
-    new_mu = b1 * mu + (1.0 - b1) * g
-    new_nu = b2 * nu + (1.0 - b2) * (g * g)
+    new_mu = b1 * mu.float() + (1.0 - b1) * g
+    new_nu = b2 * nu.float() + (1.0 - b2) * (g * g)
     table.sub_(lr * (new_mu * inv_b1c) / (torch.sqrt(new_nu * inv_b2c) + eps))
-    mu.copy_(new_mu)
+    mu.copy_(new_mu)  # to bfloat16: rounded to nearest even
     nu.copy_(new_nu)
     return table, mu, nu
 
 
-def _check(ids, rows, table, mu, nu) -> None:
+MOMENT_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _check(ids, rows, table, mu, nu, dense=None) -> None:
     check_inputs(ids, rows, table.shape[0])
     if rows.shape[1] > _TILE_FLOATS:
         raise ValueError(f"D must be at most {_TILE_FLOATS}, got {rows.shape[1]}")
-    for name, t in (("table", table), ("mu", mu), ("nu", nu)):
-        if t.dim() != 2 or t.dtype != torch.float32 or t.shape != (table.shape[0], rows.shape[1]):
-            raise ValueError(f"{name} must be float32 [{table.shape[0]}, {rows.shape[1]}], "
-                             f"got {tuple(t.shape)} {t.dtype}")
+    shape = (table.shape[0], rows.shape[1])
+    arrays = [("table", table, (torch.float32,)), ("mu", mu, MOMENT_DTYPES),
+              ("nu", nu, MOMENT_DTYPES)]
+    if dense is not None:
+        arrays.append(("dense", dense, (torch.float32,)))
+    for name, t, dtypes in arrays:
+        if t.dim() != 2 or t.dtype not in dtypes or t.shape != shape:
+            raise ValueError(f"{name} must be {' or '.join(str(d) for d in dtypes)} "
+                             f"{list(shape)}, got {tuple(t.shape)} {t.dtype}")
         if t.device != ids.device:
             raise ValueError(f"{name} is on {t.device}, the ids on {ids.device}")
+    if mu.dtype != nu.dtype:
+        raise ValueError(f"mu and nu must share a dtype, got {mu.dtype} and {nu.dtype}")
 
 
 def _kernel():
@@ -119,7 +137,7 @@ def _kernel():
         fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_void_p,
                                                 ctypes.c_longlong] + [ctypes.c_void_p] * 3
                        + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
-                       + [ctypes.c_float] * 6 + [ctypes.c_void_p])
+                       + [ctypes.c_float] * 6 + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         words = lib.rp_fused_adam_workspace_words
         words.argtypes = [ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
@@ -130,10 +148,12 @@ def _kernel():
 
 def launch(sorted_ids: torch.Tensor, perm: torch.Tensor, rows: torch.Tensor,
            table: torch.Tensor, mu: torch.Tensor, nu: torch.Tensor,
-           hyper: torch.Tensor) -> None:
+           hyper: torch.Tensor, dense: Optional[torch.Tensor] = None) -> None:
     """The kernel alone, on ``sort_ids``' output; updates in place."""
     global LAUNCHES
     values = _hyper_values(hyper)
+    if dense is not None:
+        dense = dense.contiguous()
     for name, t in (("table", table), ("mu", mu), ("nu", nu)):
         if not t.is_contiguous():
             raise ValueError(f"the fused Adam kernel updates {name} in place: it must be "
@@ -148,21 +168,25 @@ def launch(sorted_ids: torch.Tensor, perm: torch.Tensor, rows: torch.Tensor,
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(sorted_ids.data_ptr(), perm.data_ptr(), rows.data_ptr(), n,
                  scratch.data_ptr(), scratch.numel(), table.data_ptr(), mu.data_ptr(),
-                 nu.data_ptr(), table.shape[0], dim, tile, *values, stream)
+                 nu.data_ptr(), table.shape[0], dim, tile, *values,
+                 None if dense is None else dense.data_ptr(), int(mu.dtype == torch.bfloat16),
+                 stream)
     if err != 0:
         raise RuntimeError(f"fused_adam kernel launch failed: CUDA error {err}")
     LAUNCHES += 1
 
 
 def planned_adam_update(ids: torch.Tensor, rows: torch.Tensor, table: torch.Tensor,
-                        mu: torch.Tensor, nu: torch.Tensor, hyper: torch.Tensor
+                        mu: torch.Tensor, nu: torch.Tensor, hyper: torch.Tensor,
+                        dense: Optional[torch.Tensor] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One Adam step on ``table`` [V, D] f32 and its moments ``mu``/``nu``
-    (same shape, f32), in place, from [N] int32 fused ids and their [N, D]
-    f32 cotangent rows; ``hyper`` from ``adam_hyper``.  Returns the three."""
-    _check(ids, rows, table, mu, nu)
+    (same shape, both f32 or both bfloat16), in place, from [N] int32 fused
+    ids and their [N, D] f32 cotangent rows, plus the [V, D] f32 ``dense``
+    gradient when given; ``hyper`` from ``adam_hyper``.  Returns the three."""
+    _check(ids, rows, table, mu, nu, dense)
     if ids.device.type == "cpu":
-        return planned_adam_update_reference(ids, rows, table, mu, nu, hyper)
+        return planned_adam_update_reference(ids, rows, table, mu, nu, hyper, dense)
     sorted_ids, perm = sort_ids(ids)
-    launch(sorted_ids, perm, rows, table, mu, nu, hyper)
+    launch(sorted_ids, perm, rows, table, mu, nu, hyper, dense)
     return table, mu, nu

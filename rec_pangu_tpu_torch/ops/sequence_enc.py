@@ -11,8 +11,16 @@ then an FFN, a residual and LayerNorm.
 On the card, ``TransformerEncoder`` packs its blocks' weights and runs the
 whole stack as one launch of the fused encoder kernel
 (``ops/kernels/fused_encoder.py``); on the CPU it runs the blocks, which
-are the plain version.  Dropout is not ported yet: a training call with a
-dropout rate above 0 raises.
+are the plain version.  ``packed()`` is built from ``stack`` and
+``transpose``, so autograd carries the kernel's packed gradients back to
+the blocks' ``nn.Linear`` and ``nn.LayerNorm`` weights.
+
+In training the dropout sits where the flax block puts it: on the attention
+probabilities, on the output projection before its residual and on the FFN
+output before its residual, inverted (kept elements scaled by 1/(1-p)).  Its
+masks are the kernel's (``fused_encoder.dropout_scale``), keyed by a seed
+that the train step draws from its generator once a step, so the blocks on
+the CPU and the kernels on the card drop the same elements.
 """
 from __future__ import annotations
 
@@ -23,10 +31,15 @@ from torch import nn
 
 from .activations import get_activation
 from .initializers import kaiming_normal_
-from .kernels.fused_encoder import additive_mask, attention_scores, fused_encoder
+from .kernels.fused_encoder import (ATTN_OUT_SITE, ATTN_SITE, FFN_OUT_SITE, additive_mask,
+                                    attention_scores, check_rate, fused_encoder, layer_masks)
 
-_TRAINING_SLICE = ("dropout in training arrives with SASRec training "
-                   "(ROADMAP Queue 1 item 3b)")
+_SEED_RANGE = 2 ** 31 - 1  # a step's dropout seed lies in [0, 2**31 - 1), as in JAX
+
+
+def draw_seed(generator: Optional[torch.Generator] = None) -> int:
+    """One dropout seed from ``generator`` (torch's default one when None)."""
+    return int(torch.randint(0, _SEED_RANGE, (1,), generator=generator)[0])
 
 
 def _dense(n_in: int, n_out: int, generator: torch.Generator) -> nn.Linear:
@@ -55,15 +68,26 @@ class TransformerBlock(nn.Module):
         self.LayerNorm_0 = nn.LayerNorm(hidden_size, eps=layer_norm_eps)
         self.LayerNorm_1 = nn.LayerNorm(hidden_size, eps=layer_norm_eps)
 
-    def forward(self, x: torch.Tensor, add_mask: torch.Tensor) -> torch.Tensor:
-        """x [B, L, D], add_mask broadcastable to [B, H, L, L] -> [B, L, D]."""
+    def forward(self, x: torch.Tensor, add_mask: torch.Tensor,
+                masks: Tuple[Optional[torch.Tensor], ...] = (None, None, None)) -> torch.Tensor:
+        """x [B, L, D], add_mask broadcastable to [B, H, L, L] -> [B, L, D].
+        ``masks``: dropout factors by site (``fused_encoder.layer_masks``),
+        None where there is no dropout."""
         B, L, D = x.shape
         heads = (B, L, self.n_heads, D // self.n_heads)
         q, k, v = (getattr(self, n)(x).view(heads) for n in ("query", "key", "value"))
         probs = torch.softmax(attention_scores(q, k, add_mask), dim=-1)
+        if masks[ATTN_SITE] is not None:
+            probs = probs * masks[ATTN_SITE]
         ctx = torch.einsum("bhlm,bmhd->blhd", probs, v).reshape(B, L, D)
-        x = self.LayerNorm_0(self.dense(ctx) + x)
-        return self.LayerNorm_1(self.ffn_2(self.act(self.ffn_1(x))) + x)
+        a = self.dense(ctx)
+        if masks[ATTN_OUT_SITE] is not None:
+            a = a * masks[ATTN_OUT_SITE]
+        x = self.LayerNorm_0(a + x)
+        f = self.ffn_2(self.act(self.ffn_1(x)))
+        if masks[FFN_OUT_SITE] is not None:
+            f = f * masks[FFN_OUT_SITE]
+        return self.LayerNorm_1(f + x)
 
     def jax_leaves(self) -> List[Tuple[str, tuple, torch.Tensor, bool]]:
         leaves = []
@@ -91,6 +115,8 @@ class TransformerEncoder(nn.Module):
         self.layer_norm_eps = float(layer_norm_eps)
         self.hidden_dropout_prob = float(hidden_dropout_prob)
         self.attn_dropout_prob = float(attn_dropout_prob)
+        check_rate(self.hidden_dropout_prob)
+        check_rate(self.attn_dropout_prob)
         self.blocks = nn.ModuleList(
             TransformerBlock(hidden_size, n_heads, inner_size, hidden_act, layer_norm_eps, gen)
             for _ in range(n_layers))
@@ -119,17 +145,24 @@ class TransformerEncoder(nn.Module):
                 stack((m.bias for m in norms), 2, D))
 
     def forward(self, x: torch.Tensor, key_valid: torch.Tensor, causal: bool = True,
-                train: bool = False) -> torch.Tensor:
+                train: bool = False, seed: Optional[int] = None) -> torch.Tensor:
         """x [B, L, D], key_valid [B, L] (nonzero = a valid key) -> [B, L, D].
-        Query l may see key j when j is valid and, if ``causal``, j <= l."""
-        if train and (self.hidden_dropout_prob > 0 or self.attn_dropout_prob > 0):
-            raise NotImplementedError(_TRAINING_SLICE)
+        Query l may see key j when j is valid and, if ``causal``, j <= l.
+        ``train`` applies dropout with the masks of ``seed`` (drawn from
+        torch's default generator when None)."""
+        hidden = self.hidden_dropout_prob if train else 0.0
+        attn = self.attn_dropout_prob if train else 0.0
+        if (hidden > 0 or attn > 0) and seed is None:
+            seed = draw_seed()
+        seed = 0 if seed is None else int(seed)
         if x.device.type == "cuda":
             return fused_encoder(x, key_valid, self.packed(), self.n_heads, causal,
-                                 self.hidden_act, self.layer_norm_eps)
+                                 self.hidden_act, self.layer_norm_eps, train, hidden, attn, seed)
         add_mask = additive_mask(key_valid, causal)
-        for block in self.blocks:
-            x = block(x, add_mask)
+        B, L, D = x.shape
+        for li, block in enumerate(self.blocks):
+            x = block(x, add_mask, layer_masks(seed, B, li, L, D, self.n_heads, hidden, attn,
+                                               x.device))
         return x
 
     def jax_leaves(self) -> List[Tuple[str, tuple, torch.Tensor, bool]]:

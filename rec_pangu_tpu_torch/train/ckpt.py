@@ -18,8 +18,11 @@ arrays that the JAX package's ``load_checkpoint`` reads as they are::
         # Adam moments of every parameter torch.optim.Adam steps, keyed and
         # transposed like ``params`` (the table too on the standard step)
         "params": {"mu": {...}, "nu": {...}},
-        # the fused step's table moments, keyed by the table's flax path
-        "tables": {"FusedEmbedding_0/table": {"mu": [rows, D], "nu": [rows, D]}},
+        # the fused step's table moments, keyed by the table's flax path, in
+        # their storage dtype: "float32" arrays, or "bfloat16"
+        # (REC_PANGU_TPU_MOMENT_DTYPE=bf16) as uint16 arrays of the bf16 bits
+        "tables": {"FusedEmbedding_0/table": {"mu": [rows, D], "nu": [rows, D],
+                                              "dtype": "float32"}},
     }
 
 The JAX trainer cannot resume from it (its ``resume`` wants optax's state
@@ -34,6 +37,9 @@ from __future__ import annotations
 import os
 import pickle
 from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
 
 _FOREIGN_ROOTS = frozenset({"jax", "jaxlib", "flax", "optax", "rec_pangu_tpu"})
 
@@ -60,6 +66,19 @@ class _CheckpointUnpickler(pickle.Unpickler):
         if module.split(".")[0] in _FOREIGN_ROOTS:
             return type(name, (ForeignObject,), {"jax_class": f"{module}.{name}"})
         return super().find_class(module, name)
+
+
+def moment_arrays(mu: torch.Tensor, nu: torch.Tensor) -> Dict[str, Any]:
+    """A table's Adam moments as the layout's numpy entry (bfloat16 as its
+    uint16 bits: numpy has no bfloat16)."""
+    def host(t):
+        t = t.detach().to("cpu", copy=True)
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().view(np.uint16)
+        return t.numpy()
+
+    return {"mu": host(mu), "nu": host(nu),
+            "dtype": "bfloat16" if mu.dtype == torch.bfloat16 else "float32"}
 
 
 def save_checkpoint(path: str, params: Any, batch_stats: Any = None,

@@ -11,14 +11,19 @@ optimizer then runs over all parameters.  The fused step
 
 ``opt_state`` writes the optimizer's state for a checkpoint in the port's
 layout (``ckpt.py``); the JAX package's optax state is not written.
+
+A step given a ``generator`` (the sequence trainer's, seeded by ``fit``'s
+``seed``) draws one dropout seed from it each step and passes it to the
+model's forward (``seed=``), as the JAX step folds the step into its key.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
 from ..convert import jax_tree
+from ..ops.sequence_enc import draw_seed
 from .optim import make_lr_schedule, make_optimizer, set_lr
 
 OPT_STATE_LAYOUT = "rec_pangu_tpu_torch/adam-1"
@@ -48,16 +53,20 @@ class StandardStep:
     fused = False
 
     def __init__(self, model, lr: float, steps_per_epoch: int, lr_scheduler_type: str = "",
-                 scheduler_params=None):
+                 scheduler_params=None, generator: Optional[torch.Generator] = None):
         self.model = model
         self.schedule = make_lr_schedule(lr, steps_per_epoch, lr_scheduler_type,
                                          scheduler_params)
         self.optimizer = make_optimizer(model.parameters(), lr)
+        self.generator = generator
 
     def __call__(self, inputs: Dict[str, torch.Tensor], step: int) -> Dict[str, torch.Tensor]:
         set_lr(self.optimizer, self.schedule(step))
         self.optimizer.zero_grad(set_to_none=True)
-        out = self.model(inputs, train=True)
+        if self.generator is None:
+            out = self.model(inputs, train=True)
+        else:
+            out = self.model(inputs, train=True, seed=draw_seed(self.generator))
         out["loss"].backward()
         self.optimizer.step()
         return out

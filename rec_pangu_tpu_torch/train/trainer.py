@@ -16,16 +16,22 @@ are (the JAX ``fit`` initializes new ones from ``seed``; here ``seed`` seeds
 torch's generator, which dropout draws from), and ``resume_from``, ``mesh``,
 ``profile_dir`` and ``steps_per_call > 1`` raise ``NotImplementedError``.
 
-SequenceTrainer serves sequence-recall models: ``load_model``, the
-``save_*`` methods and ``evaluate_model`` (top-200 retrieval over the whole
-corpus, then recall/ndcg/hitrate at each k, as in the JAX package); its
-``fit`` arrives with sequence training.
+SequenceTrainer drives sequence-recall models: ``load_model``, the
+``save_*`` methods, ``evaluate_model`` (top-200 retrieval over the whole
+corpus, then recall/ndcg/hitrate at each k, as in the JAX package) and
+``fit``: per epoch the train steps (the sequence fused step with Adam from a
+fresh state, or the standard step with ``REC_PANGU_TPU_FUSED_ADAM=0``), then
+``evaluate_model`` on the valid loader, a row of ``log.csv``, the
+``model_e_{i}`` checkpoint and early stopping.  ``seed`` seeds the
+generator the steps draw their dropout seeds (and sampled negatives) from;
+``mesh`` and ``steps_per_call > 1`` raise ``NotImplementedError``.
 
 ``device=None`` means the CUDA card (see ``utils/device.py``); a method's
 ``device`` argument, when given, overrides the trainer's.
 """
 from __future__ import annotations
 
+import csv
 import logging
 import os
 import time
@@ -40,7 +46,7 @@ from ..eval.metrics import RollingMetricBuffer, compute_ranking_metrics
 from ..eval.retrieval import evaluate_recall, get_recall_predict
 from ..utils.device import DeviceLike, resolve_device
 from .ckpt import load_checkpoint, save_checkpoint
-from .fused_update import maybe_enable_fused_update
+from .fused_update import maybe_enable_fused_update, maybe_enable_seq_fused_update
 from .steps import StandardStep, strip_host_keys
 
 logger = logging.getLogger("rec_pangu_tpu_torch")
@@ -251,8 +257,17 @@ class RankTrainer(_BaseTrainer):
         return self.predict_dataloader(model, loader, device)
 
 
+def _write_log_csv(path: str, rows: List[Dict[str, float]]) -> None:
+    """One row an epoch: the epoch, then the valid metrics (the JAX trainer
+    writes the same columns with pandas)."""
+    with open(path, "w", newline="") as f:
+        writer = csv.DictWriter(f, fieldnames=list(rows[0]))
+        writer.writeheader()
+        writer.writerows(rows)
+
+
 class SequenceTrainer(_BaseTrainer):
-    """Driver for sequence-recall models: checkpoints and evaluation."""
+    """Sequence-recall models: training, checkpoints, evaluation."""
 
     def fit(self, model, train_loader: DataLoader, valid_loader: Optional[DataLoader] = None,
             epoch: int = 50, lr: float = 1e-3, device: DeviceLike = None,
@@ -261,8 +276,70 @@ class SequenceTrainer(_BaseTrainer):
             topk_list: Optional[List[int]] = None, lr_scheduler_type: str = "",
             scheduler_params: Optional[dict] = None, seed: int = 1029, mesh=None,
             steps_per_call: int = 1) -> None:
-        raise NotImplementedError("SequenceTrainer.fit is not ported yet: it arrives with "
-                                  "SASRec training (ROADMAP Queue 1 item 3b)")
+        asked = {"mesh": mesh, "steps_per_call": steps_per_call if int(steps_per_call) > 1
+                 else None}
+        for name, value in asked.items():
+            if value is not None:
+                raise NotImplementedError(f"fit({name}=...) is not ported yet: "
+                                          f"{_NOT_PORTED[name]}")
+        topk_list = topk_list or [20, 50, 100]
+        dev = self._device(device)
+        os.makedirs(self.model_ckpt_dir, exist_ok=True)
+        self.model = model.to(dev)
+        self._fit_device = dev
+        self.step = 0
+        generator = torch.Generator().manual_seed(seed)
+        steps_per_epoch = len(train_loader)
+        self._train_step = maybe_enable_seq_fused_update(
+            model, lr, steps_per_epoch, lr_scheduler_type, scheduler_params,
+            generator=generator)
+        if self._train_step is not None:
+            logger.info("Item-table Adam update fused into the table kernel "
+                        "(history + softmax-CE gradients)")
+        else:
+            self._train_step = StandardStep(model, lr, steps_per_epoch, lr_scheduler_type,
+                                            scheduler_params, generator)
+        logger.info("Model Starting Training")
+        log_rows: List[Dict[str, float]] = []
+        best_epoch, best_metric = -1, -np.inf
+        for i in range(1, epoch + 1):
+            self.model.train()
+            start = time.time()
+            for idx, batch in enumerate(train_loader):
+                batch, _ = strip_host_keys(batch)
+                out = self._step(batch)
+                if idx % log_rounds == 0:
+                    loss = float(out["loss"].detach())
+                    elapsed = time.time() - start
+                    remaining = round(((elapsed / (idx + 1)) * (steps_per_epoch - idx + 1)) / 60,
+                                      2)
+                    logger.info(f"Iter {idx}/{steps_per_epoch} Remaining time:{remaining} min "
+                                f"Loss:{round(loss, 4)}")
+            if valid_loader is None:
+                continue
+            valid_metric = self.evaluate_model(self.model, valid_loader, dev,
+                                               topk_list=topk_list)
+            logger.info(f"Epoch {i} Valid Metric:{valid_metric}")
+            log_rows.append({"epoch": i, **valid_metric})
+            _write_log_csv(os.path.join(self.model_ckpt_dir, "log.csv"), log_rows)
+            self.save_train_model(self.model, self.model_ckpt_dir, f"e_{i}")
+            if use_earlystopping:
+                if monitor_metric not in valid_metric:
+                    raise KeyError(f"{monitor_metric} not in Valid Metric {valid_metric.keys()}")
+                if valid_metric[monitor_metric] > best_metric:
+                    best_epoch = i
+                    best_metric = valid_metric[monitor_metric]
+                    self.save_train_model(self.model, self.model_ckpt_dir, "best")
+                if i - best_epoch >= max_patience:
+                    logger.info(f"EarlyStopping at the Epoch {i} Valid Metric:{valid_metric}")
+                    break
+
+    def _step(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+        """One train step on a host batch: id check, upload, the step."""
+        inputs = self.model.upload_batch(batch, self._fit_device, train=True)
+        out = self._train_step(inputs, self.step)
+        self.step += 1
+        return out
 
     def evaluate_model(self, model, test_loader: DataLoader, device: DeviceLike = None,
                        topk_list: Optional[List[int]] = None,

@@ -4,7 +4,12 @@ JAX runs ``planned_adam_update`` (``_adam_tile_kernel``) in interpret mode at
 ``highest`` precision.  The gradient sums differ from the port's by rounding
 (one-hot matmuls against batch-order adds), and that difference passes
 through the Adam arithmetic: p within atol 1e-6, m and v within atol 1e-6 /
-rtol 1e-5 after three steps.
+rtol 1e-5 after three steps.  With K3's dense stream (``dense_grad_t`` in
+JAX, ``dense`` here) the same.  With bfloat16 moments both sides round m and
+v to bfloat16 after f32 arithmetic; a gradient sum that differs in its last
+bit can move a moment to the neighbouring bfloat16 (2^-8 relative), which
+moves that step's update, lr * m_hat / sqrt(v_hat), by up to about lr *
+2^-8: m and v within rtol 2^-7, p within atol lr * 2^-7 (seen: 2.1e-6).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -113,3 +118,70 @@ def test_inputs_are_checked_and_cpu_builds_nothing(monkeypatch):
                                  torch.zeros(4, 8193), torch.zeros(4, 8193),
                                  adam.adam_hyper(1, LR))
     np.testing.assert_allclose(t.numpy()[0], -LR, rtol=1e-6)  # the first step is lr*sign(g)
+
+
+def _dense_case(seed):
+    rng = np.random.default_rng(seed)
+    p0 = (rng.standard_normal((ROWS, DIM)) * 0.01).astype(np.float32)
+    ids = rng.integers(0, ROWS, N)
+    ids[:300] = ids[300:600]  # duplicates
+    rows = rng.standard_normal((N, DIM)).astype(np.float32)
+    dense = (rng.standard_normal((ROWS, DIM)) * 0.1).astype(np.float32)
+    dense[rng.random(ROWS) < 0.5] = 0.0  # rows the dense gradient does not reach
+    return p0, ids, rows, dense
+
+
+@pytest.mark.parametrize("moments", ["f32", "bf16"])
+def test_dense_stream_and_moment_dtype_match_jax_k3(moments, monkeypatch):
+    from rec_pangu_tpu.train.fused_update import _moment_dtype as jax_moment_dtype
+    from rec_pangu_tpu_torch.train.fused_update import _moment_dtype
+
+    monkeypatch.setenv("REC_PANGU_TPU_MOMENT_DTYPE", moments)
+    jdt, tdt = jax_moment_dtype(), _moment_dtype()
+    assert (str(jnp.dtype(jdt)), tdt) in (("float32", torch.float32),
+                                         ("bfloat16", torch.bfloat16))
+    p0, _, _, _ = _dense_case(5)
+    jp, jm, jv = jnp.asarray(p0), jnp.zeros((ROWS, DIM), jdt), jnp.zeros((ROWS, DIM), jdt)
+    tp = torch.from_numpy(p0.copy())
+    tm, tv = torch.zeros(ROWS, DIM, dtype=tdt), torch.zeros(ROWS, DIM, dtype=tdt)
+    for t in (1, 2, 3):
+        _, ids, rows, dense = _dense_case(10 + t)
+        plan = {k: jnp.asarray(v) for k, v in jgrad.make_sort_plan(ids, ROWS, dim=DIM).items()}
+        stream = jgrad.stream_ids(plan, jnp.asarray(ids, jnp.int32), ROWS)
+        jp, jm, jv = jadam.planned_adam_update(
+            plan, stream, jnp.asarray(rows), jp, jm, jv,
+            jadam.adam_hyper(jnp.asarray(t, jnp.int32), LR),
+            dense_grad_t=jnp.asarray(dense.T))
+        adam.planned_adam_update(torch.from_numpy(ids.astype(np.int32)), torch.from_numpy(rows),
+                                 tp, tm, tv, adam.adam_hyper(t, LR), torch.from_numpy(dense))
+    assert tm.dtype == tdt and str(jm.dtype) == str(jnp.dtype(jdt))
+    rtol = 2.0 ** -7 if moments == "bf16" else 1e-5
+    p_atol = LR * 2.0 ** -7 if moments == "bf16" else 1e-6
+    np.testing.assert_allclose(tp.numpy(), np.asarray(jp), rtol=0, atol=p_atol)
+    np.testing.assert_allclose(tm.float().numpy(), np.asarray(jm, np.float32), rtol=rtol,
+                               atol=1e-6)
+    np.testing.assert_allclose(tv.float().numpy(), np.asarray(jv, np.float32), rtol=rtol,
+                               atol=1e-6)
+
+
+def test_dense_stream_adds_to_the_summed_rows():
+    """One step with ids and a dense gradient equals one step whose rows
+    carry the same total gradient, bit for bit (the sum g = rows + dense is
+    one rounding either way when each row is hit once)."""
+    rng = np.random.default_rng(6)
+    ids = torch.from_numpy(rng.permutation(300)[:100].astype(np.int32))
+    rows = torch.from_numpy(rng.standard_normal((100, 4)).astype(np.float32))
+    dense = torch.from_numpy(rng.standard_normal((300, 4)).astype(np.float32))
+    table = torch.from_numpy(rng.standard_normal((300, 4)).astype(np.float32))
+    a = [table.clone(), torch.zeros(300, 4), torch.zeros(300, 4)]
+    adam.planned_adam_update(ids, rows, *a, adam.adam_hyper(1, LR), dense)
+    total = dense.clone().index_add_(0, ids.long(), rows)
+    b = [table.clone(), torch.zeros(300, 4), torch.zeros(300, 4)]
+    adam.planned_adam_update(torch.zeros(0, dtype=torch.int32), torch.zeros(0, 4), *b,
+                             adam.adam_hyper(1, LR), total)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+    with pytest.raises(ValueError, match="dense must be"):
+        adam.planned_adam_update(ids, rows, *a, adam.adam_hyper(2, LR), dense[:5])
+    with pytest.raises(ValueError, match="share a dtype"):
+        adam.planned_adam_update(ids, rows, a[0], a[1], a[2].bfloat16(), adam.adam_hyper(2, LR))

@@ -139,9 +139,19 @@ def test_shapes_the_kernel_does_not_take_raise():
 
 
 def test_dropout_in_training_waits_for_the_training_slice(inputs):
+    """Dropout in training arrived with the training slice: a training call
+    drops with the masks of its seed; eval and rate 0 do not; a rate
+    outside [0, 1) still raises."""
     x, key_valid, _ = inputs
     enc = TransformerEncoder(D, 1, HEADS, INNER, 0.1, 0.1)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3b"):
-        enc(torch.from_numpy(x), train=True, key_valid=torch.from_numpy(key_valid))
-    assert enc(torch.from_numpy(x), train=False,
-               key_valid=torch.from_numpy(key_valid)).shape == (N, L, D)
+    xt, kv = torch.from_numpy(x), torch.from_numpy(key_valid)
+    with torch.no_grad():
+        y = enc(xt, train=True, key_valid=kv, seed=5)
+        assert y.shape == (N, L, D)
+        assert torch.equal(y, enc(xt, train=True, key_valid=kv, seed=5))
+        assert not torch.allclose(y, enc(xt, train=False, key_valid=kv))
+        packed = fe.fused_encoder(xt, kv, enc.packed(), HEADS, True, "gelu", 1e-12, True, 0.1,
+                                  0.1, 5)
+        np.testing.assert_allclose(packed.numpy(), y.numpy(), rtol=0, atol=ATOL)
+    with pytest.raises(ValueError, match="dropout rate"):
+        TransformerEncoder(D, 1, HEADS, INNER, 1.0, 0.1)

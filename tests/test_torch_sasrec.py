@@ -169,19 +169,28 @@ def test_checkpoints_round_trip_both_ways(jax_sasrec, tmp_path, monkeypatch):
     np.testing.assert_allclose(back, _user_emb(tmodel, batch), rtol=0, atol=ATOL)
 
 
-def test_training_waits_for_the_training_slice(jax_sasrec):
-    _, params, enc = jax_sasrec
+def test_training_waits_for_the_training_slice(jax_sasrec, monkeypatch):
+    """Training arrived with the training slice: the training batch, the
+    loss and the dropout forward work; what still raises is fit's mesh and
+    K-step options (ROADMAP Queue 1 items 10 and 11)."""
+    monkeypatch.setenv("REC_PANGU_TPU_FUSED_ENCODER", "0")
+    model, params, enc = jax_sasrec
     tmodel = _port(params, enc)
     batch, _ = _batch(5)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3b"):
-        SequenceTrainer(device="cpu").fit(tmodel, [batch])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3b"):
-        tmodel.upload_batch(batch, torch.device("cpu"), train=True)
-    inputs = tmodel.upload_batch(batch, torch.device("cpu"))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3b"):
-        tmodel(inputs, train=True)  # the default dropout rates are 0.1
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3b"):
-        tmodel.calculate_loss(torch.zeros(B, 8), torch.ones(B, dtype=torch.int32))
+    batch["target_item"] = np.arange(1, B + 1, dtype=np.int32)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+        SequenceTrainer(device="cpu").fit(tmodel, [batch], mesh=object())
+    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+        SequenceTrainer(device="cpu").fit(tmodel, [batch], steps_per_call=4)
+    inputs = tmodel.upload_batch(batch, torch.device("cpu"), train=True)
+    out = tmodel(inputs, train=True, seed=3)  # the default dropout rates are 0.1
+    assert out["user_emb"].shape == (B, 8) and np.isfinite(float(out["loss"]))
+    # the loss is the JAX model's full softmax CE of the same user embeddings
+    want = model.apply({"params": params}, jnp.asarray(out["user_emb"].detach().numpy()),
+                       jnp.asarray(batch["target_item"]), method="calculate_loss")
+    got = tmodel.calculate_loss(out["user_emb"], inputs["target_item"])
+    np.testing.assert_allclose(float(got), float(want), rtol=1e-6)
+    np.testing.assert_allclose(float(out["loss"]), float(got), rtol=0)
 
 
 def test_item_table_and_corpus(jax_sasrec):
