@@ -69,6 +69,7 @@ them, and last {"ok": true, "device": {...}}.
 Float32 matmuls are held to full precision for the comparisons:
 torch.backends.cuda.matmul.allow_tf32 = False (and the cuDNN flag too).
 """
+import contextlib
 import copy
 import json
 import math
@@ -92,8 +93,12 @@ from rec_pangu_tpu_torch.ops.kernels import embedding_grad as grad
 from rec_pangu_tpu_torch.ops.kernels import embedding_lookup as lookup
 from rec_pangu_tpu_torch.ops.kernels import fused_adam as adam
 from rec_pangu_tpu_torch.ops.kernels import fused_encoder as encoder
+from rec_pangu_tpu_torch.ops.kernels import global_attn as gattn
+from rec_pangu_tpu_torch.ops.kernels import multimax_ce as mmce
 from rec_pangu_tpu_torch.ops.sequence_enc import TransformerEncoder
 from rec_pangu_tpu_torch.serving import make_ranking_scorer, make_retrieval_scorer
+from rec_pangu_tpu_torch.serving.scorer import score_items
+from rec_pangu_tpu_torch.convert import jax_variables
 from rec_pangu_tpu_torch.train import RankTrainer, SequenceTrainer, save_checkpoint
 from rec_pangu_tpu_torch.train.fused_update import maybe_enable_fused_update
 
@@ -718,19 +723,27 @@ def labelled_loader(score, batches: int, seed: int) -> DataLoader:
     return DataLoader(_Arrays(arrays), batch_size=BATCH)
 
 
+# each kernel's launch count: (module, attribute)
+COUNTERS = {"embedding_lookup": (lookup, "LAUNCHES"), "embedding_grad": (grad, "LAUNCHES"),
+            "fused_adam": (adam, "LAUNCHES"), "fused_encoder": (encoder, "LAUNCHES"),
+            "fused_encoder_bwd": (encoder, "BACKWARD_LAUNCHES"),
+            "global_attn": (gattn, "LAUNCHES"), "global_attn_bwd": (gattn, "BACKWARD_LAUNCHES"),
+            "multimax_ce": (mmce, "LAUNCHES"), "multimax_ce_bwd": (mmce, "BACKWARD_LAUNCHES")}
+
+
 def reset_launches() -> None:
-    lookup.LAUNCHES = grad.LAUNCHES = adam.LAUNCHES = encoder.LAUNCHES = 0
-    encoder.BACKWARD_LAUNCHES = 0
+    for module, attr in COUNTERS.values():
+        setattr(module, attr, 0)
 
 
 def read_launches() -> dict:
-    return {"embedding_lookup": lookup.LAUNCHES, "embedding_grad": grad.LAUNCHES,
-            "fused_adam": adam.LAUNCHES, "fused_encoder": encoder.LAUNCHES}
+    return {name: getattr(module, attr) for name, (module, attr) in COUNTERS.items()}
 
 
 def require_launches(got: dict, want: dict, what: str) -> None:
-    if got != want:
-        raise RuntimeError(f"{what}: kernel launches {got}, expected {want}")
+    """Every count as ``want`` gives it, 0 where it gives none."""
+    if any(got[k] != want.get(k, 0) for k in got):
+        raise RuntimeError(f"{what}: kernel launches {got}, expected {want} (0 elsewhere)")
 
 
 def timed_fit(trainer: RankTrainer, model, train_loader, valid_loader, epochs: int,
@@ -903,13 +916,12 @@ def phase_train_profile(trainer: RankTrainer, batches) -> dict:
 
 # ----------------------------------------------------------------- sequence
 def random_encoder(dim: int, heads: int, inner: int, layers: int, act: str, seed: int,
-                   dev) -> TransformerEncoder:
+                   dev, eps: float = SEQ_CONFIG["layer_norm_eps"]) -> TransformerEncoder:
     """A TransformerEncoder with seeded random weights: the JAX package's
     init, plus small random biases and LayerNorm terms so that every term
     of a block counts."""
     gen = torch.Generator().manual_seed(seed)
-    enc = TransformerEncoder(dim, layers, heads, inner, 0.0, 0.0, act,
-                             SEQ_CONFIG["layer_norm_eps"], gen)
+    enc = TransformerEncoder(dim, layers, heads, inner, 0.0, 0.0, act, eps, gen)
     with torch.no_grad():
         for p in enc.parameters():
             if p.dim() == 1:
@@ -1075,6 +1087,8 @@ BWD_REL_TOL = 1e-5         # K4b against plain autograd, dy on rows with a valid
                            # (first run: 1.7e-6)
 MASKED_BWD_REL_TOL = 5e-2  # ... dy on every row (see check_encoder_bwd)
 DROP = 0.1                 # SASRec's hidden and attention dropout
+KINK_ROUNDINGS = 1         # relu: |pre-activation| within this many roundings of 0
+                           # (seen: the samples apart lay within 0.085 of them)
 BWD_LAUNCHES = 20          # backward calls a timing graph holds
 
 
@@ -1138,10 +1152,92 @@ def check_encoder_bwd(x, kv, enc: TransformerEncoder, causal: bool, what: str,
     return out
 
 
+def ffn_preactivations(x, kv, packed, heads, causal, act, eps, rate, seed, dtype) -> list:
+    """Each layer's FFN pre-activations [N, L, inner] in the plain forward
+    at ``dtype``, with the kernels' dropout masks (recorded where the plain
+    version applies its activation)."""
+    seen = []
+    activate = encoder._activate
+
+    def record(h, name):
+        seen.append(h)
+        return activate(h, name)
+
+    encoder._activate = record
+    try:
+        with torch.no_grad():
+            encoder.fused_encoder_reference(x.to(dtype), kv, [t.to(dtype) for t in packed],
+                                            heads, causal, act, eps, True, rate, rate, seed)
+    finally:
+        encoder._activate = activate
+    return seen
+
+
+def check_encoder_bwd_relu(x, kv, enc: TransformerEncoder, what: str, rate: float,
+                           seed: int = 7) -> dict:
+    """K4b and K4f's dropout forward against the plain version's autograd
+    with relu, causal, every key valid.  Relu's derivative is 1 on one side
+    of 0 and 0 on the other, so where a pre-activation lies within rounding
+    of 0 the kernel and the plain version may take different sides and that
+    sample's gradients differ beyond rounding.  Such samples are found from
+    the plain forward in float64: layer l's float32 rounding is R_l =
+    max |h32 - h64| over its pre-activations, and a sample with any |h64| <=
+    KINK_ROUNDINGS * R_l is a kink sample.  With dy on every sample, each
+    sample whose dx lies apart beyond BWD_REL_TOL must be a kink sample.
+    Then dy is zero on those (samples are independent, so they add nothing
+    to any gradient); y, dx and the 8 gradients are held within
+    BWD_REL_TOL of each array's largest entry, each run twice for the same
+    bits."""
+    heads, act, eps = enc.n_heads, enc.hidden_act, enc.layer_norm_eps
+    packed = [t.detach() for t in enc.packed()]
+    args = (x, kv, packed, heads, True, act, eps, rate, seed)
+    h64 = ffn_preactivations(*args, torch.float64)
+    rounding = [(a.double() - b).abs().max().item()
+                for a, b in zip(ffn_preactivations(*args, torch.float32), h64)]
+    # each sample's pre-activation nearest 0, in roundings of its layer
+    nearest = torch.stack([(h.abs() / r).flatten(1).amin(1)
+                           for h, r in zip(h64, rounding)]).amin(0)
+    kinked = nearest <= KINK_ROUNDINGS
+    del h64
+    gen = torch.Generator(device=x.device).manual_seed(seed + 1)
+    dy = torch.randn(x.shape, generator=gen, device=x.device)
+    _, dx, _ = encoder_grads(x, kv, packed, dy, heads, True, act, eps, rate, seed)
+    _, ref_dx, _ = encoder_grads(x, kv, packed, dy, heads, True, act, eps, rate, seed,
+                                 plain=True)
+    apart = ((dx - ref_dx).abs().flatten(1).amax(1) / ref_dx.abs().max()) > BWD_REL_TOL
+    apart_nearest = sorted(nearest[apart].tolist())
+    if bool((apart & ~kinked).any()):
+        raise RuntimeError(f"{what}: samples apart beyond {BWD_REL_TOL} whose pre-activations "
+                           f"lie farther than {KINK_ROUNDINGS} roundings from 0: "
+                           f"{apart_nearest}")
+    dy = dy * (~kinked)[:, None, None]
+    grad_args = (x, kv, packed, dy, heads, True, act, eps, rate, seed)
+    y, dx, grads = encoder_grads(*grad_args)
+    y2, dx2, grads2 = encoder_grads(*grad_args)
+    for a, b, part in zip((y, dx) + grads, (y2, dx2) + grads2, ("y", "dx") + encoder.PACKED_NAMES):
+        require_equal(a, b, f"{what}, {part}, run twice")
+    del y2, dx2, grads2
+    ref_y, ref_dx, ref_grads = encoder_grads(*grad_args, plain=True)
+    torch.cuda.synchronize()
+    if not all(bool(torch.isfinite(t).all()) for t in (y, dx) + grads):
+        raise RuntimeError(f"{what}: non-finite encoder output or gradient")
+    errs = {"y": rel_err(y, ref_y), "dx": rel_err(dx, ref_dx)}
+    errs.update({n: rel_err(g, r) for n, g, r in zip(encoder.PACKED_NAMES, grads, ref_grads)})
+    out = {"case": what, "dropout": rate, "act": act, "samples": x.shape[0],
+           "kink_samples": int(kinked.sum()), "preactivation_rounding": rounding,
+           "kink_roundings": KINK_ROUNDINGS, "samples_apart_with_dy_everywhere": len(apart_nearest),
+           "their_nearest_preactivation_in_roundings": apart_nearest, "other_samples": errs,
+           "max_rel_err": max(errs.values())}
+    if out["max_rel_err"] > BWD_REL_TOL:
+        raise RuntimeError(f"{what}: K4b differs from plain autograd: {out}")
+    return out
+
+
 def phase_fused_encoder_bwd(bandwidth: float, fp32: float) -> dict:
     """K4b (and K4f's dropout forward) against the plain version's autograd
     at the bench shape (prefix masks with empty histories, bench.py's
-    0.9-density masks), dropout 0 and 0.1 from one seed, and at edge shapes;
+    0.9-density masks), dropout 0 and 0.1 from one seed, at edge shapes and
+    at IOCRec's (3072 views; gelu, and relu with dropout 0.5);
     the dropout masks' seed dependence and keep share; times of the kernel's
     backward, the plain backward and torch.nn.TransformerEncoder's."""
     t_start = time.perf_counter()
@@ -1176,6 +1272,17 @@ def phase_fused_encoder_bwd(bandwidth: float, fp32: float) -> dict:
     e = random_encoder(128, heads, 512, layers, "gelu", SEED + 46, dev)
     cases.append(check_encoder_bwd(x_of(64, 64, 128), prefix_masks(64, 64, gen), e, True,
                                    "D=128 inner=512 L=64 (arena in device memory)"))
+    # IOCRec's local encoder: 3 layers of 2 heads, inner 128, 3072 views, every
+    # key valid (its arena lies in device memory at this N); gelu without
+    # dropout, and IOCRec's own relu, eps 1e-12 and dropout 0.5
+    ioc_shape = (IOC_VIEWS, SEQ_L, SEQ_DIM)
+    x_ioc, kv_ioc = x_of(*ioc_shape), torch.ones(IOC_VIEWS, SEQ_L, device=dev)
+    e = random_encoder(SEQ_DIM, 2, 128, 3, "gelu", SEED + 47, dev)
+    cases.append(check_encoder_bwd(x_ioc, kv_ioc, e, True, "IOCRec shape: 3072 x 50 x 64, "
+                                   "3 layers of 2 heads, inner 128", 0.0))
+    e = random_encoder(SEQ_DIM, 2, 128, 3, "relu", SEED + 47, dev, IOC_CONFIG["layer_norm_eps"])
+    cases.append(check_encoder_bwd_relu(x_ioc, kv_ioc, e, "IOCRec shape, relu, eps 1e-12, "
+                                        f"dropout {IOC_DROP}", IOC_DROP))
 
     # the masks: another seed changes them; the keep share at the bench shape
     kv = masks["prefix"]
@@ -1241,6 +1348,19 @@ def phase_fused_encoder_bwd(bandwidth: float, fp32: float) -> dict:
     }
     times["plain_ms"] = times["plain_fwd_bwd_ms"] - times["plain_forward_ms"]
     times["library_ms"] = times["library_fwd_bwd_ms"] - times["library_forward_ms"]
+    # at IOCRec's shape and rates (relu, eps 1e-12, dropout 0.5)
+    e = random_encoder(SEQ_DIM, 2, 128, 3, "relu", SEED + 47, dev)
+    packed_ioc = [t.detach() for t in e.packed()]
+    ioc_opts = (2, True, "relu", 1e-12, IOC_DROP, IOC_DROP, 7)
+    _, saved_ioc = encoder.launch_train(x_ioc, kv_ioc, packed_ioc, *ioc_opts, save=True)
+    dy_ioc = torch.randn(ioc_shape, generator=gen, device=dev)
+    times["iocrec_shape_ms"] = median_ms(
+        [lambda: encoder.launch_backward(saved_ioc, kv_ioc, dy_ioc, packed_ioc, *ioc_opts)], 5, 5)
+    times["iocrec_shape_forward_ms"] = median_ms(
+        [lambda: encoder.launch_train(x_ioc, kv_ioc, packed_ioc, *ioc_opts, save=True)], 5, 5)
+    ioc_flop, _ = encoder_work(*ioc_shape, 128, 3, packed_ioc)
+    times["iocrec_shape_bound_ms"] = 3 * ioc_flop / fp32 * 1e3
+    del saved_ioc, dy_ioc
     flop, moved = encoder_work(SEQ_BATCH, SEQ_L, SEQ_DIM, inner, layers, packed)
     flop *= 3  # the recomputed forward, then the weight and the input gradients
     n_el = SEQ_BATCH * SEQ_L * SEQ_DIM
@@ -1255,7 +1375,8 @@ def phase_fused_encoder_bwd(bandwidth: float, fp32: float) -> dict:
         "max_abs_err": max(c["max_rel_err"] for c in cases),
         "tolerance": f"dx and each gradient within {BWD_REL_TOL} of the array's largest entry "
                      f"(dy on rows with a valid key), {MASKED_BWD_REL_TOL} (dy on every row); "
-                     f"max_abs_err is that relative error",
+                     f"with relu, y too, dy zero on the samples with a pre-activation within "
+                     f"{KINK_ROUNDINGS} roundings of 0; max_abs_err is that relative error",
         **times, "bound_ms": max(by_ops, by_bytes),
         "bound_by": "operations" if by_ops >= by_bytes else "bytes",
         "library": "torch.nn.TransformerEncoder backward, dropout 0 (ms: K4b alone; "
@@ -1459,13 +1580,13 @@ def phase_seq_serving(path: str, enc_dict: dict, device: str = "cuda"):
     return summary, model, requests[SEQ_WARMUP:SEQ_WARMUP + SEQ_PROFILED]
 
 
-def phase_seq_profile(model, requests) -> dict:
+def phase_seq_profile(model, requests, phase: str = "seq_profile") -> dict:
     """Where a retrieval request's time goes.  Host stages, each ended by a
     synchronize: the id check, the check plus upload, the encoder (lookup,
-    K4f, the last-position gather), the scoring (normalize and the
-    [1024, 64] x [64, 1,000,000] product), the top-200, the copy back.
-    Then torch.profiler over the scorer: device time by operation and the
-    card's idle share."""
+    K4f, the last-position gather; IOCRec's K6f and disentangling too), the
+    scoring (normalize and the [1024, 64] x [64, 1,000,000] product, one an
+    interest), the top-200, the copy back.  Then torch.profiler over the
+    scorer: device time by operation and the card's idle share."""
     from torch.profiler import ProfilerActivity, profile
 
     t_start = time.perf_counter()
@@ -1485,7 +1606,7 @@ def phase_seq_profile(model, requests) -> dict:
             user_emb = model(inputs)["user_emb"]
             torch.cuda.synchronize()
             t.append(time.perf_counter())
-            scores = torch.matmul(l2_normalize(user_emb), items.T)
+            scores = score_items(l2_normalize(user_emb), items)
             torch.cuda.synchronize()
             t.append(time.perf_counter())
             top, ids = torch.topk(scores, SEQ_TOPK, dim=-1)
@@ -1507,7 +1628,7 @@ def phase_seq_profile(model, requests) -> dict:
     busy_s, ops = profile_ops(prof, len(requests), "request")
     n = len(requests)
     return {
-        "phase": "seq_profile", "requests": n,
+        "phase": phase, "requests": n,
         "host_stage_p50_ms": {k: statistics.median(v) * 1e3 for k, v in stages.items()},
         "wall_ms_per_request": wall_s * 1e3 / n,
         "device_busy_ms_per_request": busy_s * 1e3 / n,
@@ -1516,11 +1637,13 @@ def phase_seq_profile(model, requests) -> dict:
     }
 
 
-def phase_seq_eval(device: str = "cuda") -> dict:
+def phase_seq_eval(device: str = "cuda", name: str = "SASRec", config=None,
+                   kernels=("embedding_lookup", "fused_encoder")) -> dict:
     """SequenceTrainer.evaluate_model on the bundled MovieLens sample
-    (get_dataloader, task_type "sequence", max_length 50), SASRec at D=64
-    from seeded weights, on the card and on the CPU: recall, ndcg and hit
-    rate at 20, 50 and 100 must be equal (both are rounded to 4 dp)."""
+    (get_dataloader, task_type "sequence", max_length 50), the model ``name``
+    at D=64 from seeded weights, on the card and on the CPU: recall, ndcg and
+    hit rate at 20, 50 and 100 must be equal (both are rounded to 4 dp).
+    Each of ``kernels`` launches once an eval batch."""
     import pandas as pd
 
     t_start = time.perf_counter()
@@ -1529,7 +1652,7 @@ def phase_seq_eval(device: str = "cuda") -> dict:
     schema = {"user_col": "user_id", "item_col": "item_id", "time_col": "timestamp",
               "max_length": SEQ_L, "task_type": "sequence"}
     loaders = get_dataloader(*dfs, schema, batch_size=SEQ_BATCH)
-    model = port.get_model("SASRec")(enc_dict=loaders[3], config=SEQ_CONFIG, seed=SEED)
+    model = port.get_model(name)(enc_dict=loaders[3], config=config or SEQ_CONFIG, seed=SEED)
     cpu_model = copy.deepcopy(model)  # the same weights, kept on the CPU
     splits = {"valid": loaders[1], "test": loaders[2]}
     reset_launches()
@@ -1537,14 +1660,14 @@ def phase_seq_eval(device: str = "cuda") -> dict:
             for k, v in splits.items()}
     launches = read_launches()
     batches = sum(len(v) for v in splits.values())
-    require_launches(launches, {"embedding_lookup": batches, "embedding_grad": 0,
-                                "fused_adam": 0, "fused_encoder": batches}, "seq_eval")
+    require_launches(launches, {k: batches for k in kernels}, f"{name} eval")
     cpu = {k: SequenceTrainer(device="cpu").evaluate_model(cpu_model, v)
            for k, v in splits.items()}
     if card != cpu:
         raise RuntimeError(f"card metrics {card} differ from the CPU's {cpu}")
-    return {"phase": "seq_eval", "model": "SASRec", "users": {k: len(v.dataset)
-                                                             for k, v in splits.items()},
+    return {"phase": "seq_eval" if name == "SASRec" else f"{name.lower()}_eval", "model": name,
+            "users": {k: len(v.dataset)
+                      for k, v in splits.items()},
             "vocab": loaders[3]["item_id"]["vocab_size"], "launches": launches,
             "metrics": card, "equal_to_cpu": True, "seconds": time.perf_counter() - t_start}
 
@@ -1602,10 +1725,6 @@ def seq_valid_loader(batches: int, seed: int) -> DataLoader:
     return DataLoader(_SeqArrays(arrays, gd), batch_size=SEQ_BATCH)
 
 
-def seq_launch_counts() -> dict:
-    return {**read_launches(), "fused_encoder_bwd": encoder.BACKWARD_LAUNCHES}
-
-
 def timed_seq_fit(trainer: SequenceTrainer, model, train_loader, valid_loader, epochs: int,
                   device: str = "cuda"):
     """trainer.fit with each step timed to the end of its device work (a
@@ -1648,7 +1767,7 @@ def phase_seq_training(path: str, enc_dict: dict, ckpt_dir: str, device: str = "
     t0 = time.perf_counter()
     times, losses = timed_seq_fit(trainer, model, train_loader, valid_loader, EPOCHS, device)
     fit_s = time.perf_counter() - t0
-    launches = seq_launch_counts()
+    launches = read_launches()
     steps, evals = EPOCHS * SEQ_TRAIN_BATCHES, EPOCHS * SEQ_VALID_BATCHES
     require_launches(launches, {"embedding_lookup": steps + evals, "embedding_grad": 0,
                                 "fused_adam": steps, "fused_encoder": steps + evals,
@@ -1678,7 +1797,7 @@ def phase_seq_training(path: str, enc_dict: dict, ckpt_dir: str, device: str = "
             reset_launches()
             leg_times, leg_losses = timed_seq_fit(leg_trainer, leg_model, loader, None, 1,
                                                   device)
-            counts = seq_launch_counts()
+            counts = read_launches()
         finally:
             for k in env:
                 del os.environ[k]
@@ -1769,16 +1888,18 @@ def phase_seq_card_vs_cpu(devices=("cuda", "cpu")) -> dict:
     return summary
 
 
-def phase_seq_train_profile(path: str, enc_dict: dict, batches, ckpt_dir: str) -> dict:
+def phase_seq_train_profile(path: str, enc_dict: dict, batches, ckpt_dir: str,
+                            load=None, phase: str = "seq_train_profile") -> dict:
     """Where a sequence fused step's time goes: host stages, each ended by a
-    synchronize (the id check and upload, the step), then torch.profiler's
-    device time by operation and the card's idle share."""
+    synchronize (IOCRec's host views, the id check and upload, the step),
+    then torch.profiler's device time by operation and the card's idle share.
+    ``load`` loads the model (SASRec's by default)."""
     from torch.profiler import ProfilerActivity, profile
 
     from rec_pangu_tpu_torch.train.fused_update import maybe_enable_seq_fused_update
 
     t_start = time.perf_counter()
-    model = load_seq_model(path, enc_dict, "cuda").train()
+    model = (load or load_seq_model)(path, enc_dict, "cuda").train()
     trainer = SequenceTrainer(device="cuda", model_ckpt_dir=ckpt_dir)
     trainer.model, trainer._fit_device = model, torch.device("cuda")
     trainer._train_step = maybe_enable_seq_fused_update(
@@ -1786,16 +1907,19 @@ def phase_seq_train_profile(path: str, enc_dict: dict, batches, ckpt_dir: str) -
     for batch in batches[:2]:  # warm
         trainer._step(batch)
     torch.cuda.synchronize()
-    stages = {"check_and_upload": [], "step": []}
+    stages = {"augment": [], "check_and_upload": [], "step": []}
     for i, batch in enumerate(batches):
-        t0 = time.perf_counter()
+        t = [time.perf_counter()]
+        batch = trainer._attach_aug(batch)
+        t.append(time.perf_counter())
         inputs = model.upload_batch(batch, trainer._fit_device, train=True)
         torch.cuda.synchronize()
-        t1 = time.perf_counter()
+        t.append(time.perf_counter())
         trainer._train_step(inputs, i)
         torch.cuda.synchronize()
-        stages["check_and_upload"].append(t1 - t0)
-        stages["step"].append(time.perf_counter() - t1)
+        t.append(time.perf_counter())
+        for key, a, b in zip(stages, t, t[1:]):
+            stages[key].append(b - a)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for batch in batches:
@@ -1804,12 +1928,606 @@ def phase_seq_train_profile(path: str, enc_dict: dict, batches, ckpt_dir: str) -
         wall_s = time.perf_counter() - t0
     busy_s, ops = profile_ops(prof, len(batches), "step")
     n = len(batches)
-    return {"phase": "seq_train_profile", "steps": n,
+    return {"phase": phase, "steps": n,
             "host_stage_p50_ms": {k: statistics.median(v) * 1e3 for k, v in stages.items()},
             "wall_ms_per_step": wall_s * 1e3 / n,
             "device_busy_ms_per_step": busy_s * 1e3 / n,
             "device_idle_share": 1.0 - busy_s / wall_s, "device_ops": ops,
             "seconds": time.perf_counter() - t_start}
+
+
+# ------------------------------------------------------------------ IOCRec
+# IOCRec at bench.py's sequence width (bench.py:135-177) with IOCRec's own
+# defaults (rec_pangu_tpu/models/sequence/iocrec.py:252-283)
+IOC_CONFIG = {"embedding_dim": SEQ_DIM, "max_length": SEQ_L, "K": 4, "num_blocks": 3,
+              "num_heads": 2, "ffn_hidden": 128, "layer_norm_eps": 1e-12,
+              "hidden_dropout": 0.5, "attn_dropout": 0.5, "lamda": 0.1, "tao": 2,
+              "item_col": "item_id"}
+IOC_DROP = 0.5
+IOC_VIEWS = 3 * SEQ_BATCH          # a training step encodes [hist; aug1; aug2]
+IOC_CPU_CHECKS, IOC_CPU_USERS = 2, 128  # requests held against the CPU, and their users
+IOC_EPOCHS, IOC_TRAIN_BATCHES, IOC_VALID_BATCHES = 1, 8, 1
+IOC_STD_STEPS, IOC_PROFILED = 3, 3
+IOC_CPU_BATCH = 128               # card against CPU: 100,000 items, 128 histories
+IOC_ZERO_GRAD = ("key.bias", "K_linear.bias", "layer_norm_2.bias")  # exact gradients of 0
+IOC_LOSS_RTOL = 1e-5              # card against CPU: the losses (see phase_iocrec_card_vs_cpu)
+IOC_LATER_LOSS_RTOL = 1e-4        # ... steps 2 and 3 at LR (first run: 1.7e-5, 4.9e-5)
+IOC_SMALL_LR = 1e-4
+IOC_GRAD_REL_TOL = 1e-5           # ... the first step's gradient of each leaf, of its largest
+                                  # entry (seen: 2.9e-6); exact zeros, of their weight's (1.3e-7)
+IOC_KINK_GRAD_REL_TOL = 1e-2      # ... of the leaves behind the local encoder's relu (2.9e-3)
+IOC_KINK_PATH = ("item_emb.", "position_embedding", "input_layer_norm.", "local_encoder.")
+IOC_DENSE_HANDFUL = 16            # dense elements allowed past SEQ_DENSE_ATOL (2 lr at most;
+                                  # seen: 4)
+GA_ATOL = 1e-5                    # K6f against plain (outputs of order 1)
+GA_REL_TOL = 1e-5                 # K6b: each gradient, of the array's largest entry
+MM_REL_TOL = 1e-5                 # K5f: lse; K5b: du and d_items, of each array's largest entry
+MM_LAUNCHES = 2                   # K5 calls a timing graph holds (tens of ms each)
+
+
+def ga_params(dim: int, length: int, gen) -> list:
+    """(wk, bk, wv, bv, q_s) at the JAX package's init, small random biases."""
+    def kaiming(*shape):
+        return torch.randn(*shape, generator=gen, device=gen.device) * math.sqrt(2.0 / shape[1])
+
+    return [kaiming(dim, dim), torch.randn(dim, generator=gen, device=gen.device) * 0.1,
+            kaiming(dim, dim), torch.randn(dim, generator=gen, device=gen.device) * 0.1,
+            kaiming(length, dim)]
+
+
+def ga_work(n: int, length: int, dim: int) -> int:
+    """K6f's FLOP: the k and v projections, the scores and P v."""
+    return n * (4 * length * dim * dim + 4 * length * length * dim)
+
+
+def ga_bwd_work(n: int, length: int, dim: int) -> int:
+    """K6b's FLOP: the recomputed k, v and scores (not P v, which the
+    gradients do not need), then dv, dP, dQ and dk (2 L^2 D each), dWk and
+    dWv (2 L D^2 each) and dx (4 L D^2)."""
+    return n * (12 * length * dim * dim + 10 * length * length * dim)
+
+
+def check_global_attn(x, params, rate: float, what: str) -> dict:
+    """K6f, and K6b under autograd, against the plain version with the same
+    dropout masks, each run twice for the same bits.  The key bias has an
+    exact gradient of 0 (each score row moves by one constant), so it is
+    held within GA_REL_TOL of the value bias's largest gradient."""
+    gen = torch.Generator(device=x.device).manual_seed(17)
+    dy = torch.randn(x.shape, generator=gen, device=x.device)
+
+    def run(fn):
+        xs = x.detach().clone().requires_grad_()
+        ps = [p.detach().clone().requires_grad_() for p in params]
+        y = fn(xs, ps)
+        return (y.detach(),) + torch.autograd.grad(y, [xs] + ps, dy)
+
+    kernel = lambda xs, ps: gattn.global_attn(xs, ps, 7, rate, True)  # noqa: E731
+    plain = lambda xs, ps: gattn.global_attn_reference(xs, ps, True, rate, 7)  # noqa: E731
+    got, again, want = run(kernel), run(kernel), run(plain)
+    names = ("y", "dx") + gattn.PARAM_NAMES
+    for a, b, part in zip(got, again, names):
+        require_equal(a, b, f"{what}, {part}, run twice")
+    torch.cuda.synchronize()
+    if not all(bool(torch.isfinite(t).all()) for t in got):
+        raise RuntimeError(f"{what}: non-finite global attention output or gradient")
+    errs = {"y_abs": (got[0] - want[0]).abs().max().item()}
+    for name, a, b in zip(names[1:], got[1:], want[1:]):
+        scale = want[names.index("bv")] if name == "bk" else b
+        errs[name] = ((a - b).abs().max() / scale.abs().max().clamp(min=1e-30)).item()
+    if errs["y_abs"] > GA_ATOL or max(v for k, v in errs.items() if k != "y_abs") > GA_REL_TOL:
+        raise RuntimeError(f"{what}: the global attention kernels differ from plain: {errs}")
+    return {"case": what, "dropout": rate, **errs}
+
+
+def phase_global_attn(bandwidth: float, fp32: float) -> tuple:
+    """K6f and K6b against the plain version's forward and autograd at the
+    training shape (3072 views of 50 x 64) and the serving shape (1024),
+    dropout 0 and 0.5, and at edge shapes (N=1, L=1, L=64 with D=128, odd
+    sizes); times of the kernels, the plain version and F.linear twice plus
+    scaled_dot_product_attention (scale 1).  Returns the two kernel rows."""
+    import torch.nn.functional as F
+
+    t_start = time.perf_counter()
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 100)
+    params = ga_params(SEQ_DIM, SEQ_L, gen)
+
+    def x_of(n, length, dim):
+        return torch.randn(n, length, dim, generator=gen, device=dev) * math.sqrt(2.0 / dim)
+
+    x = x_of(IOC_VIEWS, SEQ_L, SEQ_DIM)
+    cases = [check_global_attn(x, params, rate, f"training shape, dropout {rate}")
+             for rate in (0.0, IOC_DROP)]
+    cases.append(check_global_attn(x[:SEQ_BATCH], params, 0.0, "serving shape"))
+    for n, length, dim in ((1, SEQ_L, SEQ_DIM), (5, 1, SEQ_DIM), (3, 64, 128), (7, 13, 24)):
+        cases.append(check_global_attn(x_of(n, length, dim), ga_params(dim, length, gen),
+                                       IOC_DROP, f"N={n} L={length} D={dim}"))
+    # the masks: another seed changes them; the keep share at the training shape
+    with torch.no_grad():
+        seed_changes = not torch.equal(gattn.global_attn(x, params, 7, IOC_DROP, True),
+                                       gattn.global_attn(x, params, 8, IOC_DROP, True))
+    keep_share = float((gattn.output_mask(7, IOC_VIEWS, SEQ_L, SEQ_DIM, IOC_DROP, dev) > 0)
+                       .float().mean())
+    if not seed_changes or abs(keep_share - (1 - IOC_DROP)) > 1e-3:
+        raise RuntimeError(f"global attention dropout: another seed changes the masks "
+                           f"{seed_changes}, keep share {keep_share}")
+
+    dy = torch.randn(x.shape, generator=gen, device=dev)
+    grad_params = [p.detach().clone().requires_grad_() for p in params]
+    wk, bk, wv, bv, q_s = params
+
+    def library(xs, ps):
+        k = F.linear(xs, ps[0].t(), ps[1])
+        v = F.linear(xs, ps[2].t(), ps[3])
+        q = ps[4].expand(xs.shape[0], 1, SEQ_L, SEQ_DIM)
+        return F.scaled_dot_product_attention(q, k[:, None], v[:, None], scale=1.0)[:, 0]
+
+    with torch.no_grad():
+        lib_err = (library(x, params) - gattn.global_attn(x, params)).abs().max().item()
+    if lib_err > GA_ATOL:
+        raise RuntimeError(f"the library's attention differs from K6f by {lib_err}")
+
+    def forward(fn):
+        def call():
+            with torch.no_grad():
+                fn(x, params)
+        return [call]
+
+    def fwd_bwd(fn):
+        def call():
+            xs = x.detach().requires_grad_()
+            torch.autograd.grad(fn(xs, grad_params), [xs] + grad_params, dy)
+        return [call]
+
+    kernel = lambda xs, ps: gattn.global_attn(xs, ps, 7, IOC_DROP, True)  # noqa: E731
+    plain = lambda xs, ps: gattn.global_attn_reference(xs, ps, True, IOC_DROP, 7)  # noqa: E731
+    serving = x[:SEQ_BATCH]
+    t = {"fwd": median_ms([lambda: gattn.launch_forward(x, params, IOC_DROP, 7)]),
+         "fwd_serving": median_ms([lambda: gattn.launch_forward(serving, params, 0.0, 0)]),
+         "bwd": median_ms([lambda: gattn.launch_backward(x, params, dy, IOC_DROP, 7)]),
+         "plain_fwd": median_ms(forward(plain)), "plain_fwd_bwd": median_ms(fwd_bwd(plain)),
+         "library_fwd": median_ms(forward(library)),
+         "library_fwd_bwd": median_ms(fwd_bwd(library))}
+    flop = ga_work(IOC_VIEWS, SEQ_L, SEQ_DIM)
+    n_el = IOC_VIEWS * SEQ_L * SEQ_DIM
+    param_bytes = sum(p.numel() * 4 for p in params)
+    rows = []
+    for name, work, moved, ms, plain_ms, lib_ms, replaces in (
+            ("global_attn", flop, 2 * n_el * 4 + param_bytes, t["fwd"], t["plain_fwd"],
+             t["library_fwd"], "rec_pangu_tpu/ops/kernels/global_attn.py:69"),
+            ("global_attn_bwd", ga_bwd_work(IOC_VIEWS, SEQ_L, SEQ_DIM),
+             3 * n_el * 4 + 2 * param_bytes, t["bwd"],
+             t["plain_fwd_bwd"] - t["plain_fwd"], t["library_fwd_bwd"] - t["library_fwd"],
+             "rec_pangu_tpu/ops/kernels/global_attn.py:78")):
+        by_ops, by_bytes = work / fp32 * 1e3, moved / bandwidth * 1e3
+        rows.append({
+            "name": name, "route": "cuda", "source": "rec_pangu_tpu_torch/csrc/global_attn.cu",
+            "replaces": replaces, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bound_ms": max(by_ops, by_bytes),
+            "bound_by": "operations" if by_ops >= by_bytes else "bytes",
+            "flop": work, "bytes": moved, "ops_bound_ms": by_ops, "bytes_bound_ms": by_bytes})
+    fwd_row, bwd_row = rows
+    fwd_row.update({
+        "max_abs_err": max(c["y_abs"] for c in cases),
+        "tolerance": f"y within atol {GA_ATOL} of the plain version, dropout masks equal",
+        "ms_serving": t["fwd_serving"],
+        "bound_ms_serving": ga_work(SEQ_BATCH, SEQ_L, SEQ_DIM) / fp32 * 1e3,
+        "library": "F.linear x2 + F.scaled_dot_product_attention(Q_s.expand(N, 1, L, D), k, v, "
+                   "scale=1.0), no dropout", "library_max_abs_err": lib_err,
+        "keep_share": keep_share, "seed_changes_masks": seed_changes,
+        "shape": {"N": IOC_VIEWS, "L": SEQ_L, "D": SEQ_DIM, "dropout": IOC_DROP}})
+    bwd_row.update({
+        "max_abs_err": max(max(v for k, v in c.items() if k in gattn.PARAM_NAMES + ("dx",))
+                           for c in cases),
+        "tolerance": f"dx and each gradient within {GA_REL_TOL} of the array's largest entry "
+                     f"(bk, whose exact value is 0, of dbv's); max_abs_err is that relative error",
+        "library": "autograd of the library forward above (plain_ms and library_ms: "
+                   "forward+backward minus forward)",
+        "cases": cases, "seconds": time.perf_counter() - t_start})
+    return fwd_row, bwd_row
+
+
+def mm_work(batch: int, k: int, dim: int, items: int) -> int:
+    """K5f's FLOP, one K-max logits product: 2 B K D V over the valid items."""
+    return 2 * batch * k * dim * items
+
+
+def mm_bwd_work(batch: int, k: int, dim: int, items: int) -> int:
+    """K5b's FLOP: z recomputed (2 B K D V), then one D-vector multiply-add
+    per (b, v) into du and one into d_items, since each (b, v) reaches only
+    its winning interest: 2 B V D (K + 2)."""
+    return 2 * batch * items * dim * (k + 2)
+
+
+def check_multimax(u, items, valid_v: int, zero_row0: bool, what: str) -> dict:
+    """K5f and K5b against the plain versions on the same inputs, each run
+    twice for the same bits: lse within MM_REL_TOL of its largest entry, du
+    and d_items within MM_REL_TOL of each array's largest entry."""
+    lse = mmce.multimax_lse(u, items, valid_v, zero_row0)
+    require_equal(mmce.multimax_lse(u, items, valid_v, zero_row0), lse, f"{what}, lse twice")
+    ref_lse = mmce.multimax_lse_reference(u, items, valid_v, zero_row0)
+    du, di = mmce.multimax_grads(u, items, lse, valid_v, zero_row0)
+    du2, di2 = mmce.multimax_grads(u, items, lse, valid_v, zero_row0)
+    require_equal(du2, du, f"{what}, du twice")
+    require_equal(di2, di, f"{what}, d_items twice")
+    del du2, di2
+    ref_du, ref_di = mmce.multimax_grads_reference(u, items, lse, valid_v, zero_row0)
+    torch.cuda.synchronize()
+    out = {"case": what, "lse": rel_err(lse, ref_lse), "du": rel_err(du, ref_du),
+           "d_items": rel_err(di, ref_di),
+           "padding_and_row0_zero": not bool(di[valid_v:].any())
+           and not (zero_row0 and bool(di[0].any()))}
+    if (max(out["lse"], out["du"], out["d_items"]) > MM_REL_TOL
+            or not out["padding_and_row0_zero"]
+            or not all(bool(torch.isfinite(t).all()) for t in (lse, du, di))):
+        raise RuntimeError(f"{what}: the K-max CE kernels differ from plain: {out}")
+    return out
+
+
+def phase_multimax_ce(bandwidth: float, fp32: float) -> tuple:
+    """K5f and K5b against their plain versions at the bench shape (1024
+    users x 4 interests x 64 against the raw [1,007,616, 64] table, 1,000,000
+    valid items, row 0 read as zero) and at edge shapes (odd item counts, one
+    valid item, K=1 and 3, D=24 and 128, all interests equal); times of the
+    kernels and the plain versions (no PyTorch call computes the K-max CE).
+    Returns the two kernel rows."""
+    t_start = time.perf_counter()
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 110)
+    rows = padded_rows(SEQ_VOCAB)
+    table = torch.randn(rows, SEQ_DIM, generator=gen, device=dev) * math.sqrt(2.0 / SEQ_DIM)
+    u = torch.randn(SEQ_BATCH, 4, SEQ_DIM, generator=gen, device=dev) * 0.5
+    cases = [check_multimax(u, table, SEQ_VOCAB, True, "bench shape")]
+    for b, k, dim, n, valid, z0 in ((3, 4, SEQ_DIM, 1001, 999, True),
+                                    (37, 3, 24, 5000, 5000, False),
+                                    (5, 1, 128, 300, 257, True), (64, 2, SEQ_DIM, 1, 1, False)):
+        cases.append(check_multimax(torch.randn(b, k, dim, generator=gen, device=dev) * 0.5,
+                                    torch.randn(n, dim, generator=gen, device=dev), valid, z0,
+                                    f"B={b} K={k} D={dim} rows={n} valid={valid} row0={z0}"))
+    # all interests equal: every item ties, the lowest interest takes it all
+    same = torch.randn(16, 1, SEQ_DIM, generator=gen, device=dev).expand(16, 4, SEQ_DIM)
+    same = same.contiguous()
+    tie_items = torch.randn(3001, SEQ_DIM, generator=gen, device=dev)
+    cases.append(check_multimax(same, tie_items, 3001, True, "all interests equal"))
+    lse = mmce.multimax_lse(same, tie_items, 3001, True)
+    du, _ = mmce.multimax_grads(same, tie_items, lse, 3001, True)
+    if bool(du[:, 1:].any()) or not bool(du[:, 0].any()):
+        raise RuntimeError("all interests equal: the gradient left the lowest interest")
+
+    lse = mmce.multimax_lse(u, table, SEQ_VOCAB, True)
+    t = {"fwd": median_ms([lambda: mmce.launch_lse(u, table, SEQ_VOCAB, True)], MM_LAUNCHES, 5),
+         "bwd": median_ms([lambda: mmce.launch_grads(u, table, lse, SEQ_VOCAB, True)],
+                          MM_LAUNCHES, 3),
+         "plain_fwd": median_ms([lambda: mmce.multimax_lse_reference(u, table, SEQ_VOCAB, True)],
+                                MM_LAUNCHES, 3),
+         "plain_bwd": median_ms([lambda: mmce.multimax_grads_reference(u, table, lse, SEQ_VOCAB,
+                                                                         True)], MM_LAUNCHES, 3)}
+    flop = mm_work(SEQ_BATCH, 4, SEQ_DIM, SEQ_VOCAB)
+    u_bytes, table_bytes, lse_bytes = u.numel() * 4, table.numel() * 4, SEQ_BATCH * 4
+    out = []
+    for name, work, moved, ms, plain_ms, replaces, errs in (
+            ("multimax_ce", flop, u_bytes + table_bytes + lse_bytes, t["fwd"], t["plain_fwd"],
+             "rec_pangu_tpu/ops/kernels/multimax_ce.py:72", ("lse",)),
+            ("multimax_ce_bwd", mm_bwd_work(SEQ_BATCH, 4, SEQ_DIM, SEQ_VOCAB),
+             2 * (u_bytes + table_bytes) + lse_bytes, t["bwd"],
+             t["plain_bwd"], "rec_pangu_tpu/ops/kernels/multimax_ce.py:103",
+             ("du", "d_items"))):
+        by_ops, by_bytes = work / fp32 * 1e3, moved / bandwidth * 1e3
+        out.append({
+            "name": name, "route": "cuda", "source": "rec_pangu_tpu_torch/csrc/multimax_ce.cu",
+            "replaces": replaces, "max_abs_err": max(c[e] for c in cases for e in errs),
+            "tolerance": f"{'/'.join(errs)} within {MM_REL_TOL} of the array's largest entry; "
+                         f"max_abs_err is that relative error",
+            "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+            "library": "none: no single PyTorch call computes the K-max CE",
+            "bound_ms": max(by_ops, by_bytes),
+            "bound_by": "operations" if by_ops >= by_bytes else "bytes",
+            "flop": work, "bytes": moved, "ops_bound_ms": by_ops, "bytes_bound_ms": by_bytes,
+            "shape": {"B": SEQ_BATCH, "K": 4, "D": SEQ_DIM, "table_rows": rows,
+                      "valid_items": SEQ_VOCAB, "zero_row0": True}})
+    out[1].update({"cases": cases, "seconds": time.perf_counter() - t_start})
+    return tuple(out)
+
+
+def write_iocrec_checkpoint(path: str) -> dict:
+    """An IOCRec checkpoint in the JAX package's layout at full width:
+    seeded weights (the port's init, which is the JAX package's, with small
+    random biases and LayerNorm terms), the item table [padded_rows(1,000,000),
+    64]."""
+    enc_dict = {"item_id": {"vocab_size": SEQ_VOCAB}}
+    model = port.get_model("IOCRec")(enc_dict=enc_dict, config=IOC_CONFIG, seed=SEED + 90)
+    gen = torch.Generator().manual_seed(SEED + 91)
+    with torch.no_grad():
+        for p in model.parameters():
+            if p.dim() == 1:
+                p.add_(torch.randn(p.shape, generator=gen) * 0.1)
+    save_checkpoint(path, jax_variables(model)["params"], None, enc_dict=enc_dict)
+    return enc_dict
+
+
+def load_iocrec_model(path: str, enc_dict: dict, device: str):
+    """IOCRec at full width loaded from ``path`` onto ``device``."""
+    model = port.get_model("IOCRec")(enc_dict=enc_dict, config=IOC_CONFIG)
+    SequenceTrainer(device=device).load_model(model, path)
+    return model
+
+
+def phase_iocrec_serving(path: str, enc_dict: dict, device: str = "cuda"):
+    """IOCRec retrieval at full width from a JAX-layout checkpoint:
+    SequenceTrainer.load_model, make_retrieval_scorer, 1024 histories a
+    request, each item scored by its best interest, top-200 of the whole
+    L2-normalized corpus (K1 + K4f + K6f a request); two requests held
+    against the CPU on their first IOC_CPU_USERS histories."""
+    t_start = time.perf_counter()
+    model = load_iocrec_model(path, enc_dict, device)
+    retrieve = make_retrieval_scorer(model, topk=SEQ_TOPK, device=device)
+    setup_s = time.perf_counter() - t_start
+    requests = make_seq_requests(SEQ_WARMUP + SEQ_REQUESTS, SEED + 96)
+
+    # the main path: every count is 0 just before it and read just after
+    reset_launches()
+    latencies = []
+    for i, req in enumerate(requests):
+        t0 = time.perf_counter()
+        scores, ids = retrieve(req)
+        if i >= SEQ_WARMUP:
+            latencies.append(time.perf_counter() - t0)
+        if (scores.shape != (SEQ_BATCH, SEQ_TOPK) or ids.shape != scores.shape
+                or not np.all(np.isfinite(scores)) or bool((np.diff(scores, axis=1) > 0).any())
+                or ids.min() < 1 or ids.max() >= SEQ_VOCAB):
+            raise RuntimeError(f"bad IOCRec retrieval answer for request {i}")
+    launches = read_launches()
+    n = len(requests)
+    require_launches(launches, {"embedding_lookup": n, "fused_encoder": n, "global_attn": n},
+                     "iocrec_serving")
+
+    cpu_model = load_iocrec_model(path, enc_dict, "cpu")
+    cpu_retrieve = make_retrieval_scorer(cpu_model, topk=SEQ_TOPK + 1, device="cpu")
+    emb_err, differing = 0.0, 0
+    for req in requests[:IOC_CPU_CHECKS]:
+        part = {k: v[:IOC_CPU_USERS] for k, v in req.items()}
+        scores, ids = retrieve(part)
+        with torch.inference_mode():
+            card_emb = model(model.upload_batch(part, torch.device(device)))["user_emb"]
+            cpu_emb = cpu_model(cpu_model.upload_batch(part, torch.device("cpu")))["user_emb"]
+        emb_err = max(emb_err, (card_emb.cpu() - cpu_emb).abs().max().item())
+        cpu_scores, cpu_ids = cpu_retrieve(part)
+        differing += compare_topk(ids, scores, cpu_ids, cpu_scores)
+    if emb_err > USER_EMB_ATOL:
+        raise RuntimeError(f"card IOCRec user_emb differs from the CPU's by {emb_err}")
+    del cpu_model, cpu_retrieve
+
+    summary = {
+        "phase": "iocrec_serving", "model": "IOCRec", "config": IOC_CONFIG, "vocab": SEQ_VOCAB,
+        "table_rows": int(model.item_emb.table.shape[0]), "batch": SEQ_BATCH, "topk": SEQ_TOPK,
+        "requests": SEQ_REQUESTS, "warmup": SEQ_WARMUP, "launches": launches,
+        "launches_per_request": {k: v / n for k, v in launches.items() if v},
+        "p50_ms": statistics.median(latencies) * 1e3,
+        "p90_ms": float(np.percentile(latencies, 90)) * 1e3,
+        "users_per_s": SEQ_REQUESTS * SEQ_BATCH / sum(latencies),
+        "cpu_checked_requests": IOC_CPU_CHECKS, "cpu_checked_users": IOC_CPU_USERS,
+        "user_emb_max_abs_err_vs_cpu": emb_err, "user_emb_atol": USER_EMB_ATOL,
+        "score_atol": SCORE_ATOL,
+        "topk_positions_compared": IOC_CPU_CHECKS * IOC_CPU_USERS * SEQ_TOPK,
+        "topk_positions_differing_at_ties": differing,
+        "setup_s": setup_s, "seconds": time.perf_counter() - t_start,
+    }
+    return summary, model, requests[SEQ_WARMUP:SEQ_WARMUP + SEQ_PROFILED]
+
+
+def phase_iocrec_training(path: str, enc_dict: dict, ckpt_dir: str, device: str = "cuda"):
+    """SequenceTrainer.fit on IOCRec at full width (dropout 0.5) from the
+    JAX-layout checkpoint: bench-shape batches, their two views made on the
+    host by the trainer, validation, log.csv, checkpoints and early stopping,
+    on the sequence fused step (K1, K4f, K4b, K6f, K6b, K5f, K5b, K3 once a
+    step).  Then standard steps (K2 for K3)."""
+    t_start = time.perf_counter()
+    train_loader = seq_train_loader(IOC_TRAIN_BATCHES, SEED + 92)
+    valid_loader = seq_valid_loader(IOC_VALID_BATCHES, SEED + 93)
+    model = load_iocrec_model(path, enc_dict, device)
+    trainer = SequenceTrainer(device=device, model_ckpt_dir=ckpt_dir)
+    setup_s = time.perf_counter() - t_start
+
+    # the main path: every count is 0 just before it and read just after
+    reset_launches()
+    t0 = time.perf_counter()
+    times, losses = timed_seq_fit(trainer, model, train_loader, valid_loader, IOC_EPOCHS,
+                                  device)
+    fit_s = time.perf_counter() - t0
+    launches = read_launches()
+    steps, evals = IOC_EPOCHS * IOC_TRAIN_BATCHES, IOC_EPOCHS * IOC_VALID_BATCHES
+    per_step = ("fused_adam", "fused_encoder_bwd", "global_attn_bwd", "multimax_ce",
+                "multimax_ce_bwd")
+    per_batch = ("embedding_lookup", "fused_encoder", "global_attn")
+    require_launches(launches, {**{k: steps for k in per_step},
+                                **{k: steps + evals for k in per_batch}}, "iocrec fused fit")
+    if not trainer._train_step.fused:
+        raise RuntimeError("fit did not take the sequence fused step")
+    first, last = float(np.mean(losses[:3])), float(np.mean(losses[-3:]))
+    if not (np.all(np.isfinite(losses)) and last < first):
+        raise RuntimeError(f"the IOCRec training loss did not fall: {losses}")
+    files = sorted(os.listdir(ckpt_dir))
+    want = ({f"model_e_{i}.ckpt" for i in range(1, IOC_EPOCHS + 1)}
+            | {"model_best.ckpt", "log.csv"})
+    if not want <= set(files):
+        raise RuntimeError(f"fit's files missing: {sorted(want - set(files))} of {files}")
+    del trainer, model
+
+    # the standard step: K2 for K3, torch.optim.Adam over the table
+    loader = DataLoader(_SeqArrays({k: v[:IOC_STD_STEPS * SEQ_BATCH] for k, v in
+                                    train_loader.dataset.arrays.items()}), batch_size=SEQ_BATCH)
+    std_model = load_iocrec_model(path, enc_dict, device)
+    std_trainer = SequenceTrainer(device=device, model_ckpt_dir=ckpt_dir)
+    os.environ["REC_PANGU_TPU_FUSED_ADAM"] = "0"
+    try:
+        reset_launches()
+        std_times, std_losses = timed_seq_fit(std_trainer, std_model, loader, None, 1, device)
+        std_launches = read_launches()
+    finally:
+        del os.environ["REC_PANGU_TPU_FUSED_ADAM"]
+    require_launches(std_launches, {**{k: IOC_STD_STEPS for k in per_step + per_batch},
+                                    "fused_adam": 0, "embedding_grad": IOC_STD_STEPS},
+                     "iocrec standard fit")
+    if std_trainer._train_step.fused or not np.all(np.isfinite(std_losses)):
+        raise RuntimeError(f"the IOCRec standard step did not run cleanly: {std_losses}")
+    summary = {
+        "phase": "iocrec_training", "model": "IOCRec", "config": IOC_CONFIG,
+        "vocab": SEQ_VOCAB, "batch": SEQ_BATCH, "views": IOC_VIEWS, "epochs": IOC_EPOCHS,
+        "steps_per_epoch": IOC_TRAIN_BATCHES, "valid_batches": IOC_VALID_BATCHES, "lr": LR,
+        "launches": launches, "fused": step_stats(times, SEQ_BATCH), "fit_s": fit_s,
+        "setup_s": setup_s, "loss_first3": first, "loss_last3": last, "losses": losses,
+        "files": files, "standard_launches": std_launches,
+        "standard": step_stats(std_times, SEQ_BATCH), "standard_losses": std_losses,
+        "seconds": time.perf_counter() - t_start,
+    }
+    return summary, train_loader
+
+
+def phase_iocrec_card_vs_cpu(devices=("cuda", "cpu")) -> dict:
+    """The first three IOCRec fused steps on the card and on the CPU at a
+    cut corpus (100,000 items, 128 histories), from the same weights,
+    batches, host views and dropout seeds (the masks are the same hash on
+    both): the first step's gradient of every leaf before Adam (the table's
+    as the rows summed at their ids plus the CE's dense stream), losses,
+    dense parameters and the table, at the fit's rate LR and at
+    IOC_SMALL_LR.
+
+    The local encoder's relu has a kink: a pre-activation within rounding
+    of 0 takes derivative 1 on one side and 0 on the other (the K4b row
+    holds the kernels apart from such samples), so the gradients of the
+    leaves behind it (IOC_KINK_PATH) differ beyond rounding, held within
+    IOC_KINK_GRAD_REL_TOL of each leaf's largest entry; every other leaf
+    within IOC_GRAD_REL_TOL.  Adam's first steps, lr * g / (|g| + eps), move
+    each entry by about lr whatever its size, so an entry near 0 may move
+    by 2 lr apart (IOC_DENSE_HANDFUL of them).  The step-1 loss is held
+    within IOC_LOSS_RTOL; at LR the later losses move apart by about lr
+    times the loss's sensitivity, held within IOC_LATER_LOSS_RTOL; at
+    IOC_SMALL_LR, ten times less, all three within IOC_LOSS_RTOL."""
+    t_start = time.perf_counter()
+    summary = {"phase": "iocrec_card_vs_cpu", "steps": CPU_STEPS, "vocab": SEQ_CPU_VOCAB,
+               "batch": IOC_CPU_BATCH, "dropout": IOC_DROP}
+    for lr, later_rtol in ((LR, IOC_LATER_LOSS_RTOL), (IOC_SMALL_LR, IOC_LOSS_RTOL)):
+        leg = iocrec_card_vs_cpu_leg(lr, devices)
+        summary[f"lr_{lr:g}"] = leg
+        losses_ok = (leg["loss_rel_diffs"][0] <= IOC_LOSS_RTOL
+                     and max(leg["loss_rel_diffs"]) <= later_rtol)
+        grads_ok = (leg["grad_rel_err"] <= IOC_GRAD_REL_TOL
+                    and leg["kink_path_grad_rel_err"] <= IOC_KINK_GRAD_REL_TOL
+                    and leg["zero_grad_rel_size"] <= IOC_GRAD_REL_TOL)
+        if (not losses_ok or not grads_ok
+                or leg["dense_elements_beyond_atol"] > IOC_DENSE_HANDFUL
+                or leg["dense_max_abs_diff"] > 2 * lr
+                or leg["table_elements_beyond_atol"] > SEQ_HANDFUL
+                or leg["table_max_abs_diff"] > 2 * lr):
+            raise RuntimeError(f"the card's IOCRec training differs from the CPU's: {summary}")
+    summary.update({"loss_rtol": IOC_LOSS_RTOL, "later_loss_rtol_at_lr": IOC_LATER_LOSS_RTOL,
+                    "grad_rel_tol": IOC_GRAD_REL_TOL,
+                    "kink_path_grad_rel_tol": IOC_KINK_GRAD_REL_TOL,
+                    "dense_atol": SEQ_DENSE_ATOL, "dense_handful": IOC_DENSE_HANDFUL,
+                    "table_atol": SEQ_TABLE_ATOL, "table_handful": SEQ_HANDFUL,
+                    "seconds": time.perf_counter() - t_start})
+    return summary
+
+
+@contextlib.contextmanager
+def recording_table_grad(out: list):
+    """Within it, the sequence fused step appends each step's table
+    gradient (the captured rows summed at their ids plus the CE's dense
+    stream), on the CPU, to ``out`` before its table update."""
+    from rec_pangu_tpu_torch.train import fused_update
+
+    update = fused_update.planned_adam_update
+
+    def record(ids, rows, table, mu, nu, hyper, dense=None):
+        grad = torch.zeros_like(table) if dense is None else dense.clone()
+        out.append(grad.index_add_(0, ids.long(), rows).cpu())
+        return update(ids, rows, table, mu, nu, hyper, dense)
+
+    fused_update.planned_adam_update = record
+    try:
+        yield
+    finally:
+        fused_update.planned_adam_update = update
+
+
+def grad_comparison(card: dict, cpu: dict) -> dict:
+    """The first step's gradients, card against CPU, leaf by leaf: each
+    within a share of its own largest entry; the exact zeros (IOC_ZERO_GRAD)
+    are rounding noise on both sides, held as a share of their weight's
+    largest gradient (the LayerNorm's scale, the dense kernel's)."""
+    if set(card) != set(cpu):
+        raise RuntimeError(f"the card and the CPU give gradients to different leaves: "
+                           f"{sorted(set(card) ^ set(cpu))}")
+    errs, zero = {}, {}
+    for k, want in cpu.items():
+        if k.endswith(IOC_ZERO_GRAD):
+            base = k[:-len("bias")]
+            scale = cpu[base + "kernel"] if base + "kernel" in cpu else cpu[base + "weight"]
+            zero[k] = max(card[k].abs().max().item(), want.abs().max().item()) / (
+                scale.abs().max().item())
+        else:
+            errs[k] = rel_err(card[k], want)
+    kink = {k: v for k, v in errs.items() if k.startswith(IOC_KINK_PATH)}
+    rest = {k: v for k, v in errs.items() if k not in kink}
+    worst = max(rest, key=rest.get)
+    worst_kink = max(kink, key=kink.get)
+    return {"grad_rel_err": rest[worst], "grad_worst_leaf": worst,
+            "kink_path_grad_rel_err": kink[worst_kink], "kink_path_worst_leaf": worst_kink,
+            "zero_grad_rel_size": max(zero.values()), "grad_leaves": len(errs),
+            "grad_rel_err_by_leaf": errs, "zero_grad_rel_size_by_leaf": zero}
+
+
+def iocrec_card_vs_cpu_leg(lr: float, devices) -> dict:
+    """Three fused steps at ``lr`` on each device; what differs."""
+    from rec_pangu_tpu_torch.models.sequence.augment import host_augment_sequences
+    from rec_pangu_tpu_torch.train.fused_update import maybe_enable_seq_fused_update
+
+    loader = seq_train_loader(CPU_STEPS, SEED + 97, SEQ_CPU_VOCAB, IOC_CPU_BATCH)
+    rng = np.random.default_rng(10_301)
+    batches = []
+    for batch in loader:
+        hist = batch["hist_item_list"]
+        views = [host_augment_sequences(rng, hist, 3.0, 3.0, SEQ_CPU_VOCAB - 1)
+                 for _ in range(2)]
+        batches.append({**batch, "aug_all": np.concatenate([hist] + views)})
+    enc_dict = {"item_id": {"vocab_size": SEQ_CPU_VOCAB}}
+    runs = {}
+    for dev in devices:
+        model = port.get_model("IOCRec")(enc_dict=enc_dict, config=IOC_CONFIG, seed=SEED + 94)
+        model = model.to(dev).train()
+        step = maybe_enable_seq_fused_update(model, lr, CPU_STEPS,
+                                             generator=torch.Generator().manual_seed(SEED))
+        losses, table_grads = [], []
+        with recording_table_grad(table_grads):
+            for i, batch in enumerate(batches):
+                out = step(model.upload_batch(batch, torch.device(dev), train=True), i)
+                losses.append(float(out["loss"].detach()))
+                if i == 0:  # the step leaves each dense leaf's gradient in .grad
+                    grads = {k: p.grad.detach().cpu().clone()
+                             for k, p in model.named_parameters() if p.grad is not None}
+                    grads["item_emb.table"] = table_grads[0]
+                    after_one = {k: v.detach().cpu().clone()
+                                 for k, v in model.state_dict().items()}
+        runs[dev] = (losses, grads, after_one)
+    (card_losses, card_grads, card), (cpu_losses, cpu_grads, cpu) = (runs[d] for d in devices)
+    diffs = {k: (card[k] - cpu[k]).abs() for k in cpu}
+    table_key = "item_emb.table"
+    # the exact zeros (IOC_ZERO_GRAD) hold rounding noise on both sides,
+    # which Adam's first step turns into +-lr
+    zero = [k for k in cpu if k.endswith(IOC_ZERO_GRAD)]
+    dense = torch.cat([d.reshape(-1) for k, d in diffs.items()
+                       if k != table_key and k not in zero])
+    table = diffs[table_key]
+    return {"lr": lr, "card_losses": card_losses, "cpu_losses": cpu_losses,
+            "loss_rel_diffs": [abs(a - b) / abs(b) for a, b in zip(card_losses, cpu_losses)],
+            **grad_comparison(card_grads, cpu_grads),
+            "dense_max_abs_diff": dense.max().item(),
+            "dense_elements_beyond_atol": int((dense > SEQ_DENSE_ATOL).sum().item()),
+            "dense_elements": dense.numel(),
+            "zero_grad_max_abs_diff": max(diffs[k].max().item() for k in zero),
+            "table_max_abs_diff": table.max().item(),
+            "table_elements_beyond_atol": int((table > SEQ_TABLE_ATOL).sum().item()),
+            "table_elements": table.numel()}
 
 
 def main() -> int:
@@ -1833,9 +2551,11 @@ def main() -> int:
 
     bandwidth, fp32 = peak_bandwidth(kind), peak_fp32(kind)
     rows = [phase_kernel(bandwidth), phase_table_grad(bandwidth), phase_fused_adam(bandwidth),
-            phase_fused_encoder(bandwidth, fp32), phase_fused_encoder_bwd(bandwidth, fp32)]
+            phase_fused_encoder(bandwidth, fp32), phase_fused_encoder_bwd(bandwidth, fp32),
+            *phase_global_attn(bandwidth, fp32), *phase_multimax_ce(bandwidth, fp32)]
     for row in rows:
         emit({"phase": "kernel", **row})
+    torch.cuda.empty_cache()
 
     with tempfile.TemporaryDirectory(dir=ROOT, prefix=".chip_smoke_") as tmp:
         path = os.path.join(tmp, "model.ckpt")
@@ -1872,25 +2592,56 @@ def main() -> int:
         seq_batches = [b for _, b in zip(range(SEQ_TRAIN_PROFILED), seq_loader)]
         emit(phase_seq_train_profile(seq_path, seq_enc_dict, seq_batches,
                                      os.path.join(tmp, "seq_ckpt")))
+        del seq_loader, seq_batches
+        shutil.rmtree(os.path.join(tmp, "seq_ckpt"))
+        os.remove(seq_path)
+        torch.cuda.empty_cache()
+
+        t0 = time.perf_counter()
+        ioc_path = os.path.join(tmp, "iocrec.ckpt")
+        ioc_enc_dict = write_iocrec_checkpoint(ioc_path)
+        emit({"phase": "iocrec_checkpoint", "seconds": time.perf_counter() - t0,
+              "bytes": os.path.getsize(ioc_path)})
+        ioc_serving, ioc_model, ioc_profiled = phase_iocrec_serving(ioc_path, ioc_enc_dict)
+        emit(ioc_serving)
+        emit(phase_seq_profile(ioc_model, ioc_profiled, "iocrec_profile"))
+        del ioc_model
+        torch.cuda.empty_cache()
+        emit(phase_seq_eval("cuda", "IOCRec", IOC_CONFIG,
+                            ("embedding_lookup", "fused_encoder", "global_attn")))
+        ioc_training, ioc_loader = phase_iocrec_training(ioc_path, ioc_enc_dict,
+                                                         os.path.join(tmp, "ioc_ckpt"))
+        emit(ioc_training)
+        torch.cuda.empty_cache()
+        emit(phase_iocrec_card_vs_cpu())
+        ioc_batches = [b for _, b in zip(range(IOC_PROFILED), ioc_loader)]
+        emit(phase_seq_train_profile(ioc_path, ioc_enc_dict, ioc_batches,
+                                     os.path.join(tmp, "ioc_ckpt"), load_iocrec_model,
+                                     "iocrec_train_profile"))
 
     # launches on each kernel's own main path: the lookup's on serving, the
     # fused Adam's on the fused fit (and on the sequence fused fit), the
     # gradient's on the standard-step fit, the encoder's on SASRec serving,
-    # its backward's on the sequence fused fit
+    # its backward's on the sequence fused fit, the global attention's on
+    # IOCRec serving, its backward's and the K-max CE's on IOCRec's fused fit
     launches = {"embedding_lookup": serving["launches"]["embedding_lookup"],
                 "fused_adam": training["launches"]["fused_adam"],
                 "embedding_grad": training["standard_launches"]["embedding_grad"],
                 "fused_encoder": seq_serving["launches"]["fused_encoder"],
-                "fused_encoder_bwd": seq_training["launches"]["fused_encoder_bwd"]}
+                "fused_encoder_bwd": seq_training["launches"]["fused_encoder_bwd"],
+                "global_attn": ioc_serving["launches"]["global_attn"],
+                **{k: ioc_training["launches"][k]
+                   for k in ("global_attn_bwd", "multimax_ce", "multimax_ce_bwd")}}
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     lines = [{k: launches[row["name"]] if k == "launches" else row[k] for k in keys}
              for row in rows]
     for line in lines:
-        if line["name"] == "fused_adam":
-            line["launches_seq_training"] = seq_training["launches"]["fused_adam"]
-        if line["name"] == "fused_encoder":
-            line["launches_seq_training"] = seq_training["launches"]["fused_encoder"]
+        if line["name"] in ("fused_adam", "fused_encoder"):
+            line["launches_seq_training"] = seq_training["launches"][line["name"]]
+        if line["name"] in ("embedding_lookup", "fused_adam", "fused_encoder",
+                            "fused_encoder_bwd", "global_attn"):
+            line["launches_iocrec_training"] = ioc_training["launches"][line["name"]]
     emit({"kernels": lines})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

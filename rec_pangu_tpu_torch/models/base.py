@@ -177,6 +177,27 @@ class SequenceModelBase(nn.Module):
         logits = torch.cat([pos_scores, neg_scores], dim=1)
         return -torch.log_softmax(logits, dim=-1)[:, 0].mean()
 
+    def calculate_multimax_sampled_loss(self, user_embs: torch.Tensor, pos_item: torch.Tensor,
+                                        num_negatives: int = 1024,
+                                        generator: Optional[torch.Generator] = None,
+                                        neg_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Sampled K-max CE for [B, K, D] multi-interest embeddings: each
+        candidate's logit is its best over the interests, the positive
+        against ``num_negatives`` shared negatives drawn as in
+        ``calculate_sampled_loss`` (or the given ``neg_ids``)."""
+        all_items = self.output_items()
+        v = all_items.shape[0]
+        if neg_ids is None:
+            neg_ids = torch.randint(1, v, (num_negatives,), generator=generator,
+                                    device=user_embs.device)
+        pos = pos_item.reshape(-1).long()
+        pos_scores = (user_embs * all_items[pos][:, None, :]).sum(dim=-1).amax(dim=1,
+                                                                               keepdim=True)
+        neg_scores = torch.einsum("bkd,nd->bkn", user_embs,
+                                  all_items[neg_ids.long()]).amax(dim=1)
+        logits = torch.cat([pos_scores, neg_scores], dim=1)
+        return -torch.log_softmax(logits, dim=-1)[:, 0].mean()
+
     @staticmethod
     def gather_indexes(output: torch.Tensor, gather_index: torch.Tensor) -> torch.Tensor:
         """[B, L, D] taken at per-row position [B] -> [B, D]."""
@@ -197,12 +218,15 @@ class SequenceModelBase(nn.Module):
         """Check a host batch's item ids against the vocabulary (ValueError
         before any upload) and copy the history ids (int32) and mask (f32)
         to ``device``; a training batch (``train``) also checks and uploads
-        its ``target_item`` (int32)."""
+        its ``target_item`` (int32) and, when it holds them, the host-made
+        views ``aug_all`` [3B, L] (int32)."""
         dtypes = dict(self.input_dtypes)
         check_item_ids(batch["hist_item_list"], self.item_emb.vocab_size)
         if train:
-            check_item_ids(batch["target_item"], self.item_emb.vocab_size)
-            dtypes["target_item"] = np.int32
+            keys = ("target_item", "aug_all") if "aug_all" in batch else ("target_item",)
+            for key in keys:
+                check_item_ids(batch[key], self.item_emb.vocab_size)
+                dtypes[key] = np.int32
         return {k: torch.from_numpy(np.ascontiguousarray(batch[k], dtype=dt)).to(device)
                 for k, dt in dtypes.items()}
 

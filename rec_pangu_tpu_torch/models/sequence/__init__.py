@@ -1,3 +1,4 @@
+from .iocrec import IOCRec
 from .sasrec import SASRec
 
-__all__ = ["SASRec"]
+__all__ = ["IOCRec", "SASRec"]

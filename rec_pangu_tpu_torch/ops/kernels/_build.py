@@ -28,7 +28,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 SOURCES = {"embedding_lookup": "embedding_lookup.cu",
            "embedding_grad": "embedding_grad.cu",
            "fused_adam": "fused_adam.cu",
-           "fused_encoder": "fused_encoder.cu"}
+           "fused_encoder": "fused_encoder.cu",
+           "global_attn": "global_attn.cu",
+           "multimax_ce": "multimax_ce.cu"}
 
 _BUILD_TIMEOUT_S = 600
 _LOCK = threading.Lock()

@@ -28,6 +28,17 @@ gradient, and neither does a target of 0.  The captured variant does not
 give the table a gradient: its backward appends the dense item gradient, in
 the table's own ``[V_pad, D]`` layout, to the caller's list, for the fused
 train step's Adam pass.
+
+The K-max CE of multi-interest models (IOCRec), ``mean_b [logsumexp_v(max_k
+u_bk . item_v) - max_k u_bk . item_{pos_b}]``, is the JAX package's
+``fused_multimax_softmax_ce`` and ``fused_multimax_softmax_ce_captured``:
+its logsumexp and the softmax term of its gradient are the K5 kernels
+(``ops/kernels/multimax_ce.py``), and the positive-class terms, routed to the
+interest that wins the positive (the lowest on a tie), are applied here, as
+JAX applies them.  The positives' item gradient is added with
+``index_put_(accumulate=True)``, which sums repeated positives in a fixed
+order.  ``fused_multimax_softmax_ce_padded`` runs over the raw table with
+the padded variant's semantics, with no copy of it.
 """
 from __future__ import annotations
 
@@ -35,6 +46,8 @@ import os
 from typing import List, Optional
 
 import torch
+
+from .kernels.multimax_ce import multimax_grads, multimax_lse
 
 CHUNK_V = 131_072         # items a chunk on the card
 _FUSED_MIN_VOCAB = 65_536  # below it, full_softmax_ce keeps the naive path, as in JAX
@@ -153,14 +166,104 @@ def fused_ce_enabled() -> bool:
     return os.environ.get("REC_PANGU_TPU_FUSED_CE", "auto") not in ("0", "off", "false")
 
 
+def streamed_ce_applies(num_items: int) -> bool:
+    """The streamed form for corpora of at least 65,536 items;
+    ``REC_PANGU_TPU_FUSED_CE`` =0 forces the naive path, =1 the streamed one."""
+    flag = os.environ.get("REC_PANGU_TPU_FUSED_CE", "auto")
+    return flag == "1" or (fused_ce_enabled() and num_items >= _FUSED_MIN_VOCAB)
+
+
 def full_softmax_ce(user_emb: torch.Tensor, items: torch.Tensor,
                     pos_item: torch.Tensor) -> torch.Tensor:
-    """Full-softmax CE; the streamed form for corpora of at least 65,536
-    items, the naive ``[B, V]`` log-softmax below.  ``REC_PANGU_TPU_FUSED_CE``
-    =0 forces the naive path, =1 the streamed one."""
-    flag = os.environ.get("REC_PANGU_TPU_FUSED_CE", "auto")
-    if flag == "1" or (fused_ce_enabled() and items.shape[0] >= _FUSED_MIN_VOCAB):
+    """Full-softmax CE; the streamed form where ``streamed_ce_applies``, the
+    naive ``[B, V]`` log-softmax elsewhere."""
+    if streamed_ce_applies(items.shape[0]):
         return fused_softmax_ce(user_emb, items, pos_item)
     logprobs = torch.log_softmax(torch.matmul(user_emb, items.t()), dim=-1)
     pos = pos_item.reshape(-1).long()
     return -logprobs.gather(1, pos[:, None])[:, 0].mean()
+
+
+def _pos_max(user_embs: torch.Tensor, items: torch.Tensor, pos: torch.Tensor,
+             zero_row0: bool):
+    """(positive rows [B, D], their best score [B], the interest that wins it
+    [B]: the first on a tie)."""
+    rows = items[pos]
+    if zero_row0:
+        rows = rows * (pos != 0).to(rows.dtype)[:, None]
+    scores = torch.einsum("bkd,bd->bk", user_embs, rows)
+    k_pos = torch.argmax(scores, dim=-1)
+    return rows, scores.gather(1, k_pos[:, None])[:, 0], k_pos
+
+
+class _MultimaxCE(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, user_embs, items, pos, valid_v, zero_row0, sink):
+        pos = pos.reshape(-1).long()
+        lse = multimax_lse(user_embs, items, valid_v, zero_row0)
+        _, z_pos, _ = _pos_max(user_embs, items, pos, zero_row0)
+        ctx.save_for_backward(user_embs, items, pos, lse)
+        ctx.options = (valid_v, zero_row0, sink)
+        return (lse - z_pos).mean()
+
+    @staticmethod
+    def backward(ctx, g):
+        user_embs, items, pos, lse = ctx.saved_tensors
+        valid_v, zero_row0, sink = ctx.options
+        B, K, _ = user_embs.shape
+        scale = g / B
+        du, d_items = multimax_grads(user_embs, items, lse, valid_v, zero_row0)
+        rows, _, k_pos = _pos_max(user_embs, items, pos, zero_row0)
+        onehot = torch.nn.functional.one_hot(k_pos, K).to(du.dtype)  # [B, K]
+        du = (du - onehot[..., None] * rows[:, None, :]) * scale
+        u_star = torch.einsum("bk,bkd->bd", onehot, user_embs)
+        d_items.mul_(scale)
+        d_items.index_put_((pos,), -u_star * scale, accumulate=True)
+        if zero_row0:
+            d_items[0] = 0.0  # row 0 read as a zero vector: no gradient either way
+        if sink is not None:
+            sink.append(d_items)
+            d_items = None
+        elif not ctx.needs_input_grad[1]:
+            d_items = None
+        return du, d_items, None, None, None, None
+
+
+def _multimax(user_embs, items, pos, valid_v, zero_row0, sink=None):
+    if user_embs.dim() != 3 or items.dim() != 2 or user_embs.shape[2] != items.shape[1]:
+        raise ValueError(f"user_embs [B, K, D] and items [V, D] expected, got "
+                         f"{tuple(user_embs.shape)} and {tuple(items.shape)}")
+    return _MultimaxCE.apply(user_embs, items, pos, int(valid_v), bool(zero_row0), sink)
+
+
+def fused_multimax_softmax_ce(user_embs: torch.Tensor, items: torch.Tensor,
+                              pos_item: torch.Tensor) -> torch.Tensor:
+    """mean_b [logsumexp_v(max_k u_bk . item_v) - max_k u_bk . item_{pos_b}]
+    over every row of ``items`` [V, D], never holding the [B, K, V] logits."""
+    return _multimax(user_embs, items, pos_item, items.shape[0], False)
+
+
+def fused_multimax_softmax_ce_padded(user_embs: torch.Tensor, items_padded: torch.Tensor,
+                                     pos_item: torch.Tensor, valid_v: int,
+                                     zero_row0: bool = True) -> torch.Tensor:
+    """The K-max CE over the raw table [V_pad, D], with no copy of it: rows
+    past ``valid_v`` masked, row 0 read as zero (``zero_row0``)."""
+    return _multimax(user_embs, items_padded, pos_item, valid_v, zero_row0)
+
+
+def fused_multimax_softmax_ce_captured(user_embs: torch.Tensor, items_padded: torch.Tensor,
+                                       pos_item: torch.Tensor, sink: List[torch.Tensor],
+                                       valid_v: int, zero_row0: bool = True) -> torch.Tensor:
+    """``fused_multimax_softmax_ce_padded`` whose backward appends the
+    table's dense gradient [V_pad, D] (row 0 pinned to 0) to ``sink``
+    instead of giving it to the table (pass the table detached)."""
+    return _multimax(user_embs, items_padded, pos_item, valid_v, zero_row0, sink)
+
+
+def naive_multimax_softmax_ce(user_embs: torch.Tensor, items: torch.Tensor,
+                              pos_item: torch.Tensor) -> torch.Tensor:
+    """The K-max CE over the materialized [B, K, V] logits (below
+    ``_FUSED_MIN_VOCAB`` items, as in JAX)."""
+    logits = torch.einsum("bkd,nd->bkn", user_embs, items).amax(dim=1)
+    pos = pos_item.reshape(-1).long()
+    return -torch.log_softmax(logits, dim=-1).gather(1, pos[:, None])[:, 0].mean()

@@ -25,7 +25,9 @@ as it does in the JAX package, and the trainer then takes the standard step.
 mode) and the streamed softmax CE (its captured variant) both hand their
 table gradients to the step instead of the table, and one K3 launch applies
 Adam with both: the history rows as the summed stream and the CE's
-``[V_pad, D]`` item gradient as the dense one.
+``[V_pad, D]`` item gradient as the dense one.  The rows' ids are
+``inputs[model.fused_lookup_key]``: the histories by default, the ``[3B, L]``
+``aug_all`` views for IOCRec, whose one lookup reads those.
 
 ``REC_PANGU_TPU_MOMENT_DTYPE=bf16`` stores both steps' table moments as
 bfloat16 (``_moment_dtype``), as in the JAX package.
@@ -162,8 +164,9 @@ class SeqFusedStep:
             dense = capture["ce"][0]
         rows = grads[-1]
         table = self.model.item_emb.table
+        ids = inputs[getattr(self.model, "fused_lookup_key", "hist_item_list")]
         with torch.no_grad():
-            planned_adam_update(inputs["hist_item_list"].reshape(-1).to(torch.int32),
+            planned_adam_update(ids.reshape(-1).to(torch.int32),
                                 rows.reshape(-1, rows.shape[-1]), table, self.mu, self.nu,
                                 adam_hyper(step + 1, lr, ADAM_B1, ADAM_B2, ADAM_EPS), dense)
         return out

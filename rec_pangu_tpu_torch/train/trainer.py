@@ -44,6 +44,7 @@ from ..convert import jax_variables, load_jax_variables
 from ..data.loader import DataLoader
 from ..eval.metrics import RollingMetricBuffer, compute_ranking_metrics
 from ..eval.retrieval import evaluate_recall, get_recall_predict
+from ..models.sequence.augment import host_augment_sequences
 from ..utils.device import DeviceLike, resolve_device
 from .ckpt import load_checkpoint, save_checkpoint
 from .fused_update import maybe_enable_fused_update, maybe_enable_seq_fused_update
@@ -69,6 +70,7 @@ class _BaseTrainer:
         self.step = 0  # optimizer steps taken; carried from a loaded checkpoint
         self.model = None
         self._train_step = None  # StandardStep or FusedStep, built by fit
+        self._aug_rng = None     # the host augmentations' generator (SequenceTrainer)
 
     def _device(self, device: DeviceLike) -> torch.device:
         return self.device if device is None else resolve_device(device)
@@ -335,11 +337,26 @@ class SequenceTrainer(_BaseTrainer):
                     break
 
     def _step(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-        """One train step on a host batch: id check, upload, the step."""
-        inputs = self.model.upload_batch(batch, self._fit_device, train=True)
+        """One train step on a host batch: the views of a ``host_aug`` model,
+        id check, upload, the step."""
+        inputs = self.model.upload_batch(self._attach_aug(batch), self._fit_device, train=True)
         out = self._train_step(inputs, self.step)
         self.step += 1
         return out
+
+    def _attach_aug(self, batch: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+        """For a ``host_aug`` model, the batch with ``aug_all`` = [hist; aug1;
+        aug2] [3B, L], the two views drawn on the host from the trainer's
+        ``np.random.default_rng(10_301)``, as the JAX trainer draws them."""
+        model = self.model
+        if not getattr(model, "host_aug", False) or "aug_all" in batch:
+            return batch
+        if self._aug_rng is None:
+            self._aug_rng = np.random.default_rng(10_301)
+        hist = np.asarray(batch["hist_item_list"])
+        views = [host_augment_sequences(self._aug_rng, hist, model.beta_a, model.beta_b,
+                                        model.mask_token) for _ in range(2)]
+        return {**batch, "aug_all": np.concatenate([hist] + views, axis=0)}
 
     def evaluate_model(self, model, test_loader: DataLoader, device: DeviceLike = None,
                        topk_list: Optional[List[int]] = None,

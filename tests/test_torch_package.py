@@ -34,6 +34,8 @@ def test_imports_without_jax_flax_optax_or_pandas():
         import rec_pangu_tpu_torch.ops.kernels.fused_adam
         import rec_pangu_tpu_torch.train.fused_update
         import rec_pangu_tpu_torch.ops.kernels.fused_encoder
+        import rec_pangu_tpu_torch.ops.kernels.global_attn
+        import rec_pangu_tpu_torch.ops.kernels.multimax_ce
         import rec_pangu_tpu_torch.ops.sequence_enc, rec_pangu_tpu_torch.eval.retrieval
         import rec_pangu_tpu_torch.data.sequence, rec_pangu_tpu_torch.models.sequence
         loaded = sorted(m for m in sys.modules if sys.modules[m] is not None
@@ -41,6 +43,7 @@ def test_imports_without_jax_flax_optax_or_pandas():
         assert not loaded, loaded
         assert "DeepFM" in rec_pangu_tpu_torch.models.MODEL_REGISTRY
         assert "SASRec" in rec_pangu_tpu_torch.models.MODEL_REGISTRY
+        assert "IOCRec" in rec_pangu_tpu_torch.models.MODEL_REGISTRY
         print("ok")
     """)
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
