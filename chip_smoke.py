@@ -17,7 +17,9 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                sum in another order than the plain version's atomics, within
                the rounding bound stated at ``sum_tolerance``; the fused Adam
                also at the sequence shape with its dense gradient stream and
-               bfloat16 moments (``phase_fused_adam_seq``); the fused
+               bfloat16 moments (``phase_fused_adam_seq``); the table
+               gradient again at K7's call-site shape with its sort on the
+               card (``phase_sorted_accumulate``); the fused
                encoder (K4f) within the tolerances at ``check_encoder``; its
                backward (K4b) and dropout forward against the plain version's
                autograd with the same dropout masks, within the tolerances at
@@ -62,6 +64,17 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                on the CPU (100,000 items, batches of 256, the same dropout).
 16. seq_train_profile -- host stages and torch.profiler over a few
                sequence fused steps.
+17. iocrec_* -- IOCRec at the same width (K=4, a local and a global
+               encoder, the K-max CE): checkpoint, serving, profile, eval,
+               training (fit, then standard steps), card_vs_cpu,
+               train_profile.
+18. contrarec_*, clrec_* -- ContraRec and CLRec (the BERT4Rec encoder) at
+               the same width: checkpoint, serving, profile, eval, training
+               (fit, 2 epochs on the fused step, with the trainer's host
+               views or lookup_all), ContraRec's device_aug (standard steps
+               on batches without views: the views are drawn on the card
+               and the table gradient is K7's counterpart, once a step),
+               card_vs_cpu, train_profile.
 
 Then the kernels line, the card's name and power limit as nvidia-smi gives
 them, and last {"ok": true, "device": {...}}.
@@ -71,6 +84,7 @@ torch.backends.cuda.matmul.allow_tf32 = False (and the cuDNN flag too).
 """
 import contextlib
 import copy
+import functools
 import json
 import math
 import os
@@ -1480,9 +1494,11 @@ def write_seq_checkpoint(path: str) -> dict:
     return enc_dict
 
 
-def load_seq_model(path: str, enc_dict: dict, device: str):
-    """SASRec at full width loaded from ``path`` onto ``device``."""
-    model = port.get_model("SASRec")(enc_dict=enc_dict, config=SEQ_CONFIG)
+def load_seq_model(path: str, enc_dict: dict, device: str, name: str = "SASRec",
+                   config=None):
+    """The sequence model ``name`` (SASRec with SEQ_CONFIG by default) at
+    full width loaded from ``path`` onto ``device``."""
+    model = port.get_model(name)(enc_dict=enc_dict, config=config or SEQ_CONFIG)
     SequenceTrainer(device=device).load_model(model, path)
     return model
 
@@ -1891,7 +1907,8 @@ def phase_seq_card_vs_cpu(devices=("cuda", "cpu")) -> dict:
 def phase_seq_train_profile(path: str, enc_dict: dict, batches, ckpt_dir: str,
                             load=None, phase: str = "seq_train_profile") -> dict:
     """Where a sequence fused step's time goes: host stages, each ended by a
-    synchronize (IOCRec's host views, the id check and upload, the step),
+    synchronize (the trainer's host keys: IOCRec's and ContraRec's views,
+    CLRec's lookup_all; the id check and upload, the step),
     then torch.profiler's device time by operation and the card's idle share.
     ``load`` loads the model (SASRec's by default)."""
     from torch.profiler import ProfilerActivity, profile
@@ -1907,10 +1924,10 @@ def phase_seq_train_profile(path: str, enc_dict: dict, batches, ckpt_dir: str,
     for batch in batches[:2]:  # warm
         trainer._step(batch)
     torch.cuda.synchronize()
-    stages = {"augment": [], "check_and_upload": [], "step": []}
+    stages = {"host_keys": [], "check_and_upload": [], "step": []}
     for i, batch in enumerate(batches):
         t = [time.perf_counter()]
-        batch = trainer._attach_aug(batch)
+        batch = trainer._attach_host_keys(batch)
         t.append(time.perf_counter())
         inputs = model.upload_batch(batch, trainer._fit_device, train=True)
         torch.cuda.synchronize()
@@ -1946,7 +1963,7 @@ IOC_CONFIG = {"embedding_dim": SEQ_DIM, "max_length": SEQ_L, "K": 4, "num_blocks
 IOC_DROP = 0.5
 IOC_VIEWS = 3 * SEQ_BATCH          # a training step encodes [hist; aug1; aug2]
 IOC_CPU_CHECKS, IOC_CPU_USERS = 2, 128  # requests held against the CPU, and their users
-IOC_EPOCHS, IOC_TRAIN_BATCHES, IOC_VALID_BATCHES = 1, 8, 1
+FIT_EPOCHS, FIT_TRAIN_BATCHES, FIT_VALID_BATCHES = 1, 8, 1  # the fit of IOCRec and later models
 IOC_STD_STEPS, IOC_PROFILED = 3, 3
 IOC_CPU_BATCH = 128               # card against CPU: 100,000 items, 128 histories
 IOC_ZERO_GRAD = ("key.bias", "K_linear.bias", "layer_norm_2.bias")  # exact gradients of 0
@@ -2229,14 +2246,14 @@ def phase_multimax_ce(bandwidth: float, fp32: float) -> tuple:
     return tuple(out)
 
 
-def write_iocrec_checkpoint(path: str) -> dict:
-    """An IOCRec checkpoint in the JAX package's layout at full width:
-    seeded weights (the port's init, which is the JAX package's, with small
-    random biases and LayerNorm terms), the item table [padded_rows(1,000,000),
-    64]."""
+def write_model_checkpoint(path: str, name: str, config: dict, seed: int) -> dict:
+    """A checkpoint of the sequence model ``name`` in the JAX package's
+    layout at full width: seeded weights (the port's init, which is the JAX
+    package's, with small random biases and LayerNorm terms), the item table
+    [padded_rows(1,000,000), 64]."""
     enc_dict = {"item_id": {"vocab_size": SEQ_VOCAB}}
-    model = port.get_model("IOCRec")(enc_dict=enc_dict, config=IOC_CONFIG, seed=SEED + 90)
-    gen = torch.Generator().manual_seed(SEED + 91)
+    model = port.get_model(name)(enc_dict=enc_dict, config=config, seed=seed)
+    gen = torch.Generator().manual_seed(seed + 1)
     with torch.no_grad():
         for p in model.parameters():
             if p.dim() == 1:
@@ -2245,24 +2262,19 @@ def write_iocrec_checkpoint(path: str) -> dict:
     return enc_dict
 
 
-def load_iocrec_model(path: str, enc_dict: dict, device: str):
-    """IOCRec at full width loaded from ``path`` onto ``device``."""
-    model = port.get_model("IOCRec")(enc_dict=enc_dict, config=IOC_CONFIG)
-    SequenceTrainer(device=device).load_model(model, path)
-    return model
-
-
-def phase_iocrec_serving(path: str, enc_dict: dict, device: str = "cuda"):
-    """IOCRec retrieval at full width from a JAX-layout checkpoint:
-    SequenceTrainer.load_model, make_retrieval_scorer, 1024 histories a
-    request, each item scored by its best interest, top-200 of the whole
-    L2-normalized corpus (K1 + K4f + K6f a request); two requests held
+def phase_model_serving(path: str, enc_dict: dict, name: str, config: dict, kernels,
+                        seed: int, device: str = "cuda"):
+    """Retrieval by the sequence model ``name`` at full width from a
+    JAX-layout checkpoint: SequenceTrainer.load_model, make_retrieval_scorer,
+    1024 histories a request, top-200 of the whole L2-normalized corpus (a
+    multi-interest model scores each item by its best interest), each of
+    ``kernels`` once a request (IOCRec: K1 + K4f + K6f); two requests held
     against the CPU on their first IOC_CPU_USERS histories."""
     t_start = time.perf_counter()
-    model = load_iocrec_model(path, enc_dict, device)
+    model = load_seq_model(path, enc_dict, device, name, config)
     retrieve = make_retrieval_scorer(model, topk=SEQ_TOPK, device=device)
     setup_s = time.perf_counter() - t_start
-    requests = make_seq_requests(SEQ_WARMUP + SEQ_REQUESTS, SEED + 96)
+    requests = make_seq_requests(SEQ_WARMUP + SEQ_REQUESTS, seed)
 
     # the main path: every count is 0 just before it and read just after
     reset_launches()
@@ -2275,13 +2287,13 @@ def phase_iocrec_serving(path: str, enc_dict: dict, device: str = "cuda"):
         if (scores.shape != (SEQ_BATCH, SEQ_TOPK) or ids.shape != scores.shape
                 or not np.all(np.isfinite(scores)) or bool((np.diff(scores, axis=1) > 0).any())
                 or ids.min() < 1 or ids.max() >= SEQ_VOCAB):
-            raise RuntimeError(f"bad IOCRec retrieval answer for request {i}")
+            raise RuntimeError(f"bad {name} retrieval answer for request {i}")
     launches = read_launches()
     n = len(requests)
-    require_launches(launches, {"embedding_lookup": n, "fused_encoder": n, "global_attn": n},
-                     "iocrec_serving")
+    phase = f"{name.lower()}_serving"
+    require_launches(launches, {k: n for k in kernels}, phase)
 
-    cpu_model = load_iocrec_model(path, enc_dict, "cpu")
+    cpu_model = load_seq_model(path, enc_dict, "cpu", name, config)
     cpu_retrieve = make_retrieval_scorer(cpu_model, topk=SEQ_TOPK + 1, device="cpu")
     emb_err, differing = 0.0, 0
     for req in requests[:IOC_CPU_CHECKS]:
@@ -2294,11 +2306,11 @@ def phase_iocrec_serving(path: str, enc_dict: dict, device: str = "cuda"):
         cpu_scores, cpu_ids = cpu_retrieve(part)
         differing += compare_topk(ids, scores, cpu_ids, cpu_scores)
     if emb_err > USER_EMB_ATOL:
-        raise RuntimeError(f"card IOCRec user_emb differs from the CPU's by {emb_err}")
+        raise RuntimeError(f"card {name} user_emb differs from the CPU's by {emb_err}")
     del cpu_model, cpu_retrieve
 
     summary = {
-        "phase": "iocrec_serving", "model": "IOCRec", "config": IOC_CONFIG, "vocab": SEQ_VOCAB,
+        "phase": phase, "model": name, "config": config, "vocab": SEQ_VOCAB,
         "table_rows": int(model.item_emb.table.shape[0]), "batch": SEQ_BATCH, "topk": SEQ_TOPK,
         "requests": SEQ_REQUESTS, "warmup": SEQ_WARMUP, "launches": launches,
         "launches_per_request": {k: v / n for k, v in launches.items() if v},
@@ -2315,71 +2327,75 @@ def phase_iocrec_serving(path: str, enc_dict: dict, device: str = "cuda"):
     return summary, model, requests[SEQ_WARMUP:SEQ_WARMUP + SEQ_PROFILED]
 
 
-def phase_iocrec_training(path: str, enc_dict: dict, ckpt_dir: str, device: str = "cuda"):
-    """SequenceTrainer.fit on IOCRec at full width (dropout 0.5) from the
-    JAX-layout checkpoint: bench-shape batches, their two views made on the
-    host by the trainer, validation, log.csv, checkpoints and early stopping,
-    on the sequence fused step (K1, K4f, K4b, K6f, K6b, K5f, K5b, K3 once a
-    step).  Then standard steps (K2 for K3)."""
+def phase_model_training(path: str, enc_dict: dict, ckpt_dir: str, name: str, config: dict,
+                         per_step, per_batch, seed: int, std_steps: int = 0,
+                         epochs: int = FIT_EPOCHS, device: str = "cuda"):
+    """SequenceTrainer.fit on the sequence model ``name`` at full width from
+    the JAX-layout checkpoint: ``epochs`` of FIT_TRAIN_BATCHES bench-shape
+    batches with the host keys the trainer attaches (IOCRec's and
+    ContraRec's views, CLRec's lookup_all), FIT_VALID_BATCHES of
+    validation, log.csv, checkpoints and early stopping, on the sequence
+    fused step: each of ``per_step`` once a step, each of ``per_batch`` once
+    a step and an eval batch (IOCRec: K1, K4f, K4b, K6f, K6b, K5f, K5b, K3).
+    Then ``std_steps`` standard steps (K2 for K3)."""
     t_start = time.perf_counter()
-    train_loader = seq_train_loader(IOC_TRAIN_BATCHES, SEED + 92)
-    valid_loader = seq_valid_loader(IOC_VALID_BATCHES, SEED + 93)
-    model = load_iocrec_model(path, enc_dict, device)
+    train_loader = seq_train_loader(FIT_TRAIN_BATCHES, seed)
+    valid_loader = seq_valid_loader(FIT_VALID_BATCHES, seed + 1)
+    model = load_seq_model(path, enc_dict, device, name, config)
     trainer = SequenceTrainer(device=device, model_ckpt_dir=ckpt_dir)
     setup_s = time.perf_counter() - t_start
 
     # the main path: every count is 0 just before it and read just after
     reset_launches()
     t0 = time.perf_counter()
-    times, losses = timed_seq_fit(trainer, model, train_loader, valid_loader, IOC_EPOCHS,
-                                  device)
+    times, losses = timed_seq_fit(trainer, model, train_loader, valid_loader, epochs, device)
     fit_s = time.perf_counter() - t0
     launches = read_launches()
-    steps, evals = IOC_EPOCHS * IOC_TRAIN_BATCHES, IOC_EPOCHS * IOC_VALID_BATCHES
-    per_step = ("fused_adam", "fused_encoder_bwd", "global_attn_bwd", "multimax_ce",
-                "multimax_ce_bwd")
-    per_batch = ("embedding_lookup", "fused_encoder", "global_attn")
+    steps, evals = epochs * FIT_TRAIN_BATCHES, epochs * FIT_VALID_BATCHES
     require_launches(launches, {**{k: steps for k in per_step},
-                                **{k: steps + evals for k in per_batch}}, "iocrec fused fit")
+                                **{k: steps + evals for k in per_batch}}, f"{name} fused fit")
     if not trainer._train_step.fused:
-        raise RuntimeError("fit did not take the sequence fused step")
+        raise RuntimeError(f"{name}'s fit did not take the sequence fused step")
     first, last = float(np.mean(losses[:3])), float(np.mean(losses[-3:]))
     if not (np.all(np.isfinite(losses)) and last < first):
-        raise RuntimeError(f"the IOCRec training loss did not fall: {losses}")
+        raise RuntimeError(f"the {name} training loss did not fall: {losses}")
     files = sorted(os.listdir(ckpt_dir))
-    want = ({f"model_e_{i}.ckpt" for i in range(1, IOC_EPOCHS + 1)}
+    want = ({f"model_e_{i}.ckpt" for i in range(1, epochs + 1)}
             | {"model_best.ckpt", "log.csv"})
     if not want <= set(files):
         raise RuntimeError(f"fit's files missing: {sorted(want - set(files))} of {files}")
     del trainer, model
-
-    # the standard step: K2 for K3, torch.optim.Adam over the table
-    loader = DataLoader(_SeqArrays({k: v[:IOC_STD_STEPS * SEQ_BATCH] for k, v in
-                                    train_loader.dataset.arrays.items()}), batch_size=SEQ_BATCH)
-    std_model = load_iocrec_model(path, enc_dict, device)
-    std_trainer = SequenceTrainer(device=device, model_ckpt_dir=ckpt_dir)
-    os.environ["REC_PANGU_TPU_FUSED_ADAM"] = "0"
-    try:
-        reset_launches()
-        std_times, std_losses = timed_seq_fit(std_trainer, std_model, loader, None, 1, device)
-        std_launches = read_launches()
-    finally:
-        del os.environ["REC_PANGU_TPU_FUSED_ADAM"]
-    require_launches(std_launches, {**{k: IOC_STD_STEPS for k in per_step + per_batch},
-                                    "fused_adam": 0, "embedding_grad": IOC_STD_STEPS},
-                     "iocrec standard fit")
-    if std_trainer._train_step.fused or not np.all(np.isfinite(std_losses)):
-        raise RuntimeError(f"the IOCRec standard step did not run cleanly: {std_losses}")
     summary = {
-        "phase": "iocrec_training", "model": "IOCRec", "config": IOC_CONFIG,
-        "vocab": SEQ_VOCAB, "batch": SEQ_BATCH, "views": IOC_VIEWS, "epochs": IOC_EPOCHS,
-        "steps_per_epoch": IOC_TRAIN_BATCHES, "valid_batches": IOC_VALID_BATCHES, "lr": LR,
+        "phase": f"{name.lower()}_training", "model": name, "config": config,
+        "vocab": SEQ_VOCAB, "batch": SEQ_BATCH, "epochs": epochs,
+        "steps_per_epoch": FIT_TRAIN_BATCHES, "valid_batches": FIT_VALID_BATCHES, "lr": LR,
         "launches": launches, "fused": step_stats(times, SEQ_BATCH), "fit_s": fit_s,
         "setup_s": setup_s, "loss_first3": first, "loss_last3": last, "losses": losses,
-        "files": files, "standard_launches": std_launches,
-        "standard": step_stats(std_times, SEQ_BATCH), "standard_losses": std_losses,
-        "seconds": time.perf_counter() - t_start,
+        "files": files,
     }
+    if std_steps:  # the standard step: K2 for K3, torch.optim.Adam over the table
+        loader = DataLoader(_SeqArrays({k: v[:std_steps * SEQ_BATCH] for k, v in
+                                        train_loader.dataset.arrays.items()}),
+                            batch_size=SEQ_BATCH)
+        std_model = load_seq_model(path, enc_dict, device, name, config)
+        std_trainer = SequenceTrainer(device=device, model_ckpt_dir=ckpt_dir)
+        os.environ["REC_PANGU_TPU_FUSED_ADAM"] = "0"
+        try:
+            reset_launches()
+            std_times, std_losses = timed_seq_fit(std_trainer, std_model, loader, None, 1,
+                                                  device)
+            std_launches = read_launches()
+        finally:
+            del os.environ["REC_PANGU_TPU_FUSED_ADAM"]
+        require_launches(std_launches, {**{k: std_steps for k in per_step + per_batch},
+                                        "fused_adam": 0, "embedding_grad": std_steps},
+                         f"{name} standard fit")
+        if std_trainer._train_step.fused or not np.all(np.isfinite(std_losses)):
+            raise RuntimeError(f"the {name} standard step did not run cleanly: {std_losses}")
+        summary.update({"standard_launches": std_launches,
+                        "standard": step_stats(std_times, SEQ_BATCH),
+                        "standard_losses": std_losses})
+    summary["seconds"] = time.perf_counter() - t_start
     return summary, train_loader
 
 
@@ -2403,23 +2419,23 @@ def phase_iocrec_card_vs_cpu(devices=("cuda", "cpu")) -> dict:
     within IOC_LOSS_RTOL; at LR the later losses move apart by about lr
     times the loss's sensitivity, held within IOC_LATER_LOSS_RTOL; at
     IOC_SMALL_LR, ten times less, all three within IOC_LOSS_RTOL."""
+    from rec_pangu_tpu_torch.models.sequence.augment import host_augment_sequences
+
     t_start = time.perf_counter()
+    rng = np.random.default_rng(10_301)
+    batches = []
+    for batch in seq_train_loader(CPU_STEPS, SEED + 97, SEQ_CPU_VOCAB, IOC_CPU_BATCH):
+        hist = batch["hist_item_list"]
+        views = [host_augment_sequences(rng, hist, 3.0, 3.0, SEQ_CPU_VOCAB - 1)
+                 for _ in range(2)]
+        batches.append({**batch, "aug_all": np.concatenate([hist] + views)})
     summary = {"phase": "iocrec_card_vs_cpu", "steps": CPU_STEPS, "vocab": SEQ_CPU_VOCAB,
                "batch": IOC_CPU_BATCH, "dropout": IOC_DROP}
     for lr, later_rtol in ((LR, IOC_LATER_LOSS_RTOL), (IOC_SMALL_LR, IOC_LOSS_RTOL)):
-        leg = iocrec_card_vs_cpu_leg(lr, devices)
+        leg = card_vs_cpu_leg("IOCRec", IOC_CONFIG, batches, lr, devices, SEED + 94,
+                              lambda k: k.startswith(IOC_KINK_PATH))
         summary[f"lr_{lr:g}"] = leg
-        losses_ok = (leg["loss_rel_diffs"][0] <= IOC_LOSS_RTOL
-                     and max(leg["loss_rel_diffs"]) <= later_rtol)
-        grads_ok = (leg["grad_rel_err"] <= IOC_GRAD_REL_TOL
-                    and leg["kink_path_grad_rel_err"] <= IOC_KINK_GRAD_REL_TOL
-                    and leg["zero_grad_rel_size"] <= IOC_GRAD_REL_TOL)
-        if (not losses_ok or not grads_ok
-                or leg["dense_elements_beyond_atol"] > IOC_DENSE_HANDFUL
-                or leg["dense_max_abs_diff"] > 2 * lr
-                or leg["table_elements_beyond_atol"] > SEQ_HANDFUL
-                or leg["table_max_abs_diff"] > 2 * lr):
-            raise RuntimeError(f"the card's IOCRec training differs from the CPU's: {summary}")
+        require_card_like_cpu(leg, later_rtol, IOC_KINK_GRAD_REL_TOL, summary)
     summary.update({"loss_rtol": IOC_LOSS_RTOL, "later_loss_rtol_at_lr": IOC_LATER_LOSS_RTOL,
                     "grad_rel_tol": IOC_GRAD_REL_TOL,
                     "kink_path_grad_rel_tol": IOC_KINK_GRAD_REL_TOL,
@@ -2427,6 +2443,29 @@ def phase_iocrec_card_vs_cpu(devices=("cuda", "cpu")) -> dict:
                     "table_atol": SEQ_TABLE_ATOL, "table_handful": SEQ_HANDFUL,
                     "seconds": time.perf_counter() - t_start})
     return summary
+
+
+def require_card_like_cpu(leg: dict, later_rtol: float, kink_rel_tol: float,
+                          summary: dict) -> None:
+    """A card-against-CPU leg within its bounds: the step-1 loss within
+    IOC_LOSS_RTOL and the later ones within ``later_rtol``; the first step's
+    gradients within IOC_GRAD_REL_TOL of each leaf's largest entry
+    (``kink_rel_tol`` on the relu's path, the exact zeros of their weight's);
+    the parameters after one step: dense elements past SEQ_DENSE_ATOL at most
+    IOC_DENSE_HANDFUL, table elements past SEQ_TABLE_ATOL at most
+    SEQ_HANDFUL, none of either past 2 lr."""
+    lr = leg["lr"]
+    losses_ok = (leg["loss_rel_diffs"][0] <= IOC_LOSS_RTOL
+                 and max(leg["loss_rel_diffs"]) <= later_rtol)
+    grads_ok = (leg["grad_rel_err"] <= IOC_GRAD_REL_TOL
+                and leg["kink_path_grad_rel_err"] <= kink_rel_tol
+                and leg["zero_grad_rel_size"] <= IOC_GRAD_REL_TOL)
+    if (not losses_ok or not grads_ok
+            or leg["dense_elements_beyond_atol"] > IOC_DENSE_HANDFUL
+            or leg["dense_max_abs_diff"] > 2 * lr
+            or leg["table_elements_beyond_atol"] > SEQ_HANDFUL
+            or leg["table_max_abs_diff"] > 2 * lr):
+        raise RuntimeError(f"the card's training differs from the CPU's: {summary}")
 
 
 @contextlib.contextmanager
@@ -2450,11 +2489,13 @@ def recording_table_grad(out: list):
         fused_update.planned_adam_update = update
 
 
-def grad_comparison(card: dict, cpu: dict) -> dict:
+def grad_comparison(card: dict, cpu: dict, on_kink_path) -> dict:
     """The first step's gradients, card against CPU, leaf by leaf: each
-    within a share of its own largest entry; the exact zeros (IOC_ZERO_GRAD)
-    are rounding noise on both sides, held as a share of their weight's
-    largest gradient (the LayerNorm's scale, the dense kernel's)."""
+    within a share of its own largest entry, those ``on_kink_path`` (a
+    relu's derivative lies between them and the loss) apart; the exact zeros
+    (IOC_ZERO_GRAD) are rounding noise on both sides, held as a share of
+    their weight's largest gradient (the LayerNorm's scale, the dense
+    kernel's)."""
     if set(card) != set(cpu):
         raise RuntimeError(f"the card and the CPU give gradients to different leaves: "
                            f"{sorted(set(card) ^ set(cpu))}")
@@ -2467,33 +2508,28 @@ def grad_comparison(card: dict, cpu: dict) -> dict:
                 scale.abs().max().item())
         else:
             errs[k] = rel_err(card[k], want)
-    kink = {k: v for k, v in errs.items() if k.startswith(IOC_KINK_PATH)}
+    kink = {k: v for k, v in errs.items() if on_kink_path(k)}
     rest = {k: v for k, v in errs.items() if k not in kink}
     worst = max(rest, key=rest.get)
-    worst_kink = max(kink, key=kink.get)
+    worst_kink = max(kink, key=kink.get, default=None)
     return {"grad_rel_err": rest[worst], "grad_worst_leaf": worst,
-            "kink_path_grad_rel_err": kink[worst_kink], "kink_path_worst_leaf": worst_kink,
+            "kink_path_grad_rel_err": kink.get(worst_kink, 0.0),
+            "kink_path_worst_leaf": worst_kink,
             "zero_grad_rel_size": max(zero.values()), "grad_leaves": len(errs),
             "grad_rel_err_by_leaf": errs, "zero_grad_rel_size_by_leaf": zero}
 
 
-def iocrec_card_vs_cpu_leg(lr: float, devices) -> dict:
-    """Three fused steps at ``lr`` on each device; what differs."""
-    from rec_pangu_tpu_torch.models.sequence.augment import host_augment_sequences
+def card_vs_cpu_leg(name: str, config: dict, batches, lr: float, devices, seed: int,
+                    on_kink_path) -> dict:
+    """Three fused steps of the model ``name`` (SEQ_CPU_VOCAB items, weights
+    from ``seed``) at ``lr`` on each device, from host ``batches`` that
+    already hold the model's host keys; what differs."""
     from rec_pangu_tpu_torch.train.fused_update import maybe_enable_seq_fused_update
 
-    loader = seq_train_loader(CPU_STEPS, SEED + 97, SEQ_CPU_VOCAB, IOC_CPU_BATCH)
-    rng = np.random.default_rng(10_301)
-    batches = []
-    for batch in loader:
-        hist = batch["hist_item_list"]
-        views = [host_augment_sequences(rng, hist, 3.0, 3.0, SEQ_CPU_VOCAB - 1)
-                 for _ in range(2)]
-        batches.append({**batch, "aug_all": np.concatenate([hist] + views)})
     enc_dict = {"item_id": {"vocab_size": SEQ_CPU_VOCAB}}
     runs = {}
     for dev in devices:
-        model = port.get_model("IOCRec")(enc_dict=enc_dict, config=IOC_CONFIG, seed=SEED + 94)
+        model = port.get_model(name)(enc_dict=enc_dict, config=config, seed=seed)
         model = model.to(dev).train()
         step = maybe_enable_seq_fused_update(model, lr, CPU_STEPS,
                                              generator=torch.Generator().manual_seed(SEED))
@@ -2520,7 +2556,7 @@ def iocrec_card_vs_cpu_leg(lr: float, devices) -> dict:
     table = diffs[table_key]
     return {"lr": lr, "card_losses": card_losses, "cpu_losses": cpu_losses,
             "loss_rel_diffs": [abs(a - b) / abs(b) for a, b in zip(card_losses, cpu_losses)],
-            **grad_comparison(card_grads, cpu_grads),
+            **grad_comparison(card_grads, cpu_grads, on_kink_path),
             "dense_max_abs_diff": dense.max().item(),
             "dense_elements_beyond_atol": int((dense > SEQ_DENSE_ATOL).sum().item()),
             "dense_elements": dense.numel(),
@@ -2528,6 +2564,175 @@ def iocrec_card_vs_cpu_leg(lr: float, devices) -> dict:
             "table_max_abs_diff": table.max().item(),
             "table_elements_beyond_atol": int((table > SEQ_TABLE_ATOL).sum().item()),
             "table_elements": table.numel()}
+
+
+# ------------------------------------------------------ ContraRec and CLRec
+# at bench.py's sequence width with the JAX classes' own defaults
+# (rec_pangu_tpu/models/sequence/{contrarec,clrec}.py): the BERT4Rec
+# encoder (2 blocks of 2 heads, relu FFN of 64, LayerNorm eps 1e-5, no
+# dropout, bidirectional over each history's first `length` positions);
+# ContraRec's gamma 1, Beta(3, 3) views and ccc_temp 0.2; CLRec's temp 0.1
+CONTRA_CONFIG = {"embedding_dim": SEQ_DIM, "max_length": SEQ_L, "gamma": 1, "beta_a": 3,
+                 "beta_b": 3, "ccc_temp": 0.2, "encoder_name": "BERT4Rec", "item_col": "item_id"}
+CLREC_CONFIG = {"embedding_dim": SEQ_DIM, "max_length": SEQ_L, "temp": 0.1,
+                "item_col": "item_id"}
+BERT_KERNELS = ("embedding_lookup", "fused_encoder")     # once a request, step and eval batch
+BERT_STEP_KERNELS = ("fused_adam", "fused_encoder_bwd")  # once a fused step
+CONTRA_EPOCHS = 2          # fit epochs: random targets are learnt only when seen again
+AUG_STEPS = 8              # ContraRec standard steps on device views (K7's path), over
+                           # AUG_STEPS / 2 batches twice
+SORTED_ID_SETS = 4         # K7 row: id batches a timing graph cycles through
+CONTRA_PROFILED = 4        # fused steps traced by the profiler
+
+
+def device_view_ids(gen, seed: int) -> torch.Tensor:
+    """The ids of ContraRec's device-branch lookup: a bench batch of
+    histories and its two views drawn on the card (``augment_sequences``,
+    the model's own draw), [3 * SEQ_BATCH * SEQ_L] int32."""
+    from rec_pangu_tpu_torch.models.sequence.augment import augment_sequences
+
+    hist = torch.from_numpy(seq_train_loader(1, seed).dataset.arrays["hist_item_list"])
+    hist = hist.to(gen.device)
+    views = [augment_sequences(gen, hist, 3.0, 3.0, SEQ_VOCAB - 1) for _ in range(2)]
+    return torch.cat([hist] + views).reshape(-1)
+
+
+def seq_skewed_ids(num_rows: int, dev) -> dict:
+    """Ids at K7's shape with long runs of equal ids: every id equal, and
+    histories whose first positions take few values (LOW_CARD) and the rest
+    Zipf over the items."""
+    n = 3 * SEQ_BATCH
+    rng = np.random.default_rng(SEED + 31)
+    cols = [rng.integers(1, c + 1, n) for c in LOW_CARD]
+    cols += [np.minimum(rng.zipf(ZIPF_A, n), SEQ_VOCAB - 1) for _ in range(SEQ_L - len(LOW_CARD))]
+    ids = torch.from_numpy(np.stack(cols, 1).astype(np.int32)).reshape(-1).to(dev)
+    return {"all_equal": torch.full((n * SEQ_L,), num_rows // 2, dtype=torch.int32, device=dev),
+            "low_card_zipf": ids}
+
+
+def phase_sorted_accumulate(bandwidth: float) -> dict:
+    """K7's counterpart (``embedding_grad.sorted_segment_accumulate``: the
+    sort on the card, then the table gradient kernel) at its call-site
+    shape: ContraRec's device-branch lookup, 3 x 1024 histories of 50 over
+    the [1,007,616, 64] table, against index_add_ on the card, within the
+    rounding bound of ``sum_tolerance`` and twice for the same bits; also at
+    all-equal and low-cardinality/Zipf ids."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 100)
+    num_rows = padded_rows(SEQ_VOCAB)
+    id_sets = [device_view_ids(gen, SEED + 101 + i) for i in range(SORTED_ID_SETS)]
+    ids = id_sets[0]
+    cot = torch.randn(ids.numel(), SEQ_DIM, generator=gen, device=dev) * 1e-3
+    accumulate = grad.sorted_segment_accumulate
+    out = accumulate(ids, cot, num_rows)
+    require_equal(accumulate(ids, cot, num_rows), out, "K7 shape, run twice")
+    bound, hits = sum_tolerance(ids, cot, num_rows)
+    max_abs_err = require_within(out, grad.table_grad_reference(ids, cot, num_rows), bound,
+                                 f"K7 shape [{num_rows}, {SEQ_DIM}] x {ids.numel()} ids")
+    skewed = {}
+    for kind, x in seq_skewed_ids(num_rows, dev).items():
+        got = accumulate(x, cot, num_rows)
+        require_equal(accumulate(x, cot, num_rows), got, f"K7 shape {kind}, run twice")
+        x_bound, x_hits = sum_tolerance(x, cot, num_rows)
+        require_within(got, grad.table_grad_reference(x, cot, num_rows), x_bound,
+                       f"K7 shape, {kind}")
+        skewed[kind] = {"max_hits_per_row": int(x_hits.max().item()), "ms": median_ms(
+            [lambda: accumulate(x, cot, num_rows)], SKEW_LAUNCHES)}
+
+    n = ids.numel()
+    moved = num_rows * SEQ_DIM * 4 + n * SEQ_DIM * 4 + n * 4  # grad written; rows, ids read
+    sorted_sets = [grad.sort_ids(x) for x in id_sets]
+    long_sets = [x.long() for x in id_sets]
+    lib = torch.zeros(num_rows, SEQ_DIM, device=dev)
+    return {
+        "name": "embedding_grad_sorted", "route": "cuda",
+        "source": "rec_pangu_tpu_torch/csrc/embedding_grad.cu",
+        "replaces": "rec_pangu_tpu/ops/kernels/embedding_grad.py:67",
+        "max_abs_err": max_abs_err,
+        "tolerance": "per element 2(k-1)*2^-24*sum|x| over its k terms (sum order)",
+        "ids": n, "table_rows": num_rows, "max_hits_per_row": int(hits.max().item()),
+        "ms": median_ms([lambda x=x: accumulate(x, cot, num_rows) for x in id_sets]),
+        "kernel_only_ms": median_ms([lambda s=s: grad.launch(*s, cot, num_rows)
+                                     for s in sorted_sets]),
+        "sort_ms": median_ms([lambda x=x: grad.sort_ids(x) for x in id_sets]),
+        "plain_ms": median_ms([lambda x=x: grad.table_grad_reference(x, cot, num_rows)
+                               for x in id_sets]),
+        "bound_ms": moved / bandwidth * 1e3, "bound_by": "bytes",
+        "library_ms": median_ms([lambda x=x: lib.zero_().index_add_(0, x, cot)
+                                 for x in long_sets]),
+        "library": "torch.zeros(V, D).index_add_(0, ids, rows) (atomics)",
+        "bytes": moved, "skewed": skewed,
+    }
+
+
+def phase_device_aug(path: str, enc_dict: dict, device: str = "cuda") -> dict:
+    """K7's path: ContraRec standard steps (``train/steps.StandardStep``) on
+    bench batches uploaded without ``aug_all``, so that each forward draws
+    the two views on the card from the step's seed and looks up [hist; v1;
+    v2] [3072, 50] in one lookup no step captures.  Its backward is the
+    table gradient over 153,600 ids sorted on the card, once a step, beside
+    K1, K4f and K4b; no K3.  The loss must be finite and fall over two
+    passes of the batches (new views each time)."""
+    from rec_pangu_tpu_torch.train.steps import StandardStep
+
+    t_start = time.perf_counter()
+    batches = list(seq_train_loader(AUG_STEPS // 2, SEED + 120)) * 2
+    model = load_seq_model(path, enc_dict, device, "ContraRec", CONTRA_CONFIG).train()
+    step = StandardStep(model, LR, AUG_STEPS, generator=torch.Generator().manual_seed(SEED))
+    dev = torch.device(device)
+    setup_s = time.perf_counter() - t_start
+
+    # the main path: every count is 0 just before it and read just after
+    reset_launches()
+    times, losses = [], []
+    for i, batch in enumerate(batches):
+        t0 = time.perf_counter()
+        out = step(model.upload_batch(batch, dev, train=True), i)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(out["loss"].detach())
+    launches = read_launches()
+    require_launches(launches, {k: AUG_STEPS for k in ("embedding_lookup", "fused_encoder",
+                                                       "fused_encoder_bwd", "embedding_grad")},
+                     "contrarec_device_aug")
+    losses = [float(x) for x in losses]
+    first, last = float(np.mean(losses[:3])), float(np.mean(losses[-3:]))
+    if not (np.all(np.isfinite(losses)) and last < first):
+        raise RuntimeError(f"the device-view training loss did not fall: {losses}")
+    return {"phase": "contrarec_device_aug", "model": "ContraRec", "config": CONTRA_CONFIG,
+            "vocab": SEQ_VOCAB, "batch": SEQ_BATCH, "lookup_ids_per_step": 3 * SEQ_BATCH * SEQ_L,
+            "lr": LR, "launches": launches, "standard": step_stats(times, SEQ_BATCH),
+            "loss_first3": first, "loss_last3": last, "losses": losses, "setup_s": setup_s,
+            "seconds": time.perf_counter() - t_start}
+
+
+def phase_contrastive_card_vs_cpu(name: str, config: dict, devices=("cuda", "cpu")) -> dict:
+    """The first three fused steps of ContraRec or CLRec on the card and on
+    the CPU at a cut corpus (SEQ_CPU_VOCAB items, IOC_CPU_BATCH histories),
+    from the same weights and batches, their host keys (ContraRec's views,
+    CLRec's lookup_all) made by a trainer's hooks as fit makes them: the
+    first step's gradient of every leaf before Adam, the losses, the
+    parameters after one step, held by ``require_card_like_cpu``.  Every
+    leaf's gradient within IOC_GRAD_REL_TOL of its largest entry, those
+    behind the encoder's relu too: no sample of these inputs lies at its
+    kink (first run: 1.9e-6 at most; see phase_iocrec_card_vs_cpu)."""
+    t_start = time.perf_counter()
+    trainer = SequenceTrainer(device="cpu")
+    trainer.model = port.get_model(name)(enc_dict={"item_id": {"vocab_size": SEQ_CPU_VOCAB}},
+                                         config=config)
+    batches = [trainer._attach_host_keys(b) for b in
+               seq_train_loader(CPU_STEPS, SEED + 130, SEQ_CPU_VOCAB, IOC_CPU_BATCH)]
+    leg = card_vs_cpu_leg(name, config, batches, LR, devices, SEED + 131, lambda k: False)
+    summary = {"phase": f"{name.lower()}_card_vs_cpu", "steps": CPU_STEPS,
+               "vocab": SEQ_CPU_VOCAB, "batch": IOC_CPU_BATCH, f"lr_{LR:g}": leg,
+               "loss_rtol": IOC_LOSS_RTOL, "later_loss_rtol": IOC_LATER_LOSS_RTOL,
+               "grad_rel_tol": IOC_GRAD_REL_TOL,
+               "dense_atol": SEQ_DENSE_ATOL, "dense_handful": IOC_DENSE_HANDFUL,
+               "table_atol": SEQ_TABLE_ATOL, "table_handful": SEQ_HANDFUL}
+    require_card_like_cpu(leg, IOC_LATER_LOSS_RTOL, IOC_GRAD_REL_TOL, summary)
+    summary["seconds"] = time.perf_counter() - t_start
+    return summary
 
 
 def main() -> int:
@@ -2550,7 +2755,8 @@ def main() -> int:
           "libraries": sorted(os.path.relpath(p, ROOT) for p in libs.values())})
 
     bandwidth, fp32 = peak_bandwidth(kind), peak_fp32(kind)
-    rows = [phase_kernel(bandwidth), phase_table_grad(bandwidth), phase_fused_adam(bandwidth),
+    rows = [phase_kernel(bandwidth), phase_table_grad(bandwidth),
+            phase_sorted_accumulate(bandwidth), phase_fused_adam(bandwidth),
             phase_fused_encoder(bandwidth, fp32), phase_fused_encoder_bwd(bandwidth, fp32),
             *phase_global_attn(bandwidth, fp32), *phase_multimax_ce(bandwidth, fp32)]
     for row in rows:
@@ -2599,34 +2805,82 @@ def main() -> int:
 
         t0 = time.perf_counter()
         ioc_path = os.path.join(tmp, "iocrec.ckpt")
-        ioc_enc_dict = write_iocrec_checkpoint(ioc_path)
+        ioc_enc_dict = write_model_checkpoint(ioc_path, "IOCRec", IOC_CONFIG, SEED + 90)
         emit({"phase": "iocrec_checkpoint", "seconds": time.perf_counter() - t0,
               "bytes": os.path.getsize(ioc_path)})
-        ioc_serving, ioc_model, ioc_profiled = phase_iocrec_serving(ioc_path, ioc_enc_dict)
+        ioc_kernels = ("embedding_lookup", "fused_encoder", "global_attn")
+        ioc_serving, ioc_model, ioc_profiled = phase_model_serving(
+            ioc_path, ioc_enc_dict, "IOCRec", IOC_CONFIG, ioc_kernels, SEED + 96)
         emit(ioc_serving)
         emit(phase_seq_profile(ioc_model, ioc_profiled, "iocrec_profile"))
         del ioc_model
         torch.cuda.empty_cache()
-        emit(phase_seq_eval("cuda", "IOCRec", IOC_CONFIG,
-                            ("embedding_lookup", "fused_encoder", "global_attn")))
-        ioc_training, ioc_loader = phase_iocrec_training(ioc_path, ioc_enc_dict,
-                                                         os.path.join(tmp, "ioc_ckpt"))
+        emit(phase_seq_eval("cuda", "IOCRec", IOC_CONFIG, ioc_kernels))
+        ioc_training, ioc_loader = phase_model_training(
+            ioc_path, ioc_enc_dict, os.path.join(tmp, "ioc_ckpt"), "IOCRec", IOC_CONFIG,
+            ("fused_adam", "fused_encoder_bwd", "global_attn_bwd", "multimax_ce",
+             "multimax_ce_bwd"), ioc_kernels, SEED + 92, IOC_STD_STEPS)
         emit(ioc_training)
         torch.cuda.empty_cache()
         emit(phase_iocrec_card_vs_cpu())
         ioc_batches = [b for _, b in zip(range(IOC_PROFILED), ioc_loader)]
         emit(phase_seq_train_profile(ioc_path, ioc_enc_dict, ioc_batches,
-                                     os.path.join(tmp, "ioc_ckpt"), load_iocrec_model,
+                                     os.path.join(tmp, "ioc_ckpt"),
+                                     functools.partial(load_seq_model, name="IOCRec",
+                                                       config=IOC_CONFIG),
                                      "iocrec_train_profile"))
+        del ioc_loader, ioc_batches
+        shutil.rmtree(os.path.join(tmp, "ioc_ckpt"))
+        os.remove(ioc_path)
+        torch.cuda.empty_cache()
+
+        contrastive = {}
+        for name, config, seed in (("ContraRec", CONTRA_CONFIG, SEED + 110),
+                                   ("CLRec", CLREC_CONFIG, SEED + 140)):
+            t0 = time.perf_counter()
+            m_path = os.path.join(tmp, f"{name.lower()}.ckpt")
+            m_enc_dict = write_model_checkpoint(m_path, name, config, seed)
+            emit({"phase": f"{name.lower()}_checkpoint", "seconds": time.perf_counter() - t0,
+                  "bytes": os.path.getsize(m_path)})
+            m_serving, m_model, m_profiled = phase_model_serving(
+                m_path, m_enc_dict, name, config, BERT_KERNELS, seed + 2)
+            emit(m_serving)
+            emit(phase_seq_profile(m_model, m_profiled, f"{name.lower()}_profile"))
+            del m_model
+            torch.cuda.empty_cache()
+            emit(phase_seq_eval("cuda", name, config))
+            m_ckpt = os.path.join(tmp, f"{name.lower()}_ckpt")
+            m_training, m_loader = phase_model_training(
+                m_path, m_enc_dict, m_ckpt, name, config, BERT_STEP_KERNELS, BERT_KERNELS,
+                seed + 3, epochs=CONTRA_EPOCHS)
+            emit(m_training)
+            contrastive[name] = m_training
+            torch.cuda.empty_cache()
+            if name == "ContraRec":
+                device_aug = phase_device_aug(m_path, m_enc_dict)
+                emit(device_aug)
+                torch.cuda.empty_cache()
+            emit(phase_contrastive_card_vs_cpu(name, config))
+            m_batches = [b for _, b in zip(range(CONTRA_PROFILED), m_loader)]
+            emit(phase_seq_train_profile(
+                m_path, m_enc_dict, m_batches, m_ckpt,
+                functools.partial(load_seq_model, name=name, config=config),
+                f"{name.lower()}_train_profile"))
+            del m_loader, m_batches
+            shutil.rmtree(m_ckpt)
+            os.remove(m_path)
+            torch.cuda.empty_cache()
 
     # launches on each kernel's own main path: the lookup's on serving, the
     # fused Adam's on the fused fit (and on the sequence fused fit), the
     # gradient's on the standard-step fit, the encoder's on SASRec serving,
     # its backward's on the sequence fused fit, the global attention's on
-    # IOCRec serving, its backward's and the K-max CE's on IOCRec's fused fit
+    # IOCRec serving, its backward's and the K-max CE's on IOCRec's fused
+    # fit, the device-sorted gradient's (K7) on ContraRec's device views
     launches = {"embedding_lookup": serving["launches"]["embedding_lookup"],
                 "fused_adam": training["launches"]["fused_adam"],
                 "embedding_grad": training["standard_launches"]["embedding_grad"],
+                "embedding_grad_sorted": device_aug["launches"]["embedding_grad"],
                 "fused_encoder": seq_serving["launches"]["fused_encoder"],
                 "fused_encoder_bwd": seq_training["launches"]["fused_encoder_bwd"],
                 "global_attn": ioc_serving["launches"]["global_attn"],
@@ -2642,6 +2896,9 @@ def main() -> int:
         if line["name"] in ("embedding_lookup", "fused_adam", "fused_encoder",
                             "fused_encoder_bwd", "global_attn"):
             line["launches_iocrec_training"] = ioc_training["launches"][line["name"]]
+        if line["name"] in BERT_KERNELS + BERT_STEP_KERNELS:
+            for name, m_training in contrastive.items():
+                line[f"launches_{name.lower()}_training"] = m_training["launches"][line["name"]]
     emit({"kernels": lines})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -96,9 +96,10 @@ class SequenceModelBase(nn.Module):
 
     input_dtypes = {"hist_item_list": np.int32, "hist_mask_list": np.float32}
     # True on a model whose only item-table uses in the training forward are
-    # the history lookup and the full-softmax CE, the two the sequence fused
-    # step captures (train/fused_update.py); any other read of the table
-    # would lose its gradient there
+    # one lookup (of the ids at ``fused_lookup_key``, the histories by
+    # default) and the full-softmax CE, the two the sequence fused step
+    # captures (train/fused_update.py); any other read of the table would
+    # lose its gradient there
     fused_update_compatible = False
     # False: the loss never reaches the captured CE, so the fused step passes
     # no dense gradient to the table's Adam pass
@@ -219,11 +220,12 @@ class SequenceModelBase(nn.Module):
         before any upload) and copy the history ids (int32) and mask (f32)
         to ``device``; a training batch (``train``) also checks and uploads
         its ``target_item`` (int32) and, when it holds them, the host-made
-        views ``aug_all`` [3B, L] (int32)."""
+        views ``aug_all`` [3B, L] and the joint lookup ids ``lookup_all``
+        [B, L + extras] (int32)."""
         dtypes = dict(self.input_dtypes)
         check_item_ids(batch["hist_item_list"], self.item_emb.vocab_size)
         if train:
-            keys = ("target_item", "aug_all") if "aug_all" in batch else ("target_item",)
+            keys = ("target_item",) + tuple(k for k in ("aug_all", "lookup_all") if k in batch)
             for key in keys:
                 check_item_ids(batch[key], self.item_emb.vocab_size)
                 dtypes[key] = np.int32

@@ -1,0 +1,86 @@
+"""ContraRec: the BERT4Rec encoder over a history and two augmented views of
+it, the full-softmax CE and a supervised contrastive loss between the views
+(positives: views whose histories share a target item).
+
+The JAX package's ``models/sequence/contrarec.py``, its weights under the
+same flax names (``jax_leaves``).  A training batch either carries the
+views from the host, ``aug_all = [hist; aug1; aug2]`` [3B, L] (the trainer
+builds it, ``host_aug``), which the sequence fused step captures; or it
+does not, and the forward draws the two views on the device
+(``augment.augment_sequences``) from a generator seeded by the step's
+seed.  Either way one ``[3B, L]`` lookup and one ``[3B]`` encoder pass
+serve the history and both views: every encoder op is batch-parallel, so
+the rows are those of separate passes.  On the card the lookup is K1 and
+the encoder K4f (K4b backward); the device-view lookup is not captured, so
+its backward is the table gradient kernel over the 3BL sorted ids
+(``embedding_grad.sorted_segment_accumulate``, K7's counterpart).
+"""
+from __future__ import annotations
+
+import torch
+
+from ...ops.numerics import safe_l2norm
+from ...ops.sequence_enc import BERT4RecEncoder, draw_seed
+from ..base import SequenceModelBase, register_model
+from .augment import augment_sequences
+from .contra_losses import contrarec_contra_loss
+
+# the JAX package's other encoders, with the ROADMAP items that port them
+_NOT_PORTED = {"GRU4Rec": "ROADMAP Queue 1 item 4", "Caser": "ROADMAP Queue 1 item 7"}
+
+
+@register_model("ContraRec")
+class ContraRec(SequenceModelBase):
+    fused_update_compatible = True
+    host_aug = True               # the trainer builds batch["aug_all"] on the host
+    fused_lookup_key = "aug_all"  # the ids of the fused step's captured rows
+
+    def __init__(self, enc_dict: dict, config: dict, seed: int = 1029):
+        super().__init__(enc_dict, config, seed)
+        self.setup_base()
+        cfg = self.config
+        self.gamma = float(cfg.get("gamma", 1))
+        self.beta_a = float(cfg.get("beta_a", 3))
+        self.beta_b = float(cfg.get("beta_b", 3))
+        self.ccc_temp = float(cfg.get("ccc_temp", 0.2))
+        self.encoder_name = cfg.get("encoder_name", "BERT4Rec")
+        if self.encoder_name in _NOT_PORTED:
+            raise NotImplementedError(f"ContraRec's {self.encoder_name} encoder is not ported "
+                                      f"yet ({_NOT_PORTED[self.encoder_name]})")
+        if self.encoder_name != "BERT4Rec":
+            raise ValueError(f"Invalid sequence encoder {self.encoder_name!r}")
+        self.encoder = BERT4RecEncoder(self.max_length, self.embedding_dim, num_layers=2,
+                                       num_heads=2, generator=self.generator)
+        # the last id is the mask token: a real item, as in the reference
+        self.mask_token = int(enc_dict[cfg.get("item_col", "item_id")]["vocab_size"]) - 1
+
+    def forward(self, batch, train: bool = False, capture=None, seed=None):
+        """``capture``: the fused step's {"hist": [...], "ce": [...]} lists;
+        ``seed``: the step's seed, which also seeds the device views of a
+        training batch without ``aug_all``."""
+        item_seq = batch["hist_item_list"]
+        lengths = batch["hist_mask_list"].sum(dim=-1).to(torch.int64)
+        B = item_seq.shape[0]
+        capture = capture or {}
+        if not train:
+            return {"user_emb": self.encoder(self.item_emb(item_seq, capture.get("hist")),
+                                             lengths)}
+        seed = draw_seed() if seed is None else int(seed)
+        all_seq = batch.get("aug_all")
+        if all_seq is None:
+            gen = torch.Generator(device=item_seq.device).manual_seed(seed + 2)
+            views = [augment_sequences(gen, item_seq, self.beta_a, self.beta_b,
+                                       self.mask_token) for _ in range(2)]
+            all_seq = torch.cat([item_seq] + views, dim=0)
+        enc = self.encoder(self.item_emb(all_seq, capture.get("hist")), lengths.repeat(3),
+                           True)
+        user_emb = enc[:B]
+        item = batch["target_item"]
+        features = safe_l2norm(torch.stack([enc[B:2 * B], enc[2 * B:]], dim=1))
+        loss = (self.calculate_loss(user_emb, item, capture.get("ce"), seed)
+                + self.gamma * contrarec_contra_loss(features, item, self.ccc_temp))
+        return {"user_emb": user_emb, "loss": loss}
+
+    def jax_leaves(self):
+        return ([(c, ("item_emb",) + p, t, tr) for c, p, t, tr in self.item_emb.jax_leaves()]
+                + [(c, ("encoder",) + p, t, tr) for c, p, t, tr in self.encoder.jax_leaves()])

@@ -1,4 +1,5 @@
-"""Sequence encoders: the post-LN transformer stack.
+"""Sequence encoders: the post-LN transformer stack, and BERT4Rec's
+bidirectional encoder built on it.
 
 ``TransformerBlock`` and ``TransformerEncoder`` hold the JAX package's
 weights under its flax names (``TransformerBlock_{i}`` with ``query``,
@@ -168,3 +169,44 @@ class TransformerEncoder(nn.Module):
     def jax_leaves(self) -> List[Tuple[str, tuple, torch.Tensor, bool]]:
         return [(c, (f"TransformerBlock_{i}",) + p, t, tr)
                 for i, block in enumerate(self.blocks) for c, p, t, tr in block.jax_leaves()]
+
+
+class BERT4RecEncoder(nn.Module):
+    """The bidirectional encoder of CLRec and ContraRec: learned positions,
+    a post-LN stack of ``num_layers`` blocks (relu FFN of width H, no
+    dropout, LayerNorm eps 1e-5) over the first ``length`` positions of
+    each history, read at its last one.
+
+    Position l of a history gets the table's row l when l < length and row
+    0 otherwise: a dense select, not a gather, so its backward is a batch
+    reduction.  Weights: ``p_embeddings/embedding`` and
+    ``TransformerEncoder_0/...``, as in the JAX package."""
+
+    def __init__(self, max_his: int, hidden_size: int, num_layers: int = 2,
+                 num_heads: int = 2, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        gen = generator if generator is not None else torch.Generator().manual_seed(0)
+        self.p_embeddings = nn.Parameter(torch.empty(max_his + 1, hidden_size))
+        kaiming_normal_(self.p_embeddings, gen)  # torch's fan-in: H
+        self.encoder = TransformerEncoder(hidden_size, num_layers, num_heads,
+                                          inner_size=hidden_size, hidden_dropout_prob=0.0,
+                                          attn_dropout_prob=0.0, hidden_act="relu",
+                                          layer_norm_eps=1e-5, generator=gen)
+
+    def forward(self, seq: torch.Tensor, lengths: torch.Tensor,
+                train: bool = False) -> torch.Tensor:
+        """seq [B, L, H], lengths [B] -> [B, H]; a history of length 0 gives
+        a zero row."""
+        B, L, _ = seq.shape
+        valid = torch.arange(L, device=seq.device)[None, :] < lengths[:, None]
+        p = torch.where(valid[..., None], self.p_embeddings[None, :L],
+                        self.p_embeddings[0][None, None])
+        x = self.encoder(seq + p, valid, causal=False, train=train)
+        x = x * valid[..., None]
+        idx = (lengths - 1).clamp(0, L - 1).long()
+        return x[torch.arange(B, device=seq.device), idx]
+
+    def jax_leaves(self) -> List[Tuple[str, tuple, torch.Tensor, bool]]:
+        return ([("params", ("p_embeddings", "embedding"), self.p_embeddings, False)]
+                + [(c, ("TransformerEncoder_0",) + p, t, tr)
+                   for c, p, t, tr in self.encoder.jax_leaves()])

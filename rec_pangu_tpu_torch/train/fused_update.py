@@ -27,7 +27,9 @@ table gradients to the step instead of the table, and one K3 launch applies
 Adam with both: the history rows as the summed stream and the CE's
 ``[V_pad, D]`` item gradient as the dense one.  The rows' ids are
 ``inputs[model.fused_lookup_key]``: the histories by default, the ``[3B, L]``
-``aug_all`` views for IOCRec, whose one lookup reads those.
+``aug_all`` views for IOCRec and ContraRec, the ``[B, L + 1]`` ``lookup_all``
+(histories and targets) for CLRec, whose one lookup reads those.  The step
+checks the key and the captures before it changes any state.
 
 ``REC_PANGU_TPU_MOMENT_DTYPE=bf16`` stores both steps' table moments as
 bfloat16 (``_moment_dtype``), as in the JAX package.
@@ -142,29 +144,36 @@ class SeqFusedStep:
         self.nu = torch.zeros_like(table, dtype=_moment_dtype())
 
     def __call__(self, inputs: Dict[str, torch.Tensor], step: int) -> Dict[str, torch.Tensor]:
+        """One step; a batch without the model's ``fused_lookup_key``, or a
+        forward that does not capture exactly one lookup (and one CE when
+        the loss uses it), raises ``ValueError`` before any state changes."""
+        key = getattr(self.model, "fused_lookup_key", "hist_item_list")
+        if key not in inputs:
+            raise ValueError(f"the sequence fused step reads the table rows' ids from "
+                             f"inputs[{key!r}], which this batch lacks")
         lr = self.schedule(step)
-        set_lr(self.optimizer, lr)
         capture: Dict[str, List[torch.Tensor]] = {"hist": []}
         if self.uses_ce:
             capture["ce"] = []
         out = self.model(inputs, train=True, capture=capture, seed=draw_seed(self.generator))
-        if len(capture["hist"]) != 1:  # the rows' ids are the history's
+        if len(capture["hist"]) != 1:  # the rows' ids are inputs[key]
             raise ValueError(f"the sequence fused step needs exactly one lookup of the item "
                              f"table in the forward, got {len(capture['hist'])}")
         grads = torch.autograd.grad(out["loss"], self.dense + capture["hist"],
                                     allow_unused=True)
-        for p, g in zip(self.dense, grads):
-            p.grad = g  # None for a weight the loss does not reach: Adam skips it
-        self.optimizer.step()
         dense = None
-        if self.uses_ce:
+        if self.uses_ce:  # the CE's backward has appended its gradient by now
             if len(capture["ce"]) != 1:
                 raise ValueError(f"the sequence fused step needs exactly one captured softmax "
                                  f"CE in the loss, got {len(capture['ce'])}")
             dense = capture["ce"][0]
+        set_lr(self.optimizer, lr)
+        for p, g in zip(self.dense, grads):
+            p.grad = g  # None for a weight the loss does not reach: Adam skips it
+        self.optimizer.step()
         rows = grads[-1]
         table = self.model.item_emb.table
-        ids = inputs[getattr(self.model, "fused_lookup_key", "hist_item_list")]
+        ids = inputs[key]
         with torch.no_grad():
             planned_adam_update(ids.reshape(-1).to(torch.int32),
                                 rows.reshape(-1, rows.shape[-1]), table, self.mu, self.nu,

@@ -338,25 +338,40 @@ class SequenceTrainer(_BaseTrainer):
 
     def _step(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         """One train step on a host batch: the views of a ``host_aug`` model,
-        id check, upload, the step."""
-        inputs = self.model.upload_batch(self._attach_aug(batch), self._fit_device, train=True)
+        the joint lookup ids of a ``lookup_extra`` model, id check, upload,
+        the step."""
+        inputs = self.model.upload_batch(self._attach_host_keys(batch), self._fit_device,
+                                         train=True)
         out = self._train_step(inputs, self.step)
         self.step += 1
         return out
 
-    def _attach_aug(self, batch: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
-        """For a ``host_aug`` model, the batch with ``aug_all`` = [hist; aug1;
-        aug2] [3B, L], the two views drawn on the host from the trainer's
-        ``np.random.default_rng(10_301)``, as the JAX trainer draws them."""
+    def _attach_host_keys(self, batch: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+        """The training batch with the keys the model's one table lookup
+        reads, made on the host as the JAX trainer makes them:
+
+        * a ``host_aug`` model (IOCRec, ContraRec): ``aug_all`` = [hist; aug1;
+          aug2] [3B, L], the two views drawn from the trainer's
+          ``np.random.default_rng(10_301)``;
+        * a model with ``lookup_extra`` (CLRec: the target item), when the
+          batch holds every extra: ``lookup_all`` = [hist | extras]
+          [B, L + extras] int32.
+
+        Keys the batch already holds are kept."""
         model = self.model
-        if not getattr(model, "host_aug", False) or "aug_all" in batch:
-            return batch
-        if self._aug_rng is None:
-            self._aug_rng = np.random.default_rng(10_301)
         hist = np.asarray(batch["hist_item_list"])
-        views = [host_augment_sequences(self._aug_rng, hist, model.beta_a, model.beta_b,
-                                        model.mask_token) for _ in range(2)]
-        return {**batch, "aug_all": np.concatenate([hist] + views, axis=0)}
+        if getattr(model, "host_aug", False) and "aug_all" not in batch:
+            if self._aug_rng is None:
+                self._aug_rng = np.random.default_rng(10_301)
+            views = [host_augment_sequences(self._aug_rng, hist, model.beta_a, model.beta_b,
+                                            model.mask_token) for _ in range(2)]
+            batch = {**batch, "aug_all": np.concatenate([hist] + views, axis=0)}
+        extras = getattr(model, "lookup_extra", ())
+        if extras and "lookup_all" not in batch and all(k in batch for k in extras):
+            parts = [hist.reshape(hist.shape[0], -1)]
+            parts += [np.asarray(batch[k]).reshape(hist.shape[0], -1) for k in extras]
+            batch = {**batch, "lookup_all": np.concatenate(parts, axis=1).astype(np.int32)}
+        return batch
 
     def evaluate_model(self, model, test_loader: DataLoader, device: DeviceLike = None,
                        topk_list: Optional[List[int]] = None,

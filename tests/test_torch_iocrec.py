@@ -210,7 +210,7 @@ def test_host_augmentation_and_the_trainer_views_match_jax(jax_iocrec):
     for seed in (6, 7):
         batch = {k: v for k, v in _batch(seed).items() if k != "aug_all"}
         want = jtrainer._attach_plan(dict(batch))["aug_all"]
-        got = trainer._attach_aug(batch)["aug_all"]
+        got = trainer._attach_host_keys(batch)["aug_all"]
         assert got.shape == (3 * B, L)
         np.testing.assert_array_equal(got, want)
         np.testing.assert_array_equal(got[:B], batch["hist_item_list"])

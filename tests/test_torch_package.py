@@ -38,12 +38,13 @@ def test_imports_without_jax_flax_optax_or_pandas():
         import rec_pangu_tpu_torch.ops.kernels.multimax_ce
         import rec_pangu_tpu_torch.ops.sequence_enc, rec_pangu_tpu_torch.eval.retrieval
         import rec_pangu_tpu_torch.data.sequence, rec_pangu_tpu_torch.models.sequence
+        import rec_pangu_tpu_torch.ops.numerics
+        import rec_pangu_tpu_torch.models.sequence.contra_losses
         loaded = sorted(m for m in sys.modules if sys.modules[m] is not None
                         and m.split(".")[0] in {"rec_pangu_tpu", "jax", "flax", "optax"})
         assert not loaded, loaded
-        assert "DeepFM" in rec_pangu_tpu_torch.models.MODEL_REGISTRY
-        assert "SASRec" in rec_pangu_tpu_torch.models.MODEL_REGISTRY
-        assert "IOCRec" in rec_pangu_tpu_torch.models.MODEL_REGISTRY
+        for name in ("DeepFM", "SASRec", "IOCRec", "CLRec", "ContraRec"):
+            assert name in rec_pangu_tpu_torch.models.MODEL_REGISTRY, name
         print("ok")
     """)
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
