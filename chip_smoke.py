@@ -1978,6 +1978,7 @@ IOC_DENSE_HANDFUL = 16            # dense elements allowed past SEQ_DENSE_ATOL (
                                   # seen: 4)
 GA_ATOL = 1e-5                    # K6f against plain (outputs of order 1)
 GA_REL_TOL = 1e-5                 # K6b: each gradient, of the array's largest entry
+GA_SLICES = 264                   # K6b's gradient slices (kSlices in csrc/global_attn.cu)
 MM_REL_TOL = 1e-5                 # K5f: lse; K5b: du and d_items, of each array's largest entry
 MM_LAUNCHES = 2                   # K5 calls a timing graph holds (tens of ms each)
 
@@ -2004,46 +2005,116 @@ def ga_bwd_work(n: int, length: int, dim: int) -> int:
     return n * (12 * length * dim * dim + 10 * length * length * dim)
 
 
+def ga_grad_errs(got, want) -> dict:
+    """dx's and each gradient's largest difference over the array's largest
+    entry; the key bias, whose exact gradient is 0 (each score row moves by
+    one constant), over the value bias's largest gradient."""
+    names = ("dx",) + gattn.PARAM_NAMES
+    errs = {}
+    for name, a, b in zip(names, got, want):
+        scale = want[names.index("bv")] if name == "bk" else b
+        errs[name] = ((a - b).abs().max() / scale.abs().max().clamp(min=1e-30)).item()
+    return errs
+
+
+def plain_ga_grads(x, params, dy, rate: float):
+    xs = x.detach().clone().requires_grad_()
+    ps = [p.detach().clone().requires_grad_() for p in params]
+    y = gattn.global_attn_reference(xs, ps, True, rate, 7)
+    return torch.autograd.grad(y, [xs] + ps, dy)
+
+
 def check_global_attn(x, params, rate: float, what: str) -> dict:
     """K6f, and K6b under autograd, against the plain version with the same
-    dropout masks, each run twice for the same bits.  The key bias has an
-    exact gradient of 0 (each score row moves by one constant), so it is
-    held within GA_REL_TOL of the value bias's largest gradient."""
+    dropout masks, each run twice for the same bits; held as ga_grad_errs
+    says."""
     gen = torch.Generator(device=x.device).manual_seed(17)
     dy = torch.randn(x.shape, generator=gen, device=x.device)
 
-    def run(fn):
+    def run():
         xs = x.detach().clone().requires_grad_()
         ps = [p.detach().clone().requires_grad_() for p in params]
-        y = fn(xs, ps)
+        y = gattn.global_attn(xs, ps, 7, rate, True)
         return (y.detach(),) + torch.autograd.grad(y, [xs] + ps, dy)
 
-    kernel = lambda xs, ps: gattn.global_attn(xs, ps, 7, rate, True)  # noqa: E731
-    plain = lambda xs, ps: gattn.global_attn_reference(xs, ps, True, rate, 7)  # noqa: E731
-    got, again, want = run(kernel), run(kernel), run(plain)
-    names = ("y", "dx") + gattn.PARAM_NAMES
-    for a, b, part in zip(got, again, names):
+    got, again = run(), run()
+    for a, b, part in zip(got, again, ("y", "dx") + gattn.PARAM_NAMES):
         require_equal(a, b, f"{what}, {part}, run twice")
     torch.cuda.synchronize()
     if not all(bool(torch.isfinite(t).all()) for t in got):
         raise RuntimeError(f"{what}: non-finite global attention output or gradient")
-    errs = {"y_abs": (got[0] - want[0]).abs().max().item()}
-    for name, a, b in zip(names[1:], got[1:], want[1:]):
-        scale = want[names.index("bv")] if name == "bk" else b
-        errs[name] = ((a - b).abs().max() / scale.abs().max().clamp(min=1e-30)).item()
+    with torch.no_grad():
+        want_y = gattn.global_attn_reference(x, params, True, rate, 7)
+    errs = {"y_abs": (got[0] - want_y).abs().max().item(),
+            **ga_grad_errs(got[1:], plain_ga_grads(x, params, dy, rate))}
     if errs["y_abs"] > GA_ATOL or max(v for k, v in errs.items() if k != "y_abs") > GA_REL_TOL:
         raise RuntimeError(f"{what}: the global attention kernels differ from plain: {errs}")
     return {"case": what, "dropout": rate, **errs}
+
+
+def check_ga_backward(x, params, dy, rate: float, resident, what: str) -> dict:
+    """K6b's variant ``resident`` (launch_backward) against the plain
+    version's autograd, run twice for the same bits."""
+    got = gattn.launch_backward(x, params, dy, rate, 7, resident=resident)
+    again = gattn.launch_backward(x, params, dy, rate, 7, resident=resident)
+    got, again = (got[0],) + got[1], (again[0],) + again[1]
+    for a, b, part in zip(got, again, ("dx",) + gattn.PARAM_NAMES):
+        require_equal(a, b, f"{what}, {part}, run twice")
+    errs = ga_grad_errs(got, plain_ga_grads(x, params, dy, rate))
+    if not all(bool(torch.isfinite(t).all()) for t in got) or max(errs.values()) > GA_REL_TOL:
+        raise RuntimeError(f"{what}: the global attention backward differs from plain: {errs}")
+    return {"case": what, **errs}
+
+
+def ga_library(xs, ps):
+    """F.linear twice and scaled_dot_product_attention (scale 1): the
+    library's global attention, no dropout."""
+    import torch.nn.functional as F
+
+    N, L, D = xs.shape
+    k = F.linear(xs, ps[0].t(), ps[1])
+    v = F.linear(xs, ps[2].t(), ps[3])
+    q = ps[4].expand(N, 1, L, D)
+    return F.scaled_dot_product_attention(q, k[:, None], v[:, None], scale=1.0)[:, 0]
+
+
+def ga_reference_times(x, params, dy) -> dict:
+    """Times of the plain version (dropout IOC_DROP) and the library call:
+    forward, and forward+backward under autograd; the backward alone is the
+    difference (autograd's backward runs on its forward's stream, so it
+    cannot be captured alone)."""
+    grad_params = [p.detach().clone().requires_grad_() for p in params]
+    plain = lambda xs, ps: gattn.global_attn_reference(xs, ps, True, IOC_DROP, 7)  # noqa: E731
+
+    def forward(fn):
+        def call():
+            with torch.no_grad():
+                fn(x, params)
+        return [call]
+
+    def fwd_bwd(fn):
+        def call():
+            xs = x.detach().requires_grad_()
+            torch.autograd.grad(fn(xs, grad_params), [xs] + grad_params, dy)
+        return [call]
+
+    t = {"plain_fwd": median_ms(forward(plain)), "plain_fwd_bwd": median_ms(fwd_bwd(plain)),
+         "library_fwd": median_ms(forward(ga_library)),
+         "library_fwd_bwd": median_ms(fwd_bwd(ga_library))}
+    t["plain_bwd"] = t["plain_fwd_bwd"] - t["plain_fwd"]
+    t["library_bwd"] = t["library_fwd_bwd"] - t["library_fwd"]
+    return t
 
 
 def phase_global_attn(bandwidth: float, fp32: float) -> tuple:
     """K6f and K6b against the plain version's forward and autograd at the
     training shape (3072 views of 50 x 64) and the serving shape (1024),
     dropout 0 and 0.5, and at edge shapes (N=1, L=1, L=64 with D=128, odd
-    sizes); times of the kernels, the plain version and F.linear twice plus
+    sizes); K6b alone at the edges of its partition (GA_SLICES - 1, GA_SLICES,
+    GA_SLICES + 1 and 2 GA_SLICES + 1 views) and with its weights streamed
+    from device memory beside the resident variant at the training shape;
+    times of the kernels, the plain version and F.linear twice plus
     scaled_dot_product_attention (scale 1).  Returns the two kernel rows."""
-    import torch.nn.functional as F
-
     t_start = time.perf_counter()
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED + 100)
@@ -2059,6 +2130,12 @@ def phase_global_attn(bandwidth: float, fp32: float) -> tuple:
     for n, length, dim in ((1, SEQ_L, SEQ_DIM), (5, 1, SEQ_DIM), (3, 64, 128), (7, 13, 24)):
         cases.append(check_global_attn(x_of(n, length, dim), ga_params(dim, length, gen),
                                        IOC_DROP, f"N={n} L={length} D={dim}"))
+    dy = torch.randn(x.shape, generator=gen, device=dev)
+    bwd_cases = [check_ga_backward(x[:n], params, dy[:n], IOC_DROP, None, f"K6b N={n}")
+                 for n in (GA_SLICES - 1, GA_SLICES, GA_SLICES + 1, 2 * GA_SLICES + 1)]
+    bwd_cases += [check_ga_backward(x, params, dy, IOC_DROP, resident,
+                                    f"K6b training shape, resident={resident}")
+                  for resident in (True, False)]
     # the masks: another seed changes them; the keep share at the training shape
     with torch.no_grad():
         seed_changes = not torch.equal(gattn.global_attn(x, params, 7, IOC_DROP, True),
@@ -2069,42 +2146,18 @@ def phase_global_attn(bandwidth: float, fp32: float) -> tuple:
         raise RuntimeError(f"global attention dropout: another seed changes the masks "
                            f"{seed_changes}, keep share {keep_share}")
 
-    dy = torch.randn(x.shape, generator=gen, device=dev)
-    grad_params = [p.detach().clone().requires_grad_() for p in params]
-    wk, bk, wv, bv, q_s = params
-
-    def library(xs, ps):
-        k = F.linear(xs, ps[0].t(), ps[1])
-        v = F.linear(xs, ps[2].t(), ps[3])
-        q = ps[4].expand(xs.shape[0], 1, SEQ_L, SEQ_DIM)
-        return F.scaled_dot_product_attention(q, k[:, None], v[:, None], scale=1.0)[:, 0]
-
     with torch.no_grad():
-        lib_err = (library(x, params) - gattn.global_attn(x, params)).abs().max().item()
+        lib_err = (ga_library(x, params) - gattn.global_attn(x, params)).abs().max().item()
     if lib_err > GA_ATOL:
         raise RuntimeError(f"the library's attention differs from K6f by {lib_err}")
 
-    def forward(fn):
-        def call():
-            with torch.no_grad():
-                fn(x, params)
-        return [call]
-
-    def fwd_bwd(fn):
-        def call():
-            xs = x.detach().requires_grad_()
-            torch.autograd.grad(fn(xs, grad_params), [xs] + grad_params, dy)
-        return [call]
-
-    kernel = lambda xs, ps: gattn.global_attn(xs, ps, 7, IOC_DROP, True)  # noqa: E731
-    plain = lambda xs, ps: gattn.global_attn_reference(xs, ps, True, IOC_DROP, 7)  # noqa: E731
     serving = x[:SEQ_BATCH]
     t = {"fwd": median_ms([lambda: gattn.launch_forward(x, params, IOC_DROP, 7)]),
          "fwd_serving": median_ms([lambda: gattn.launch_forward(serving, params, 0.0, 0)]),
          "bwd": median_ms([lambda: gattn.launch_backward(x, params, dy, IOC_DROP, 7)]),
-         "plain_fwd": median_ms(forward(plain)), "plain_fwd_bwd": median_ms(fwd_bwd(plain)),
-         "library_fwd": median_ms(forward(library)),
-         "library_fwd_bwd": median_ms(fwd_bwd(library))}
+         "bwd_streamed": median_ms(
+             [lambda: gattn.launch_backward(x, params, dy, IOC_DROP, 7, resident=False)]),
+         **ga_reference_times(x, params, dy)}
     flop = ga_work(IOC_VIEWS, SEQ_L, SEQ_DIM)
     n_el = IOC_VIEWS * SEQ_L * SEQ_DIM
     param_bytes = sum(p.numel() * 4 for p in params)
@@ -2113,8 +2166,7 @@ def phase_global_attn(bandwidth: float, fp32: float) -> tuple:
             ("global_attn", flop, 2 * n_el * 4 + param_bytes, t["fwd"], t["plain_fwd"],
              t["library_fwd"], "rec_pangu_tpu/ops/kernels/global_attn.py:69"),
             ("global_attn_bwd", ga_bwd_work(IOC_VIEWS, SEQ_L, SEQ_DIM),
-             3 * n_el * 4 + 2 * param_bytes, t["bwd"],
-             t["plain_fwd_bwd"] - t["plain_fwd"], t["library_fwd_bwd"] - t["library_fwd"],
+             3 * n_el * 4 + 2 * param_bytes, t["bwd"], t["plain_bwd"], t["library_bwd"],
              "rec_pangu_tpu/ops/kernels/global_attn.py:78")):
         by_ops, by_bytes = work / fp32 * 1e3, moved / bandwidth * 1e3
         rows.append({
@@ -2133,14 +2185,16 @@ def phase_global_attn(bandwidth: float, fp32: float) -> tuple:
                    "scale=1.0), no dropout", "library_max_abs_err": lib_err,
         "keep_share": keep_share, "seed_changes_masks": seed_changes,
         "shape": {"N": IOC_VIEWS, "L": SEQ_L, "D": SEQ_DIM, "dropout": IOC_DROP}})
+    grad_names = ("dx",) + gattn.PARAM_NAMES
     bwd_row.update({
-        "max_abs_err": max(max(v for k, v in c.items() if k in gattn.PARAM_NAMES + ("dx",))
-                           for c in cases),
+        "max_abs_err": max(max(c[k] for k in grad_names) for c in cases + bwd_cases),
         "tolerance": f"dx and each gradient within {GA_REL_TOL} of the array's largest entry "
                      f"(bk, whose exact value is 0, of dbv's); max_abs_err is that relative error",
+        "bound_share": bwd_row["bound_ms"] / t["bwd"], "library_share": t["library_bwd"] / t["bwd"],
+        "ms_streamed": t["bwd_streamed"],
         "library": "autograd of the library forward above (plain_ms and library_ms: "
                    "forward+backward minus forward)",
-        "cases": cases, "seconds": time.perf_counter() - t_start})
+        "cases": cases + bwd_cases, "seconds": time.perf_counter() - t_start})
     return fwd_row, bwd_row
 
 

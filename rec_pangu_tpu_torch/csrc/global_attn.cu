@@ -18,29 +18,73 @@
 // columns are strided so that neighbouring threads read neighbouring words;
 // a warp owns a row of scores (L <= 64: two keys a lane).
 //
-// The backward recomputes each sample's forward from x and then
-//   dctx = dy * drop, dv = P^T dctx, dP = dctx v^T,
-//   dS = P * (dP - rowsum(dP * P)),
-//   dQ += dS k, dk = dS^T Q,
-//   dWk += x^T dk, dbk += colsum(dk), dWv += x^T dv, dbv += colsum(dv),
-//   dx = dk Wk^T + dv Wv^T.
-// dQ, dWk, dbk, dWv and dbv are sums over all samples.  No float atomics: a
-// block owns the samples [b * per_block, (b + 1) * per_block), per_block =
-// ceil(N / 264) (a function of N alone), and a private slice of `partials`
-// that it adds each sample's terms to (an entry always by the same thread, in
-// sample order); a second launch sums the slices in block order.  The bits
-// repeat from run to run.
-//
 // Dropout draws the fused encoder's counter hash (csrc/kernel_common.cuh and
 // ops/kernels/fused_encoder.dropout_scale): element (l, c) of sample n is kept
 // when mix(key ^ mix(l * D + c)) >= threshold, key = mix(mix(mix(seed ^
 // 0x9e3779b9) ^ n) ^ stream), with `stream` chosen by the caller apart from
 // the encoder's 3 * layer + site.  The backward draws the same masks again.
 //
-// Bound: operations.  1,459,200 FLOP a sample forward at L=50, D=64 (4.48
-// GFLOP at N=3072) against 78 MB of x and y; the backward recomputes k, v and
-// P (not P v) and does twice the forward's products again, 12 L D^2 + 10 L^2 D
-// a sample.  f32 on CUDA cores, no tensor cores in this first version.
+// Bound of the forward: operations.  1,459,200 FLOP a sample at L=50, D=64
+// (4.48 GFLOP at N=3072) against 78 MB of x and y.  f32 on CUDA cores.
+//
+// The backward (K6b) recomputes each sample's k, v and P from x and then
+//   dctx = dy * drop, dv = P^T dctx, dP = dctx v^T,
+//   dS = P * (dP - rowsum(dP * P)),
+//   dQ += dS k, dk = dS^T Q,
+//   dWk += x^T dk, dbk += colsum(dk), dWv += x^T dv, dbv += colsum(dv),
+//   dx = dk Wk^T + dv Wv^T.
+// Its bound is operations too: 12 L D^2 + 10 L^2 D FLOP a sample (4.06
+// MFLOP at L=50, D=64; 12.5 GFLOP, 0.186 ms at 67 TFLOP/s for N=3072)
+// against 3 x 12.8 KB of x, dy and dx.
+//
+// Design (it replaced one sample a block of 256 threads with the weights
+// read from L2 inside the product loops, scalar shared-memory operands and a
+// read-modify-write of the block's gradient slice in device memory after
+// every sample; 1.76 ms at IOCRec's shape, now 0.60 ms on an H100 SXM):
+// - Groups.  256 threads take one sample at a time.  Where a shape's buffers
+//   fit twice (IOCRec's L=50, D=64), a block of 512 threads runs two groups,
+//   each on its own sample with named barriers of its own: 16 warps an SM.
+// - Resident weights.  That variant loads Q, Wk and Wv into shared memory
+//   once a block; a sample's only device-memory traffic is its x, dy and dx.
+//   The recompute (x W) reads W along its rows k-major; dx (dk W^T) reads W
+//   along its rows too, as dot products.  Other shapes (Dp > 64, or L=64 at
+//   D=64) run the streamed variant: one group a block, W and W^T read as
+//   float4 rows from zero-padded copies that a transpose kernel writes into
+//   the workspace first (coalesced on both sides).
+// - Register tiles.  Every product gives a thread 4 x 4 outputs (kTw = 4),
+//   its operands read as float4 from shared memory: 8 floats for 16 FMAs.
+//   An operand stored k-major gives 4 neighbouring rows of one k; one stored
+//   with k contiguous gives 4 k of one row, the thread's rows then strided
+//   (tm + r * tiles).  A warp takes a block of 4 x 8 tiles; every buffer's row
+//   stride is an odd number of float4 (68 at D=64), so the 4 or 8 rows a warp
+//   reads at one k lie in different bank quads.  Each phase ends at one
+//   barrier: k and v; scores; softmax; dP; dv (into v's buffer) with dS; dQ
+//   with dk (into dctx's buffer); dWk, dWv, the bias sums and dx.  The
+//   softmax and dS take a quarter-warp a row.  L is padded to Lp = 52 (a
+//   multiple of 4) and D to Dp (of 8, so that kTw may be 8) with zeros; P
+//   and dS are 0 past L, so the padding adds nothing to any sum.
+// - Gradient sums on chip.  dWk and dWv (a 4 x 4 tile of each a thread at
+//   D=64) and an entry of dbk|dbv live in registers across the group's
+//   samples; dQ's sums live in the group's shared memory (registers are
+//   the scarcer: 512 threads get 128 each).  Each entry belongs to one
+//   thread and is summed one fused multiply-add at a time, l ascending
+//   within a sample and samples ascending.  The group writes its gradient
+//   slice to device memory once, at the end.  No float atomics: kSlices = 264
+//   slices (2 x 132 SMs, whatever the card); slice s takes samples
+//   [s N / S, (s + 1) N / S) with S = min(N, 264), a function of N alone; a
+//   second launch (rp::sum_slices) adds the slices in order.  The bits
+//   repeat from run to run, and the two variants give the same bits.
+// - What bounds it (scripts/torch_global_attn_bwd.py --variants): the
+//   products, about 0.45 of the 0.60 ms.  An SM delivers 32 floats a clock
+//   from shared memory to registers and issues 128 FMAs, so 4 x 4 tiles
+//   (a float every 2 FMAs) run at most at half the FMA rate; 4 x 8 tiles
+//   need more than the 128 registers a thread and spill.
+// Shared memory, floats (Lp = 52, Dp = 64, stride 68 at IOCRec's shape):
+//   block: Q Lp x 68 (3,536) + resident Wk, Wv 2 x Dp x 68 (8,704);
+//   each group: x, dctx (later dk), k, v (later dv) 4 x Lp x 68 (14,144),
+//   P, dP (later dS) 2 x Lp x Lp (5,408), dQ's sums Lp x Dp (3,328);
+//   two groups: 58,000 floats = 232,000 B of the 232,448 a block may opt in
+//   to.  The streamed variant at the largest shape (L=64, D=128): 201,728 B.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -57,7 +101,6 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxL = 64;     // a warp holds a score row: two keys a lane
 constexpr int kMaxD = 128;
-constexpr int kMaxBwdBlocks = 264;
 
 struct Dropout {
   uint32_t seed, stream, threshold;
@@ -82,12 +125,12 @@ struct Mat {
   __device__ __forceinline__ float at(int r, int c) const { return p[r * rs + c * cs]; }
 };
 
-// For m < M, n < N: epi(m, n, sum_k A(m, k) B(k, n) + sum_k A2(m, k) B2(k, n))
-// with K2 = 0 for one product.  A thread owns 4 rows and 4 columns strided by
-// ceil(N / 4), so neighbouring threads read neighbouring columns; each sum is
-// taken in ascending k, one fused multiply-add at a time.
+// For m < M, n < N: epi(m, n, sum_k A(m, k) B(k, n)).  A thread owns 4 rows
+// and 4 columns strided by ceil(N / 4), so neighbouring threads read
+// neighbouring columns; each sum is taken in ascending k, one fused
+// multiply-add at a time.
 template <class Epi>
-__device__ void gemm(Mat A, Mat B, int K, Mat A2, Mat B2, int K2, int M, int N, Epi epi) {
+__device__ void gemm(Mat A, Mat B, int K, int M, int N, Epi epi) {
   const int cstride = (N + 3) / 4;
   const int items = ((M + 3) / 4) * cstride;
   for (int item = threadIdx.x; item < items; item += kThreads) {
@@ -109,17 +152,6 @@ __device__ void gemm(Mat A, Mat B, int K, Mat A2, Mat B2, int K2, int M, int N, 
       for (int r = 0; r < 4; ++r) a[r] = A.at(ms[r], k);
 #pragma unroll
       for (int j = 0; j < 4; ++j) b[j] = B.at(k, ns[j]);
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[r][j] = fmaf(a[r], b[j], acc[r][j]);
-    }
-    for (int k = 0; k < K2; ++k) {
-      float a[4], b[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) a[r] = A2.at(ms[r], k);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = B2.at(k, ns[j]);
 #pragma unroll
       for (int r = 0; r < 4; ++r)
 #pragma unroll
@@ -166,16 +198,15 @@ __device__ void load_rows(const float* __restrict__ src, int L, int D, float* ds
 // k, v and P of one sample whose x and Q are in the arena.
 __device__ void forward_sample(const Params& P, const Arena& a) {
   const int L = P.L, D = P.D;
-  const Mat none{nullptr, 0, 0};
   const Mat xs{a.x, a.ld, 1};
   float* ks = a.k;
   float* vs = a.v;
   const int ld = a.ld;
   const float* bk = P.bk;
   const float* bv = P.bv;
-  gemm(xs, Mat{P.wk, D, 1}, D, none, none, 0, L, D,
+  gemm(xs, Mat{P.wk, D, 1}, D, L, D,
        [&](int l, int c, float s) { ks[l * ld + c] = s + bk[c]; });
-  gemm(xs, Mat{P.wv, D, 1}, D, none, none, 0, L, D,
+  gemm(xs, Mat{P.wv, D, 1}, D, L, D,
        [&](int l, int c, float s) { vs[l * ld + c] = s + bv[c]; });
   __syncthreads();
   // scores and their softmax: a warp a row, two keys a lane
@@ -215,119 +246,513 @@ __global__ void __launch_bounds__(kThreads) global_attn_fwd_kernel(Params P, flo
   load_rows(P.q, L, D, a.q, a.ld);
   __syncthreads();
   forward_sample(P, a);
-  const Mat none{nullptr, 0, 0};
   float* out = y + n * L * D;
   const Dropout& dr = P.drop;
   const uint32_t key = sample_key(dr, (uint32_t)n);
   // ctx = P v, times the dropout factor
-  gemm(Mat{a.p, a.lp, 1}, Mat{a.v, a.ld, 1}, L, none, none, 0, L, D,
+  gemm(Mat{a.p, a.lp, 1}, Mat{a.v, a.ld, 1}, L, L, D,
        [&](int l, int c, float s) {
          out[l * D + c] = dr.on ? __fmul_rn(s, drop_factor(dr, key, (uint32_t)(l * D + c))) : s;
        });
 }
 
-// The per-block gradient slice: dWk [D, D], dbk [D], dWv [D, D], dbv [D],
-// dQ [L, D], in this order.
+// ---------------------------------------------------------------------------
+// The backward (K6b): see the header for its design.
+
+constexpr int kSlices = 264;          // gradient slices: 2 x 132, whatever the card
+constexpr int kGroupThreads = 256;    // the threads on one sample
+constexpr int kGroupWarps = kGroupThreads / 32;
+constexpr int kTw = 4;                // tile width of the L x D and D x D products
+constexpr size_t kMaxSmem = 232448;   // the shared memory a block may opt in to
+constexpr int kAuto = -1, kStreamed = 0, kResident = 1;  // variants
+
+__host__ __device__ constexpr int round4(int x) { return (x + 3) & ~3; }
+__host__ __device__ constexpr int round8(int x) { return (x + 7) & ~7; }
+
+// A row stride of an odd number of float4: eight consecutive rows read as
+// float4 at one column lie in eight different bank quads.
+__host__ __device__ constexpr int odd4(int x) { return (x / 4) % 2 ? x : x + 4; }
+
+// The per-slice gradient: dWk [D, D], dbk [D], dWv [D, D], dbv [D], dQ [L, D],
+// in this order.
 __host__ __device__ int64_t grad_floats(int L, int D) {
   return 2 * ((int64_t)D * D + D) + (int64_t)L * D;
+}
+
+// One group's sample buffers, floats: x, dctx (later dk), k, v (later dv)
+// [Lp][ld]; P, dP (later dS) [Lp][Lp]; and with dQ's sums in shared memory,
+// those [Lp][Dp].
+__host__ __device__ int sample_floats(int Lp, int Dp, int ld, bool dq_shared) {
+  return 4 * Lp * ld + 2 * Lp * Lp + (dq_shared ? Lp * Dp : 0);
+}
+
+// v[e][q] = element e's value at k + q (e < E): E rows `step` apart, k
+// contiguous (p[e * step + k + q]), one float4 a row.
+template <int E>
+__device__ __forceinline__ void load_kquad(const float* p, int step, int k, float (&v)[E][4]) {
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    const float4 t = *reinterpret_cast<const float4*>(p + e * step + k);
+    v[e][0] = t.x;
+    v[e][1] = t.y;
+    v[e][2] = t.z;
+    v[e][3] = t.w;
+  }
+}
+
+// v[e] = p[e] for e < E, as float4: a k-major operand's E elements of one k.
+template <int E>
+__device__ __forceinline__ void load_run(const float* p, float (&v)[E]) {
+#pragma unroll
+  for (int g = 0; g < E / 4; ++g) {
+    const float4 t = *reinterpret_cast<const float4*>(p + 4 * g);
+    v[4 * g] = t.x;
+    v[4 * g + 1] = t.y;
+    v[4 * g + 2] = t.z;
+    v[4 * g + 3] = t.w;
+  }
+}
+
+// Row or column e (< E) of tile t: E t + e for a k-major operand, t + e *
+// tiles for one with k contiguous.
+template <bool KMajor, int E>
+__device__ __forceinline__ int tile_index(int t, int e, int tiles) {
+  return KMajor ? E * t + e : t + e * tiles;
+}
+
+// acc[r][j] += sum over k < K of A(m_r, k) B(k, n_j), k ascending, one fused
+// multiply-add at a time; m_r = tile_index<AK, 4>(tm, r, mt), n_j =
+// tile_index<BK, C>(tn, j, nt).  A(m, k) is a[k * lda + m] when AK, else
+// a[m * lda + k]; B(k, n) is b[k * ldb + n] when BK, else b[n * ldb + k].
+// K, the strides and the pointers are multiples of 4 floats.  A thread reads
+// 4 + C floats for every 4 C multiply-adds: a k-major operand one k at a
+// time, one with k contiguous four k at a time (fewer live registers).
+template <bool AK, bool BK, int C>
+__device__ __forceinline__ void tile_fma(const float* a, int lda, const float* b, int ldb, int tm,
+                                         int tn, int mt, int nt, int K, float (&acc)[4][C]) {
+  const float* pa = AK ? a + 4 * tm : a + tm * lda;
+  const float* pb = BK ? b + C * tn : b + tn * ldb;
+  const int astep = mt * lda, bstep = nt * ldb;
+  for (int k = 0; k < K; k += 4) {
+    float ar[AK ? 1 : 4][4], br[BK ? 1 : C][4];
+    if (!AK) load_kquad<AK ? 1 : 4>(pa, astep, k, ar);
+    if (!BK) load_kquad<BK ? 1 : C>(pb, bstep, k, br);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      float av[4], bv[C];
+      if (AK) {
+        load_run<4>(pa + (k + q) * lda, av);
+      } else {
+#pragma unroll
+        for (int r = 0; r < 4; ++r) av[r] = ar[AK ? 0 : r][q];
+      }
+      if (BK) {
+        load_run<C>(pb + (k + q) * ldb, bv);
+      } else {
+#pragma unroll
+        for (int j = 0; j < C; ++j) bv[j] = br[BK ? 0 : j][q];
+      }
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int j = 0; j < C; ++j) acc[r][j] = fmaf(av[r], bv[j], acc[r][j]);
+    }
+  }
+}
+
+// p[0 .. C) <- row, as float4.
+template <int C>
+__device__ __forceinline__ void store_row(float* p, const float (&row)[C]) {
+#pragma unroll
+  for (int g = 0; g < C / 4; ++g)
+    *reinterpret_cast<float4*>(p + 4 * g) =
+        make_float4(row[4 * g], row[4 * g + 1], row[4 * g + 2], row[4 * g + 3]);
+}
+
+// Sum and maximum over the 8 lanes of a quarter-warp (all 32 lanes call).
+__device__ __forceinline__ float quarter_sum(float v) {
+#pragma unroll
+  for (int o = 4; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float quarter_max(float v) {
+#pragma unroll
+  for (int o = 4; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// dst [rows_p][ld] <- src [rows][cols], zero past rows and cols (up to cols_p).
+__device__ void load_padded(const float* __restrict__ src, int rows, int cols, float* dst,
+                            int rows_p, int cols_p, int ld, int tid, int threads) {
+  for (int i = tid; i < rows_p * cols_p; i += threads) {
+    const int r = i / cols_p, c = i % cols_p;
+    dst[r * ld + c] = r < rows && c < cols ? src[r * cols + c] : 0.0f;
+  }
+}
+
+// The barrier of group g alone (named barrier g + 1; 0 is __syncthreads).
+__device__ __forceinline__ void group_sync(int g) {
+  asm volatile("bar.sync %0, %1;" ::"r"(g + 1), "n"(kGroupThreads) : "memory");
+}
+
+// Tile (tm, tn) of item `slot` of a phase over a grid of mt x nt tiles: a
+// warp takes a block of 4 x 8 tiles, so that its float4 reads of an operand
+// at one k touch 4 or 8 rows (in different bank quads) or 8 neighbouring
+// quads of one row.  False for the slots past the grid's edge.
+__device__ __forceinline__ bool tile_at(int slot, int mt, int nt, int& tm, int& tn) {
+  const int blocks_n = (nt + 7) / 8, b = slot / 32, lane = slot % 32;
+  tm = 4 * (b / blocks_n) + lane / 8;
+  tn = 8 * (b % blocks_n) + lane % 8;
+  return tm < mt && tn < nt;
+}
+
+__host__ __device__ constexpr int tile_slots(int mt, int nt) {
+  return 32 * ((mt + 3) / 4) * ((nt + 7) / 8);
 }
 
 struct BwdParams {
   Params p;
   const float* dy;
   float* dx;
-  float* partials;
+  const float* wpad;  // streamed: Wk, Wv, Wk^T, Wv^T, each [Dp][Dp], zero-padded
+  float* partials;    // [slices][grad_floats]
   int64_t n;
-  int per_block;
+  int vec;            // D % 4 == 0 and x, dy 16-byte aligned: float4 reads
+  int slices;
+  int Lp, Dp, ld;
 };
 
-__global__ void __launch_bounds__(kThreads) global_attn_bwd_kernel(BwdParams B) {
-  extern __shared__ float smem[];
+// kGroups groups of kGroupThreads; kResident: Wk, Wv in shared memory, else
+// streamed from `wpad`; kWT: the dWk|dWv tile slots a thread owns; kQT: the
+// dQ tile slots it owns in registers, or 0 for dQ's sums in shared memory.
+template <int kGroups, bool kResident, int kWT, int kQT>
+__global__ void __launch_bounds__(kGroups * kGroupThreads, 1)
+    global_attn_bwd_kernel(BwdParams B) {
+  constexpr bool kDqShared = kQT == 0;
+  constexpr int kBlockThreads = kGroups * kGroupThreads;
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
   const Params& P = B.p;
-  const int L = P.L, D = P.D;
-  Arena a(smem, L, D);
-  // two more [L][D + 1] buffers (dctx, later dk; dv) and dP / dS [L][L + 1]
-  float* cbuf = a.p + L * a.lp;
-  float* dvbuf = cbuf + L * a.ld;
-  float* dps = dvbuf + L * a.ld;
-  const int ld = a.ld, lp = a.lp;
-  const Mat none{nullptr, 0, 0};
-  float* g = B.partials + (int64_t)blockIdx.x * grad_floats(L, D);
-  float* gwk = g;
-  float* gbk = gwk + D * D;
-  float* gwv = gbk + D;
-  float* gbv = gwv + D * D;
-  float* gq = gbv + D;
-  load_rows(P.q, L, D, a.q, ld);
-  const int64_t first = (int64_t)blockIdx.x * B.per_block;
-  const int64_t last = first + B.per_block < B.n ? first + B.per_block : B.n;
-  const Dropout& dr = P.drop;
-  for (int64_t n = first; n < last; ++n) {
-    const bool init = n == first;  // the first sample stores, the rest add
-    load_rows(P.x + n * L * D, L, D, a.x, ld);
-    const uint32_t key = sample_key(dr, (uint32_t)n);
-    const float* dy = B.dy + n * L * D;
-    for (int i = threadIdx.x; i < L * D; i += kThreads) {
-      const float d = dy[i];
-      cbuf[(i / D) * ld + i % D] = dr.on ? __fmul_rn(d, drop_factor(dr, key, (uint32_t)i)) : d;
-    }
-    __syncthreads();
-    forward_sample(P, a);  // k, v, P; ends with a barrier
-    // dv = P^T dctx and dP = dctx v^T
-    gemm(Mat{a.p, 1, lp}, Mat{cbuf, ld, 1}, L, none, none, 0, L, D,
-         [&](int j, int c, float s) { dvbuf[j * ld + c] = s; });
-    gemm(Mat{cbuf, ld, 1}, Mat{a.v, 1, ld}, D, none, none, 0, L, L,
-         [&](int l, int j, float s) { dps[l * lp + j] = s; });
-    __syncthreads();
-    // dS = P * (dP - rowsum(dP * P)), a warp a row
-    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-    for (int l = warp; l < L; l += kWarps) {
-      float t = 0.0f;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int j = lane + 32 * h;
-        if (j < L) t = fmaf(dps[l * lp + j], a.p[l * lp + j], t);
-      }
-      t = warp_sum(t);
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int j = lane + 32 * h;
-        if (j < L) dps[l * lp + j] = a.p[l * lp + j] * (dps[l * lp + j] - t);
-      }
-    }
-    __syncthreads();
-    // dQ += dS k; dk = dS^T Q (into the dctx buffer, dead since dP)
-    gemm(Mat{dps, lp, 1}, Mat{a.k, ld, 1}, L, none, none, 0, L, D,
-         [&](int l, int c, float s) {
-           float* e = gq + l * D + c;
-           *e = init ? s : *e + s;
-         });
-    gemm(Mat{dps, 1, lp}, Mat{a.q, ld, 1}, L, none, none, 0, L, D,
-         [&](int j, int c, float s) { cbuf[j * ld + c] = s; });
-    __syncthreads();
-    // dWk += x^T dk, dWv += x^T dv, the bias sums, dx = dk Wk^T + dv Wv^T
-    gemm(Mat{a.x, 1, ld}, Mat{cbuf, ld, 1}, L, none, none, 0, D, D,
-         [&](int i, int c, float s) {
-           float* e = gwk + i * D + c;
-           *e = init ? s : *e + s;
-         });
-    gemm(Mat{a.x, 1, ld}, Mat{dvbuf, ld, 1}, L, none, none, 0, D, D,
-         [&](int i, int c, float s) {
-           float* e = gwv + i * D + c;
-           *e = init ? s : *e + s;
-         });
-    for (int c = threadIdx.x; c < 2 * D; c += kThreads) {
-      const float* src = c < D ? cbuf + c : dvbuf + (c - D);
-      float s = 0.0f;
-      for (int l = 0; l < L; ++l) s += src[l * ld];
-      float* e = c < D ? gbk + c : gbv + (c - D);
-      *e = init ? s : *e + s;
-    }
-    float* dx = B.dx + n * L * D;
-    gemm(Mat{cbuf, ld, 1}, Mat{P.wk, 1, D}, D, Mat{dvbuf, ld, 1}, Mat{P.wv, 1, D}, D, L, D,
-         [&](int l, int i, float s) { dx[l * D + i] = s; });
-    __syncthreads();
+  const int L = P.L, D = P.D, Lp = B.Lp, Dp = B.Dp, ld = B.ld;
+  const int lt = Lp / 4, dt = Dp / 4, dw = Dp / kTw;  // tiles: 4 rows; 4 or kTw columns
+  const int gfloats = sample_floats(Lp, Dp, ld, kDqShared);
+  float* qs = smem;           // [Lp][ld]
+  float* wks = qs + Lp * ld;  // resident: [Dp][ld]
+  float* wvs = wks + Dp * ld;
+  float* groups = kResident ? wvs + Dp * ld : wks;
+  load_padded(P.q, L, D, qs, Lp, Dp, ld, threadIdx.x, kBlockThreads);
+  if (kResident) {
+    load_padded(P.wk, D, D, wks, Dp, Dp, ld, threadIdx.x, kBlockThreads);
+    load_padded(P.wv, D, D, wvs, Dp, Dp, ld, threadIdx.x, kBlockThreads);
   }
+  // x's and dctx's padding stays 0: each sample writes only its L x D values,
+  // and dk (which replaces dctx) is 0 past L and past D.  dQ's sums start at 0.
+  const int zeroed = 2 * Lp * ld + (kDqShared ? Lp * Dp : 0);
+  for (int i = threadIdx.x; i < kGroups * zeroed; i += kBlockThreads) {
+    const int gi = i / zeroed, e = i % zeroed;
+    groups[gi * gfloats + (e < 2 * Lp * ld ? e : e + 2 * Lp * ld + 2 * Lp * Lp)] = 0.0f;
+  }
+  __syncthreads();
+  // k = x W + b reads W k-major; dx = dk W^T + dv W^T reads W with k (its
+  // output axis) contiguous when resident, W^T k-major when streamed.
+  const float* wk = kResident ? wks : B.wpad;
+  const float* wv = kResident ? wvs : B.wpad + Dp * Dp;
+  const float* wkx = kResident ? wks : B.wpad + 2 * Dp * Dp;
+  const float* wvx = kResident ? wvs : B.wpad + 3 * Dp * Dp;
+  const int ldw = kResident ? ld : Dp;
+
+  const int g = threadIdx.x / kGroupThreads, t = threadIdx.x % kGroupThreads;
+  const int s = blockIdx.x * kGroups + g;
+  if (s >= B.slices) return;  // the whole group: no barrier of the block follows
+  float* xs = groups + g * gfloats;
+  float* cs = xs + Lp * ld;    // dctx, then dk
+  float* ks = cs + Lp * ld;
+  float* vs = ks + Lp * ld;    // v, then dv
+  float* ps = vs + Lp * ld;    // P
+  float* dps = ps + Lp * Lp;   // dP, then dS
+  float* qsum = dps + Lp * Lp;  // dQ's sums [Lp][Dp] when kDqShared
+  const int quarter = t / 8, ql = t % 8;  // a quarter-warp a row of scores
+  // slots of the phases: L x D and D x D products in 4 x kTw tiles, L x L
+  // products, dv and dx in 4 x 4 tiles
+  const int s_ldw = tile_slots(lt, dw), s_ll = tile_slots(lt, lt), s_ld4 = tile_slots(lt, dt),
+            s_w = tile_slots(dt, dw);
+
+  float gw[kWT][4][kTw];                  // the slice's dWk (slot < s_w) or dWv tiles
+  float gq[kDqShared ? 1 : kQT][4][kTw];  // dQ's, when held in registers
+  float gb = 0.0f;                         // an entry of [dbk | dbv]
+#pragma unroll
+  for (int i = 0; i < kWT; ++i)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int j = 0; j < kTw; ++j) gw[i][r][j] = 0.0f;
+#pragma unroll
+  for (int i = 0; i < (kDqShared ? 1 : kQT); ++i)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int j = 0; j < kTw; ++j) gq[i][r][j] = 0.0f;
+
+  const Dropout& dr = P.drop;
+  const int64_t first = s * B.n / B.slices, last = (s + 1) * B.n / B.slices;
+  for (int64_t n = first; n < last; ++n) {
+    // x and dctx = dy * drop, as float4 where x and dy allow it (one of
+    // each in flight a thread: more costs registers the products need)
+    const float* xg = P.x + n * L * D;
+    const float* dyg = B.dy + n * L * D;
+    const uint32_t key = sample_key(dr, (uint32_t)n);
+    if (B.vec) {
+      const int dq = D / 4, quads = L * dq;
+      for (int i = t; i < quads; i += kGroupThreads) {
+        const float4 xv = *reinterpret_cast<const float4*>(xg + 4 * i);
+        float4 d = *reinterpret_cast<const float4*>(dyg + 4 * i);
+        const int l = i / dq, c = 4 * (i % dq), e = 4 * i;
+        *reinterpret_cast<float4*>(xs + l * ld + c) = xv;
+        if (dr.on) {
+          d.x = __fmul_rn(d.x, drop_factor(dr, key, (uint32_t)e));
+          d.y = __fmul_rn(d.y, drop_factor(dr, key, (uint32_t)e + 1));
+          d.z = __fmul_rn(d.z, drop_factor(dr, key, (uint32_t)e + 2));
+          d.w = __fmul_rn(d.w, drop_factor(dr, key, (uint32_t)e + 3));
+        }
+        *reinterpret_cast<float4*>(cs + l * ld + c) = d;
+      }
+    } else {
+      for (int e = t; e < L * D; e += kGroupThreads) {
+        const int l = e / D, c = e % D;
+        const float d = dyg[e];
+        xs[l * ld + c] = xg[e];
+        cs[l * ld + c] = dr.on ? __fmul_rn(d, drop_factor(dr, key, (uint32_t)e)) : d;
+      }
+    }
+    group_sync(g);
+    // k = x Wk + bk, v = x Wv + bv; rows past L are 0
+    for (int slot = t; slot < 2 * s_ldw; slot += kGroupThreads) {
+      const bool is_v = slot >= s_ldw;
+      int tm, tn;
+      if (!tile_at(is_v ? slot - s_ldw : slot, lt, dw, tm, tn)) continue;
+      const float* bias = is_v ? P.bv : P.bk;
+      float* out = is_v ? vs : ks;
+      float acc[4][kTw] = {};
+      tile_fma<false, true, kTw>(xs, ld, is_v ? wv : wk, ldw, tm, tn, lt, dw, Dp, acc);
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int l = tm + r * lt;
+        float row[kTw];
+#pragma unroll
+        for (int j = 0; j < kTw; ++j) {
+          const int c = kTw * tn + j;
+          row[j] = l < L ? acc[r][j] + (c < D ? bias[c] : 0.0f) : 0.0f;
+        }
+        store_row<kTw>(out + l * ld + kTw * tn, row);
+      }
+    }
+    group_sync(g);
+    // scores Q k^T into P's buffer
+    for (int slot = t; slot < s_ll; slot += kGroupThreads) {
+      int tm, tn;
+      if (!tile_at(slot, lt, lt, tm, tn)) continue;
+      float acc[4][4] = {};
+      tile_fma<false, false, 4>(qs, ld, ks, ld, tm, tn, lt, lt, Dp, acc);
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) ps[(tm + r * lt) * Lp + tn + j * lt] = acc[r][j];
+    }
+    group_sync(g);
+    // P = softmax of each score row, a quarter-warp a row (8 keys a lane); 0
+    // past L.  A warp's four rows are all below Lp or all past it.
+    for (int l = quarter; l < Lp; l += 4 * kGroupWarps) {
+      float* row = ps + l * Lp;
+      const bool valid = l < L;
+      float sv[8];
+#pragma unroll
+      for (int h = 0; h < 8; ++h) {
+        const int j = ql + 8 * h;
+        sv[h] = valid && j < L ? row[j] : __int_as_float(0xff800000);  // -inf
+      }
+      float m = sv[0];
+#pragma unroll
+      for (int h = 1; h < 8; ++h) m = fmaxf(m, sv[h]);
+      m = quarter_max(valid ? m : 0.0f);
+      float e[8], sum = 0.0f;
+#pragma unroll
+      for (int h = 0; h < 8; ++h) {
+        e[h] = valid && ql + 8 * h < L ? expf(sv[h] - m) : 0.0f;
+        sum += e[h];
+      }
+      const float total = quarter_sum(sum);
+      const float inv = valid ? __frcp_rn(total) : 0.0f;
+#pragma unroll
+      for (int h = 0; h < 8; ++h)
+        if (ql + 8 * h < Lp) row[ql + 8 * h] = e[h] * inv;
+    }
+    group_sync(g);
+    // dP = dctx v^T
+    for (int slot = t; slot < s_ll; slot += kGroupThreads) {
+      int tm, tn;
+      if (!tile_at(slot, lt, lt, tm, tn)) continue;
+      float acc[4][4] = {};
+      tile_fma<false, false, 4>(cs, ld, vs, ld, tm, tn, lt, lt, Dp, acc);
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) dps[(tm + r * lt) * Lp + tn + j * lt] = acc[r][j];
+    }
+    group_sync(g);
+    // dv = P^T dctx into v's buffer (v is dead), and dS = P * (dP -
+    // rowsum(dP * P)) in place, a quarter-warp a row
+    for (int slot = t; slot < s_ld4; slot += kGroupThreads) {
+      int tm, tn;
+      if (!tile_at(slot, lt, dt, tm, tn)) continue;
+      float acc[4][4] = {};
+      tile_fma<true, true, 4>(ps, Lp, cs, ld, tm, tn, lt, dt, Lp, acc);
+#pragma unroll
+      for (int r = 0; r < 4; ++r) store_row<4>(vs + (4 * tm + r) * ld + 4 * tn, acc[r]);
+    }
+    for (int l = quarter; l < Lp; l += 4 * kGroupWarps) {
+      float* d = dps + l * Lp;
+      const float* p = ps + l * Lp;
+      float rs = 0.0f;
+#pragma unroll
+      for (int h = 0; h < 8; ++h) {
+        const int j = ql + 8 * h;
+        if (j < Lp) rs = fmaf(d[j], p[j], rs);
+      }
+      rs = quarter_sum(rs);
+#pragma unroll
+      for (int h = 0; h < 8; ++h) {
+        const int j = ql + 8 * h;
+        if (j < Lp) d[j] = p[j] * (d[j] - rs);
+      }
+    }
+    group_sync(g);
+    // dQ += dS k into the thread's own tiles (in shared memory or registers);
+    // dk = dS^T Q into dctx's buffer, dealt out from thread s_ldw on
+    if (kDqShared) {
+      for (int slot = t; slot < s_ldw; slot += kGroupThreads) {
+        int tm, tn;
+        if (!tile_at(slot, lt, dw, tm, tn)) continue;
+        float acc[4][kTw];
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+#pragma unroll
+          for (int j = 0; j < kTw; ++j) acc[r][j] = qsum[(tm + r * lt) * Dp + kTw * tn + j];
+        tile_fma<false, true, kTw>(dps, Lp, ks, ld, tm, tn, lt, dw, Lp, acc);
+#pragma unroll
+        for (int r = 0; r < 4; ++r) store_row<kTw>(qsum + (tm + r * lt) * Dp + kTw * tn, acc[r]);
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < (kDqShared ? 1 : kQT); ++i) {
+        int tm, tn;
+        if (tile_at(t + i * kGroupThreads, lt, dw, tm, tn))
+          tile_fma<false, true, kTw>(dps, Lp, ks, ld, tm, tn, lt, dw, Lp, gq[i]);
+      }
+    }
+    for (int slot = (t + kGroupThreads - s_ldw % kGroupThreads) % kGroupThreads; slot < s_ldw;
+         slot += kGroupThreads) {
+      int tm, tn;
+      if (!tile_at(slot, lt, dw, tm, tn)) continue;
+      float acc[4][kTw] = {};
+      tile_fma<true, true, kTw>(dps, Lp, qs, ld, tm, tn, lt, dw, Lp, acc);
+#pragma unroll
+      for (int r = 0; r < 4; ++r) store_row<kTw>(cs + (4 * tm + r) * ld + kTw * tn, acc[r]);
+    }
+    group_sync(g);
+    // dWk += x^T dk or dWv += x^T dv into the thread's own tiles, the bias
+    // sums into its own entry of [dbk | dbv], and dx = dk Wk^T + dv Wv^T
+#pragma unroll
+    for (int i = 0; i < kWT; ++i) {
+      const int w = t + i * kGroupThreads;
+      const bool is_v = w >= s_w;
+      int tm, tn;
+      if (w < 2 * s_w && tile_at(is_v ? w - s_w : w, dt, dw, tm, tn))
+        tile_fma<true, true, kTw>(xs, ld, is_v ? vs : cs, ld, tm, tn, dt, dw, Lp, gw[i]);
+    }
+    if (t < 2 * Dp) {
+      const float* col = t < Dp ? cs + t : vs + (t - Dp);
+      for (int l = 0; l < Lp; ++l) gb += col[l * ld];
+    }
+    float* dxg = B.dx + n * L * D;
+    for (int slot = t; slot < s_ld4; slot += kGroupThreads) {
+      int tm, tn;
+      if (!tile_at(slot, lt, dt, tm, tn)) continue;
+      float acc[4][4] = {};
+      tile_fma<false, !kResident, 4>(cs, ld, wkx, ldw, tm, tn, lt, dt, Dp, acc);
+      tile_fma<false, !kResident, 4>(vs, ld, wvx, ldw, tm, tn, lt, dt, Dp, acc);
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int l = tm + r * lt;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int i = tile_index<!kResident, 4>(tn, j, dt);
+          if (l < L && i < D) dxg[l * D + i] = acc[r][j];
+        }
+      }
+    }
+    group_sync(g);  // the next sample overwrites x, dk and dv
+  }
+
+  // the slice, written once
+  float* out = B.partials + (int64_t)s * grad_floats(L, D);
+  float* owk = out;
+  float* obk = owk + D * D;
+  float* owv = obk + D;
+  float* obv = owv + D * D;
+  float* oq = obv + D;
+#pragma unroll
+  for (int i = 0; i < kWT; ++i) {
+    const int w = t + i * kGroupThreads;
+    const bool is_v = w >= s_w;
+    int tm, tn;
+    if (w >= 2 * s_w || !tile_at(is_v ? w - s_w : w, dt, dw, tm, tn)) continue;
+    float* o = is_v ? owv : owk;
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int j = 0; j < kTw; ++j) {
+        const int row = 4 * tm + r, c = kTw * tn + j;
+        if (row < D && c < D) o[row * D + c] = gw[i][r][j];
+      }
+  }
+  if (kDqShared) {
+    for (int e = t; e < L * D; e += kGroupThreads) oq[e] = qsum[(e / D) * Dp + e % D];
+  } else {
+#pragma unroll
+    for (int i = 0; i < (kDqShared ? 1 : kQT); ++i) {
+      int tm, tn;
+      if (!tile_at(t + i * kGroupThreads, lt, dw, tm, tn)) continue;
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int j = 0; j < kTw; ++j) {
+          const int l = tm + r * lt, c = kTw * tn + j;
+          if (l < L && c < D) oq[l * D + c] = gq[i][r][j];
+        }
+    }
+  }
+  if (t < 2 * Dp) {
+    const int c = t < Dp ? t : t - Dp;
+    if (c < D) (t < Dp ? obk : obv)[c] = gb;
+  }
+}
+
+// out: Wk, Wv, Wk^T, Wv^T, each [Dp][Dp] with zeros past D; a 32 x 32 tile a
+// block, read and written along rows.
+__global__ void pad_weights_kernel(const float* __restrict__ wk, const float* __restrict__ wv,
+                                   int D, int Dp, float* __restrict__ out) {
+  __shared__ float tile[32][33];
+  const float* w = blockIdx.z ? wv : wk;
+  float* wp = out + (size_t)blockIdx.z * Dp * Dp;
+  float* wt = out + (size_t)(2 + blockIdx.z) * Dp * Dp;
+  const int r = blockIdx.y * 32 + threadIdx.y, c = blockIdx.x * 32 + threadIdx.x;
+  const float v = r < D && c < D ? w[r * D + c] : 0.0f;
+  if (r < Dp && c < Dp) wp[r * Dp + c] = v;
+  tile[threadIdx.y][threadIdx.x] = v;
+  __syncthreads();
+  const int tr = blockIdx.x * 32 + threadIdx.y, tc = blockIdx.y * 32 + threadIdx.x;
+  if (tr < Dp && tc < Dp) wt[tr * Dp + tc] = tile[threadIdx.x][threadIdx.y];
 }
 
 bool shape_ok(long long n, int L, int D) {
@@ -338,13 +763,43 @@ size_t fwd_smem(int L, int D) {
   return sizeof(float) * ((size_t)4 * L * (D + 1) + (size_t)L * (L + 1));
 }
 
-size_t bwd_smem(int L, int D) {
-  return sizeof(float) * ((size_t)6 * L * (D + 1) + (size_t)2 * L * (L + 1));
+// The backward's launch at one shape: the variant, its shared memory, slices
+// and blocks.
+struct BwdPlan {
+  bool ok, resident;
+  int Lp, Dp, ld, slices, blocks;
+  size_t smem;
+  int64_t wpad_words;  // the streamed variant's padded weights, at the workspace's start
+};
+
+BwdPlan bwd_plan(long long n, int L, int D, int variant) {
+  BwdPlan b{};
+  b.Lp = round4(L);
+  b.Dp = round8(D);
+  b.ld = odd4(b.Dp);
+  const size_t q = (size_t)b.Lp * b.ld;
+  const size_t resident_bytes =
+      sizeof(float) * (q + (size_t)2 * b.Dp * b.ld + 2 * sample_floats(b.Lp, b.Dp, b.ld, true));
+  const bool fits = b.Dp <= 64 && resident_bytes <= kMaxSmem;
+  b.resident = variant == kAuto ? fits : variant == kResident;
+  b.ok = shape_ok(n, L, D) && (variant == kAuto || variant == kStreamed || fits);
+  b.smem = b.resident ? resident_bytes
+                      : sizeof(float) * (q + sample_floats(b.Lp, b.Dp, b.ld, false));
+  b.slices = (int)(n < kSlices ? n : kSlices);
+  b.blocks = b.resident ? (b.slices + 1) / 2 : b.slices;
+  b.wpad_words = b.resident ? 0 : (int64_t)4 * b.Dp * b.Dp;
+  return b;
 }
 
-int bwd_blocks(long long n, int* per_block) {
-  *per_block = (int)((n + kMaxBwdBlocks - 1) / kMaxBwdBlocks);
-  return (int)((n + *per_block - 1) / *per_block);
+template <int kGroups, bool kResident, int kWT, int kQT>
+cudaError_t launch_bwd(const BwdParams& B, const BwdPlan& plan, cudaStream_t st) {
+  static size_t opted[rp::kMaxDevices] = {};
+  const void* fn = (const void*)global_attn_bwd_kernel<kGroups, kResident, kWT, kQT>;
+  cudaError_t err = rp::opt_in(fn, plan.smem, opted);
+  if (err != cudaSuccess) return err;
+  global_attn_bwd_kernel<kGroups, kResident, kWT, kQT>
+      <<<(unsigned)plan.blocks, kGroups * kGroupThreads, plan.smem, st>>>(B);
+  return cudaGetLastError();
 }
 
 Params make_params(const void* x, const void* wk, const void* bk, const void* wv,
@@ -385,44 +840,56 @@ extern "C" int rp_global_attn_fwd_f32(const void* x, const void* wk, const void*
   return (int)cudaGetLastError();
 }
 
-// 4-byte words of workspace rp_global_attn_bwd_f32 needs: the blocks'
-// gradient slices.
-extern "C" long long rp_global_attn_bwd_workspace_words(long long n, int L, int D) {
-  if (n <= 0) return 0;
-  int per_block = 0;
-  return (long long)bwd_blocks(n, &per_block) * grad_floats(L, D);
+// 4-byte words of workspace rp_global_attn_bwd_f32 needs for `variant`: the
+// streamed variant's padded weights, then the slices' gradients.  0 for a
+// shape or variant it does not take.
+extern "C" long long rp_global_attn_bwd_workspace_words(long long n, int L, int D, int variant) {
+  const BwdPlan plan = bwd_plan(n, L, D, variant);
+  if (!plan.ok) return 0;
+  return plan.wpad_words + (long long)plan.slices * grad_floats(L, D);
 }
 
 // The backward: the forward's inputs and dropout arguments, dy [n, L, D];
 // writes dx [n, L, D] and, to grads, dWk [D, D], dbk [D], dWv [D, D], dbv [D]
-// and dQ [L, D] concatenated in this order.  workspace: at least
-// rp_global_attn_bwd_workspace_words 4-byte words.  Returns
-// cudaGetLastError() after the launches (0 = launched).
+// and dQ [L, D] concatenated in this order.  variant: -1 picks from the
+// shape's shared memory, 1 keeps the weights in shared memory (where they
+// fit), 0 streams them.  workspace: at least rp_global_attn_bwd_workspace_words
+// 4-byte words.  Returns cudaGetLastError() after the launches (0 =
+// launched).
 extern "C" int rp_global_attn_bwd_f32(const void* x, const void* wk, const void* bk,
                                       const void* wv, const void* bv, const void* q,
                                       const void* dy, void* dx, void* grads, void* workspace,
                                       long long workspace_words, long long n, int L, int D,
                                       unsigned seed, unsigned stream, unsigned threshold,
-                                      float scale, int drop_on, void* stream_ptr) {
-  if (!shape_ok(n, L, D) || workspace_words < rp_global_attn_bwd_workspace_words(n, L, D))
+                                      float scale, int drop_on, int variant, void* stream_ptr) {
+  const BwdPlan plan = bwd_plan(n, L, D, variant);
+  if (!plan.ok || workspace_words < rp_global_attn_bwd_workspace_words(n, L, D, variant))
     return (int)cudaErrorInvalidValue;
-  const size_t bytes = bwd_smem(L, D);
-  static size_t opted[rp::kMaxDevices] = {};
-  cudaError_t err = rp::opt_in((const void*)global_attn_bwd_kernel, bytes, opted);
-  if (err != cudaSuccess) return (int)err;
-  int per_block = 0;
-  const int blocks = bwd_blocks(n, &per_block);
+  cudaStream_t st = static_cast<cudaStream_t>(stream_ptr);
   BwdParams B;
   B.p = make_params(x, wk, bk, wv, bv, q, L, D, seed, stream, threshold, scale, drop_on);
   B.dy = static_cast<const float*>(dy);
   B.dx = static_cast<float*>(dx);
-  B.partials = static_cast<float*>(workspace);
+  B.wpad = static_cast<const float*>(workspace);
+  B.partials = static_cast<float*>(workspace) + plan.wpad_words;
   B.n = n;
-  B.per_block = per_block;
-  cudaStream_t st = static_cast<cudaStream_t>(stream_ptr);
-  global_attn_bwd_kernel<<<(unsigned)blocks, kThreads, bytes, st>>>(B);
-  err = cudaGetLastError();
+  B.vec = D % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+          reinterpret_cast<uintptr_t>(dy) % 16 == 0;
+  B.slices = plan.slices;
+  B.Lp = plan.Lp;
+  B.Dp = plan.Dp;
+  B.ld = plan.ld;
+  cudaError_t err;
+  if (plan.resident) {
+    err = launch_bwd<2, true, 8 / kTw, 0>(B, plan, st);
+  } else {
+    const unsigned tiles = (unsigned)(plan.Dp + 31) / 32;
+    pad_weights_kernel<<<dim3(tiles, tiles, 2), dim3(32, 32), 0, st>>>(
+        B.p.wk, B.p.wv, D, plan.Dp, static_cast<float*>(workspace));
+    err = cudaGetLastError();
+    if (err == cudaSuccess) err = launch_bwd<1, false, 32 / kTw, 8 / kTw>(B, plan, st);
+  }
   if (err != cudaSuccess) return (int)err;
-  return (int)rp::sum_slices(B.partials, blocks, grad_floats(L, D), static_cast<float*>(grads),
+  return (int)rp::sum_slices(B.partials, plan.slices, grad_floats(L, D), static_cast<float*>(grads),
                              st);
 }

@@ -10,14 +10,18 @@ bv [D], q_s [L, D])`` (flax ``[in, out]`` kernels)::
 with no ``1/sqrt(D)`` scale and, as in the reference, no padding mask: a
 padded position is attended like a real one.
 
-The CUDA kernels (``rec_pangu_tpu_torch/csrc/global_attn.cu``) give each
-sample a thread block that keeps x, q_s, k, v and the ``[L, L]``
-probabilities in shared memory; the backward recomputes a sample's forward
-and sums the parameter gradients in per-block slices added in a fixed order
-(no atomics: the same bits every run).  Bound: operations, 1,459,200 FLOP a
-sample forward at L=50, D=64.  The wrapper launches them for CUDA tensors and
-raises if it cannot (a shape outside ``MAX_L``/``MAX_D`` is a ``ValueError``);
-the plain version below serves tensors on the CPU.
+The CUDA kernels (``rec_pangu_tpu_torch/csrc/global_attn.cu``): the forward
+gives each sample a thread block that keeps x, q_s, k, v and the ``[L, L]``
+probabilities in shared memory.  The backward keeps q_s and, where they fit
+(IOCRec's L=50, D=64), wk and wv in shared memory for a block's whole run of
+samples; two groups of 256 threads each recompute a sample's forward, run
+its products in 4 x 4 register tiles and add the parameter gradients to sums
+held in registers, written once per group into 264 slices that a second
+launch adds in order (no atomics: the same bits every run).  Bound:
+operations, 1,459,200 FLOP a sample forward and 4,057,600 backward at L=50,
+D=64.  The wrapper launches them for CUDA tensors and raises if it cannot (a
+shape outside ``MAX_L``/``MAX_D`` is a ``ValueError``); the plain version
+below serves tensors on the CPU.
 
 Dropout (training) multiplies the output by the fused encoder's hash masks
 (``fused_encoder.dropout_scale``) at layer ``DROPOUT_LAYER``, site
@@ -28,7 +32,7 @@ sites draw others.
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 
@@ -38,7 +42,7 @@ LAUNCHES = 0
 BACKWARD_LAUNCHES = 0
 
 MAX_L = 64    # a warp holds one row of scores, two keys a lane
-MAX_D = 128   # the backward's eight buffers stay within a block's shared memory
+MAX_D = 128   # the backward's buffers stay within a block's shared memory
 PARAM_NAMES = ("wk", "bk", "wv", "bv", "q_s")
 # dropout streams of IOCRec's own sites, above every transformer layer's
 DROPOUT_LAYER = 256
@@ -105,10 +109,10 @@ def _functions():
         bwd = lib.rp_global_attn_bwd_f32
         bwd.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_longlong] * 2
                         + [ctypes.c_int, ctypes.c_int] + [ctypes.c_uint] * 3
-                        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+                        + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
         bwd.restype = ctypes.c_int
         words = lib.rp_global_attn_bwd_workspace_words
-        words.argtypes = [ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
+        words.argtypes = [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int]
         words.restype = ctypes.c_longlong
         _FWD_FN = fwd
         _BWD_FN = bwd, words
@@ -148,8 +152,11 @@ def launch_forward(x: torch.Tensor, params: Sequence[torch.Tensor], rate: float,
 
 
 def launch_backward(x: torch.Tensor, params: Sequence[torch.Tensor], dy: torch.Tensor,
-                    rate: float, seed: int):
-    """K6b on CUDA inputs: (dx [N, L, D], the 5 params' gradients)."""
+                    rate: float, seed: int, resident: Optional[bool] = None):
+    """K6b on CUDA inputs: (dx [N, L, D], the 5 params' gradients).
+    ``resident`` picks the kernel's variant: wk and wv kept in shared memory
+    (True, where they fit) or streamed from device memory (False); None lets
+    the kernel pick from the shape, as training does."""
     global BACKWARD_LAUNCHES
     N, L, D = _checked(x, params)
     dy = dy.to(torch.float32).contiguous()
@@ -159,12 +166,17 @@ def launch_backward(x: torch.Tensor, params: Sequence[torch.Tensor], dy: torch.T
         grads.zero_()
     else:
         _, (bwd, words) = _functions()
-        work = torch.empty(words(N, L, D), dtype=torch.float32, device=x.device)
+        variant = -1 if resident is None else int(resident)
+        need = words(N, L, D, variant)
+        if need == 0:
+            raise ValueError(f"the global attention backward cannot keep the weights in "
+                             f"shared memory at L={L}, D={D}")
+        work = torch.empty(need, dtype=torch.float32, device=x.device)
         with torch.cuda.device(x.device):
             stream = torch.cuda.current_stream(x.device).cuda_stream
             err = bwd(x.data_ptr(), *(t.data_ptr() for t in params), dy.data_ptr(),
                       dx.data_ptr(), grads.data_ptr(), work.data_ptr(), work.numel(), N, L, D,
-                      *_dropout_args(seed, rate), stream)
+                      *_dropout_args(seed, rate), variant, stream)
         if err != 0:
             raise RuntimeError(f"global_attn backward kernel launch failed: CUDA error {err}")
         BACKWARD_LAUNCHES += 1

@@ -11,7 +11,10 @@ entry (at least 1e-5).  The key bias has an exact gradient of 0 (a softmax
 does not change when a row of scores moves by one constant): both sides
 hold rounding noise there (seen: 1.9e-6), held within 1e-5 of 0.  The dropout masks
 are the fused encoder's hash on a stream of their own.  The CUDA kernels
-run only on the card (``chip_smoke.py``).
+run only on the card (``chip_smoke.py``).  The comparison with the Pallas
+kernels runs at the shapes the card checks K6b at, beside the small one: odd
+sizes (N=7, L=13, D=24) and the largest the kernels take (L=64, D=128), each
+with a tile of samples that divides N.
 """
 import jax
 import jax.numpy as jnp
@@ -30,24 +33,28 @@ N, L, D = 8, 10, 16
 NAMES = ("dx", "wk", "bk", "wv", "bv", "q_s")
 
 
-def _inputs(seed):
+def _inputs(seed, n=N, length=L, dim=D):
     rng = np.random.default_rng(seed)
-    x = rng.standard_normal((N, L, D)).astype(np.float32)
-    co = rng.standard_normal((N, L, D)).astype(np.float32)
+    x = rng.standard_normal((n, length, dim)).astype(np.float32)
+    co = rng.standard_normal((n, length, dim)).astype(np.float32)
     return x, co
 
 
-@pytest.fixture(scope="module")
-def flax_params():
-    enc = JaxGlobalSeqEncoder(max_len=L, dropout=0.5)
-    x, _ = _inputs(0)
+def _make_flax_params(length=L, dim=D):
+    enc = JaxGlobalSeqEncoder(max_len=length, dropout=0.5)
+    x, _ = _inputs(0, 2, length, dim)
     params = enc.init({"params": jax.random.PRNGKey(3)}, jnp.asarray(x), False)["params"]
     params = jax.tree_util.tree_map(np.asarray, params)
     # nonzero biases, so that every term counts
     rng = np.random.default_rng(9)
     for name in ("K_linear", "V_linear"):
-        params[name]["bias"] = (rng.standard_normal(D) * 0.1).astype(np.float32)
+        params[name]["bias"] = (rng.standard_normal(dim) * 0.1).astype(np.float32)
     return params
+
+
+@pytest.fixture(scope="module")
+def flax_params():
+    return _make_flax_params()
 
 
 def _packed(p):
@@ -73,19 +80,21 @@ def _assert_close(got, want, names):
         np.testing.assert_allclose(a, b, rtol=1e-5, atol=atol, err_msg=name)
 
 
-def test_matches_jax_kernels_interpret(flax_params):
-    x, co = _inputs(1)
-    params = tuple(jnp.asarray(a) for a in _packed(flax_params))
+@pytest.mark.parametrize("n,length,dim,tb", [(N, L, D, 4), (7, 13, 24, 7), (3, 64, 128, 3)])
+def test_matches_jax_kernels_interpret(n, length, dim, tb):
+    flax_p = _make_flax_params(length, dim)
+    x, co = _inputs(1, n, length, dim)
+    params = tuple(jnp.asarray(a) for a in _packed(flax_p))
 
     def run(xx, p):
-        return jax_global_attn(xx, p, jnp.int32(0), 0.0, False, 4, True)
+        return jax_global_attn(xx, p, jnp.int32(0), 0.0, False, tb, True)
 
     def loss(xx, p):
         return jnp.vdot(run(xx, p), jnp.asarray(co))
 
     want_y = np.asarray(run(jnp.asarray(x), params))
     g_x, g_p = jax.grad(loss, argnums=(0, 1))(jnp.asarray(x), params)
-    y, grads = _port_grads(x, co, _packed(flax_params))
+    y, grads = _port_grads(x, co, _packed(flax_p))
     np.testing.assert_allclose(y, want_y, rtol=1e-5, atol=1e-5)
     _assert_close(grads, [g_x] + list(g_p), NAMES)
 
