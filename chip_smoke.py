@@ -2052,6 +2052,19 @@ def check_global_attn(x, params, rate: float, what: str) -> dict:
     return {"case": what, "dropout": rate, **errs}
 
 
+def check_ga_forward(x, params, rate: float, resident, what: str) -> dict:
+    """K6f's variant ``resident`` (launch_forward) against the plain version
+    with the same dropout masks, run twice for the same bits."""
+    got = gattn.launch_forward(x, params, rate, 7, resident=resident)
+    require_equal(got, gattn.launch_forward(x, params, rate, 7, resident=resident),
+                  f"{what}, y, run twice")
+    with torch.no_grad():
+        err = (got - gattn.global_attn_reference(x, params, True, rate, 7)).abs().max().item()
+    if not bool(torch.isfinite(got).all()) or err > GA_ATOL:
+        raise RuntimeError(f"{what}: the global attention forward differs from plain by {err}")
+    return {"case": what, "y_abs": err}
+
+
 def check_ga_backward(x, params, dy, rate: float, resident, what: str) -> dict:
     """K6b's variant ``resident`` (launch_backward) against the plain
     version's autograd, run twice for the same bits."""
@@ -2110,10 +2123,11 @@ def phase_global_attn(bandwidth: float, fp32: float) -> tuple:
     """K6f and K6b against the plain version's forward and autograd at the
     training shape (3072 views of 50 x 64) and the serving shape (1024),
     dropout 0 and 0.5, and at edge shapes (N=1, L=1, L=64 with D=128, odd
-    sizes); K6b alone at the edges of its partition (GA_SLICES - 1, GA_SLICES,
-    GA_SLICES + 1 and 2 GA_SLICES + 1 views) and with its weights streamed
-    from device memory beside the resident variant at the training shape;
-    times of the kernels, the plain version and F.linear twice plus
+    sizes); K6f and K6b alone at the edges of their partitions (G - 1, G,
+    G + 1 and 2 G + 1 views; G the forward's groups on this card, GA_SLICES
+    the backward's slices) and with their weights streamed from device
+    memory beside the resident variants at the training shape; times of the
+    kernels, the plain version and F.linear twice plus
     scaled_dot_product_attention (scale 1).  Returns the two kernel rows."""
     t_start = time.perf_counter()
     dev = torch.device("cuda")
@@ -2130,6 +2144,15 @@ def phase_global_attn(bandwidth: float, fp32: float) -> tuple:
     for n, length, dim in ((1, SEQ_L, SEQ_DIM), (5, 1, SEQ_DIM), (3, 64, 128), (7, 13, 24)):
         cases.append(check_global_attn(x_of(n, length, dim), ga_params(dim, length, gen),
                                        IOC_DROP, f"N={n} L={length} D={dim}"))
+    groups = gattn.forward_groups(IOC_VIEWS, SEQ_L, SEQ_DIM)
+    fwd_cases = [check_ga_forward(x[:n], params, IOC_DROP, None, f"K6f N={n}")
+                 for n in (groups - 1, groups, groups + 1, 2 * groups + 1)]
+    fwd_cases += [check_ga_forward(x, params, IOC_DROP, resident,
+                                   f"K6f training shape, resident={resident}")
+                  for resident in (True, False)]
+    require_equal(gattn.launch_forward(x, params, IOC_DROP, 7, resident=True),
+                  gattn.launch_forward(x, params, IOC_DROP, 7, resident=False),
+                  "K6f, resident and streamed variants")
     dy = torch.randn(x.shape, generator=gen, device=dev)
     bwd_cases = [check_ga_backward(x[:n], params, dy[:n], IOC_DROP, None, f"K6b N={n}")
                  for n in (GA_SLICES - 1, GA_SLICES, GA_SLICES + 1, 2 * GA_SLICES + 1)]
@@ -2152,8 +2175,16 @@ def phase_global_attn(bandwidth: float, fp32: float) -> tuple:
         raise RuntimeError(f"the library's attention differs from K6f by {lib_err}")
 
     serving = x[:SEQ_BATCH]
+
+    def library_serving():
+        with torch.no_grad():
+            ga_library(serving, params)
+
     t = {"fwd": median_ms([lambda: gattn.launch_forward(x, params, IOC_DROP, 7)]),
+         "fwd_streamed": median_ms(
+             [lambda: gattn.launch_forward(x, params, IOC_DROP, 7, resident=False)]),
          "fwd_serving": median_ms([lambda: gattn.launch_forward(serving, params, 0.0, 0)]),
+         "library_fwd_serving": median_ms([library_serving]),
          "bwd": median_ms([lambda: gattn.launch_backward(x, params, dy, IOC_DROP, 7)]),
          "bwd_streamed": median_ms(
              [lambda: gattn.launch_backward(x, params, dy, IOC_DROP, 7, resident=False)]),
@@ -2177,13 +2208,15 @@ def phase_global_attn(bandwidth: float, fp32: float) -> tuple:
             "flop": work, "bytes": moved, "ops_bound_ms": by_ops, "bytes_bound_ms": by_bytes})
     fwd_row, bwd_row = rows
     fwd_row.update({
-        "max_abs_err": max(c["y_abs"] for c in cases),
+        "max_abs_err": max(c["y_abs"] for c in cases + fwd_cases),
         "tolerance": f"y within atol {GA_ATOL} of the plain version, dropout masks equal",
-        "ms_serving": t["fwd_serving"],
+        "bound_share": fwd_row["bound_ms"] / t["fwd"], "library_share": t["library_fwd"] / t["fwd"],
+        "ms_streamed": t["fwd_streamed"], "groups": groups,
+        "ms_serving": t["fwd_serving"], "library_ms_serving": t["library_fwd_serving"],
         "bound_ms_serving": ga_work(SEQ_BATCH, SEQ_L, SEQ_DIM) / fp32 * 1e3,
         "library": "F.linear x2 + F.scaled_dot_product_attention(Q_s.expand(N, 1, L, D), k, v, "
                    "scale=1.0), no dropout", "library_max_abs_err": lib_err,
-        "keep_share": keep_share, "seed_changes_masks": seed_changes,
+        "keep_share": keep_share, "seed_changes_masks": seed_changes, "cases": fwd_cases,
         "shape": {"N": IOC_VIEWS, "L": SEQ_L, "D": SEQ_DIM, "dropout": IOC_DROP}})
     grad_names = ("dx",) + gattn.PARAM_NAMES
     bwd_row.update({

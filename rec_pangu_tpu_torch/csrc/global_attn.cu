@@ -11,12 +11,7 @@
 // global_attn.py, _fwd_kernel and _bwd_kernel (reached through _call and the
 // global_attn custom VJP).  That kernel scores a tile of TB samples as one
 // [TB*L, TB*L] block-diagonal matrix and expands Q by a one-hot product, to
-// feed the TPU's matrix unit.  None of that carries over.  Here the forward
-// gives each sample one thread block that holds x, Q, k, v and P in shared
-// memory (62 KB at L=50, D=64); only x and y cross device memory, and the
-// weights (32 KB) come from L2.  The products use 4 x 4 register tiles whose
-// columns are strided so that neighbouring threads read neighbouring words;
-// a warp owns a row of scores (L <= 64: two keys a lane).
+// feed the TPU's matrix unit.  None of that carries over.
 //
 // Dropout draws the fused encoder's counter hash (csrc/kernel_common.cuh and
 // ops/kernels/fused_encoder.dropout_scale): element (l, c) of sample n is kept
@@ -24,33 +19,45 @@
 // 0x9e3779b9) ^ n) ^ stream), with `stream` chosen by the caller apart from
 // the encoder's 3 * layer + site.  The backward draws the same masks again.
 //
-// Bound of the forward: operations.  1,459,200 FLOP a sample at L=50, D=64
-// (4.48 GFLOP at N=3072) against 78 MB of x and y.  f32 on CUDA cores.
-//
 // The backward (K6b) recomputes each sample's k, v and P from x and then
 //   dctx = dy * drop, dv = P^T dctx, dP = dctx v^T,
 //   dS = P * (dP - rowsum(dP * P)),
 //   dQ += dS k, dk = dS^T Q,
 //   dWk += x^T dk, dbk += colsum(dk), dWv += x^T dv, dbv += colsum(dv),
 //   dx = dk Wk^T + dv Wv^T.
-// Its bound is operations too: 12 L D^2 + 10 L^2 D FLOP a sample (4.06
-// MFLOP at L=50, D=64; 12.5 GFLOP, 0.186 ms at 67 TFLOP/s for N=3072)
-// against 3 x 12.8 KB of x, dy and dx.
+// Bounds: operations in both directions, f32 on CUDA cores.  The forward does
+// 4 L D^2 + 4 L^2 D FLOP a sample (1,459,200 at L=50, D=64; 4.48 GFLOP, 0.067
+// ms at 67 TFLOP/s for N=3072) against 2 x 12.8 KB of x and y; the backward
+// 12 L D^2 + 10 L^2 D (4.06 MFLOP; 12.5 GFLOP, 0.186 ms) against 3 x 12.8 KB
+// of x, dy and dx.
 //
-// Design (it replaced one sample a block of 256 threads with the weights
-// read from L2 inside the product loops, scalar shared-memory operands and a
-// read-modify-write of the block's gradient slice in device memory after
-// every sample; 1.76 ms at IOCRec's shape, now 0.60 ms on an H100 SXM):
-// - Groups.  256 threads take one sample at a time.  Where a shape's buffers
-//   fit twice (IOCRec's L=50, D=64), a block of 512 threads runs two groups,
-//   each on its own sample with named barriers of its own: 16 warps an SM.
+// Design, both directions.  Each replaced a block of 256 threads a sample
+// that read the weights from L2 inside its product loops and took scalar
+// shared-memory operands: on an H100 80GB HBM3 at 700 W, at IOCRec's shape,
+// the backward (which also wrote its gradient slice to device memory after
+// every sample) went from 1.76 to 0.60 ms, the forward from 0.435 to 0.235
+// ms (3072 samples, dropout 0.5; 0.077 ms at 1024 without).
+// - Groups.  A group of 256 threads takes one sample at a time, with a named
+//   barrier of its own; a block runs several groups over one copy of Q (and
+//   of Wk and Wv where they fit).  The forward's blocks hold as many groups
+//   as fit, up to four (kFwdGroups; four at IOCRec's shape, 32 warps an SM),
+//   with min(SMs, ceil(N / groups)) blocks: group j of the G in all takes
+//   samples [j N / G, (j + 1) N / G).  The backward's blocks hold two groups
+//   at IOCRec's shape, over 264 gradient slices (below).
 // - Resident weights.  That variant loads Q, Wk and Wv into shared memory
-//   once a block; a sample's only device-memory traffic is its x, dy and dx.
-//   The recompute (x W) reads W along its rows k-major; dx (dk W^T) reads W
-//   along its rows too, as dot products.  Other shapes (Dp > 64, or L=64 at
-//   D=64) run the streamed variant: one group a block, W and W^T read as
-//   float4 rows from zero-padded copies that a transpose kernel writes into
-//   the workspace first (coalesced on both sides).
+//   once a block; a sample's only device-memory traffic is its x and y (and
+//   dy and dx).  The recompute (x W) reads W along its rows k-major; dx (dk
+//   W^T) reads W along its rows too, as dot products.  Shapes whose buffers
+//   do not fit run the streamed variant: W and W^T read as float4 rows from
+//   zero-padded copies that a transpose kernel writes into the workspace
+//   first (coalesced on both sides).  The forward's resident variant takes
+//   every D <= 64 (L=64 with three groups); the backward's every D <= 64
+//   but L=64.
+// - One recompute.  project_kv, score_rows and softmax_rows compute k, v and
+//   P for both kernels, so the backward's P is the forward's bit for bit.
+//   The forward then takes y = P v, with P's rows in x's buffer (dead once k
+//   and v are written) and the dropout factor in the epilogue, which stores
+//   y as float4.
 // - Register tiles.  Every product gives a thread 4 x 4 outputs (kTw = 4),
 //   its operands read as float4 from shared memory: 8 floats for 16 FMAs.
 //   An operand stored k-major gives 4 neighbouring rows of one k; one stored
@@ -58,33 +65,44 @@
 //   (tm + r * tiles).  A warp takes a block of 4 x 8 tiles; every buffer's row
 //   stride is an odd number of float4 (68 at D=64), so the 4 or 8 rows a warp
 //   reads at one k lie in different bank quads.  Each phase ends at one
-//   barrier: k and v; scores; softmax; dP; dv (into v's buffer) with dS; dQ
-//   with dk (into dctx's buffer); dWk, dWv, the bias sums and dx.  The
-//   softmax and dS take a quarter-warp a row.  L is padded to Lp = 52 (a
-//   multiple of 4) and D to Dp (of 8, so that kTw may be 8) with zeros; P
-//   and dS are 0 past L, so the padding adds nothing to any sum.
-// - Gradient sums on chip.  dWk and dWv (a 4 x 4 tile of each a thread at
-//   D=64) and an entry of dbk|dbv live in registers across the group's
-//   samples; dQ's sums live in the group's shared memory (registers are
-//   the scarcer: 512 threads get 128 each).  Each entry belongs to one
+//   barrier: k and v; scores; softmax; then the forward's P v, or the
+//   backward's dP; dv (into v's buffer) with dS; dQ with dk (into dctx's
+//   buffer); dWk, dWv, the bias sums and dx.  The softmax and dS take a
+//   quarter-warp a row.  L is padded to Lp = 52 (a multiple of 4) and D to
+//   Dp (of 8, so that kTw may be 8) with zeros; P and dS are 0 past L, so
+//   the padding adds nothing to any sum.
+// - Gradient sums on chip (backward).  dWk and dWv (a 4 x 4 tile of each a
+//   thread at D=64) and an entry of dbk|dbv live in registers across the
+//   group's samples; dQ's sums live in the group's shared memory (registers
+//   are the scarcer: 512 threads get 128 each).  Each entry belongs to one
 //   thread and is summed one fused multiply-add at a time, l ascending
 //   within a sample and samples ascending.  The group writes its gradient
 //   slice to device memory once, at the end.  No float atomics: kSlices = 264
 //   slices (2 x 132 SMs, whatever the card); slice s takes samples
 //   [s N / S, (s + 1) N / S) with S = min(N, 264), a function of N alone; a
 //   second launch (rp::sum_slices) adds the slices in order.  The bits
-//   repeat from run to run, and the two variants give the same bits.
-// - What bounds it (scripts/torch_global_attn_bwd.py --variants): the
-//   products, about 0.45 of the 0.60 ms.  An SM delivers 32 floats a clock
-//   from shared memory to registers and issues 128 FMAs, so 4 x 4 tiles
-//   (a float every 2 FMAs) run at most at half the FMA rate; 4 x 8 tiles
-//   need more than the 128 registers a thread and spill.
+//   repeat from run to run, and the two variants give the same bits.  So do
+//   the forward's: a sample's y does not depend on the group that takes it.
+// - What bounds them: the products.  An SM delivers 32 floats a clock from
+//   shared memory to registers and issues 128 FMAs, so 4 x 4 tiles (a float
+//   every 2 FMAs) run at most at half the FMA rate; 4 x 8 tiles need more
+//   than the 128 registers a backward thread has and spill.  The probes
+//   (scripts/torch_global_attn_{fwd,bwd}.py --variants): the backward's
+//   products take about 0.45 of its 0.60 ms; the forward's 0.156 of its
+//   0.235 ms, 30 TB/s of operands, the card's shared-memory rate.  Four
+//   forward groups of 256 threads get 64 registers each (4 to 8 B spilled)
+//   and beat three groups (80 registers, 0.243 ms) and four of 128 threads
+//   (0.257 ms).
 // Shared memory, floats (Lp = 52, Dp = 64, stride 68 at IOCRec's shape):
-//   block: Q Lp x 68 (3,536) + resident Wk, Wv 2 x Dp x 68 (8,704);
-//   each group: x, dctx (later dk), k, v (later dv) 4 x Lp x 68 (14,144),
-//   P, dP (later dS) 2 x Lp x Lp (5,408), dQ's sums Lp x Dp (3,328);
-//   two groups: 58,000 floats = 232,000 B of the 232,448 a block may opt in
-//   to.  The streamed variant at the largest shape (L=64, D=128): 201,728 B.
+//   both: Q Lp x 68 (3,536) + resident Wk, Wv 2 x Dp x 68 (8,704) a block;
+//   forward, each group: x (later the scores and P), k, v 3 x Lp x 68
+//   (10,608); four groups: 54,672 floats = 218,688 B of the 232,448 a block
+//   may opt in to;
+//   backward, each group: x, dctx (later dk), k, v (later dv) 4 x Lp x 68
+//   (14,144), P, dP (later dS) 2 x Lp x Lp (5,408), dQ's sums Lp x Dp
+//   (3,328); two groups: 58,000 floats = 232,000 B.  The streamed variants
+//   at the largest shape (L=64, D=128): forward 135,168 B (one group),
+//   backward 201,728 B.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -94,12 +112,8 @@ namespace {
 
 using rp::dropout_factor;
 using rp::dropout_key;
-using rp::warp_max;
-using rp::warp_sum;
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kMaxL = 64;     // a warp holds a score row: two keys a lane
+constexpr int kMaxL = 64;     // a quarter-warp holds a score row: eight keys a lane
 constexpr int kMaxD = 128;
 
 struct Dropout {
@@ -118,53 +132,6 @@ __device__ __forceinline__ uint32_t sample_key(const Dropout& d, uint32_t n) {
   return dropout_key(d.seed, n, d.stream);
 }
 
-// A matrix operand: element (r, c) at p[r * rs + c * cs].
-struct Mat {
-  const float* p;
-  int rs, cs;
-  __device__ __forceinline__ float at(int r, int c) const { return p[r * rs + c * cs]; }
-};
-
-// For m < M, n < N: epi(m, n, sum_k A(m, k) B(k, n)).  A thread owns 4 rows
-// and 4 columns strided by ceil(N / 4), so neighbouring threads read
-// neighbouring columns; each sum is taken in ascending k, one fused
-// multiply-add at a time.
-template <class Epi>
-__device__ void gemm(Mat A, Mat B, int K, int M, int N, Epi epi) {
-  const int cstride = (N + 3) / 4;
-  const int items = ((M + 3) / 4) * cstride;
-  for (int item = threadIdx.x; item < items; item += kThreads) {
-    const int m0 = (item / cstride) * 4;
-    const int c = item % cstride;
-    int ms[4], ns[4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r) ms[r] = min(m0 + r, M - 1);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) ns[j] = min(c + j * cstride, N - 1);
-    float acc[4][4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[r][j] = 0.0f;
-    for (int k = 0; k < K; ++k) {
-      float a[4], b[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) a[r] = A.at(ms[r], k);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = B.at(k, ns[j]);
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[r][j] = fmaf(a[r], b[j], acc[r][j]);
-    }
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        if (m0 + r < M && c + j * cstride < N) epi(m0 + r, c + j * cstride, acc[r][j]);
-  }
-}
-
 struct Params {
   const float* x;   // [N, L, D]
   const float* wk;  // [D, D], flax [in, out]
@@ -176,91 +143,8 @@ struct Params {
   Dropout drop;
 };
 
-// Shared-memory layout of one sample: x, Q, k, v [L][D + 1] and P [L][L + 1].
-struct Arena {
-  float *x, *q, *k, *v, *p;
-  int ld, lp;
-  __device__ Arena(float* base, int L, int D) {
-    ld = D + 1;
-    lp = L + 1;
-    x = base;
-    q = x + L * ld;
-    k = q + L * ld;
-    v = k + L * ld;
-    p = v + L * ld;
-  }
-};
-
-__device__ void load_rows(const float* __restrict__ src, int L, int D, float* dst, int ld) {
-  for (int i = threadIdx.x; i < L * D; i += kThreads) dst[(i / D) * ld + i % D] = src[i];
-}
-
-// k, v and P of one sample whose x and Q are in the arena.
-__device__ void forward_sample(const Params& P, const Arena& a) {
-  const int L = P.L, D = P.D;
-  const Mat xs{a.x, a.ld, 1};
-  float* ks = a.k;
-  float* vs = a.v;
-  const int ld = a.ld;
-  const float* bk = P.bk;
-  const float* bv = P.bv;
-  gemm(xs, Mat{P.wk, D, 1}, D, L, D,
-       [&](int l, int c, float s) { ks[l * ld + c] = s + bk[c]; });
-  gemm(xs, Mat{P.wv, D, 1}, D, L, D,
-       [&](int l, int c, float s) { vs[l * ld + c] = s + bv[c]; });
-  __syncthreads();
-  // scores and their softmax: a warp a row, two keys a lane
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int l = warp; l < L; l += kWarps) {
-    const float* qrow = a.q + l * ld;
-    float s[2];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int j = lane + 32 * h;
-      s[h] = __int_as_float(0xff800000);  // -inf
-      if (j < L) {
-        const float* krow = a.k + j * ld;
-        float acc = 0.0f;
-        for (int d = 0; d < D; ++d) acc = fmaf(qrow[d], krow[d], acc);
-        s[h] = acc;
-      }
-    }
-    const float m = warp_max(fmaxf(s[0], s[1]));
-    float e[2];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) e[h] = lane + 32 * h < L ? expf(s[h] - m) : 0.0f;
-    const float sum = warp_sum(e[0] + e[1]);
-#pragma unroll
-    for (int h = 0; h < 2; ++h)
-      if (lane + 32 * h < L) a.p[l * a.lp + lane + 32 * h] = e[h] / sum;
-  }
-  __syncthreads();
-}
-
-__global__ void __launch_bounds__(kThreads) global_attn_fwd_kernel(Params P, float* __restrict__ y) {
-  extern __shared__ float smem[];
-  const int L = P.L, D = P.D;
-  const int64_t n = blockIdx.x;
-  Arena a(smem, L, D);
-  load_rows(P.x + n * L * D, L, D, a.x, a.ld);
-  load_rows(P.q, L, D, a.q, a.ld);
-  __syncthreads();
-  forward_sample(P, a);
-  float* out = y + n * L * D;
-  const Dropout& dr = P.drop;
-  const uint32_t key = sample_key(dr, (uint32_t)n);
-  // ctx = P v, times the dropout factor
-  gemm(Mat{a.p, a.lp, 1}, Mat{a.v, a.ld, 1}, L, L, D,
-       [&](int l, int c, float s) {
-         out[l * D + c] = dr.on ? __fmul_rn(s, drop_factor(dr, key, (uint32_t)(l * D + c))) : s;
-       });
-}
-
-// ---------------------------------------------------------------------------
-// The backward (K6b): see the header for its design.
-
 constexpr int kSlices = 264;          // gradient slices: 2 x 132, whatever the card
-constexpr int kGroupThreads = 256;    // the threads on one sample
+constexpr int kGroupThreads = 256;    // the backward's threads on one sample
 constexpr int kGroupWarps = kGroupThreads / 32;
 constexpr int kTw = 4;                // tile width of the L x D and D x D products
 constexpr size_t kMaxSmem = 232448;   // the shared memory a block may opt in to
@@ -391,9 +275,11 @@ __device__ void load_padded(const float* __restrict__ src, int rows, int cols, f
   }
 }
 
-// The barrier of group g alone (named barrier g + 1; 0 is __syncthreads).
+// The barrier of group g alone (named barrier g + 1; 0 is __syncthreads), a
+// group of kGT threads.
+template <int kGT = kGroupThreads>
 __device__ __forceinline__ void group_sync(int g) {
-  asm volatile("bar.sync %0, %1;" ::"r"(g + 1), "n"(kGroupThreads) : "memory");
+  asm volatile("bar.sync %0, %1;" ::"r"(g + 1), "n"(kGT) : "memory");
 }
 
 // Tile (tm, tn) of item `slot` of a phase over a grid of mt x nt tiles: a
@@ -410,6 +296,202 @@ __device__ __forceinline__ bool tile_at(int slot, int mt, int nt, int& tm, int& 
 __host__ __device__ constexpr int tile_slots(int mt, int nt) {
   return 32 * ((mt + 3) / 4) * ((nt + 7) / 8);
 }
+
+// ---------------------------------------------------------------------------
+// One recompute for both directions: k, v and P of a sample, by thread t of
+// a group of kGT.  The backward's P is the forward's, bit for bit.
+
+// k = x Wk + bk and v = x Wv + bv, x [Lp][ld] in shared memory (0 past L and
+// D), W read k-major (row stride ldw, 0 past D); rows past L are 0.
+template <int kGT>
+__device__ __forceinline__ void project_kv(const Params& P, const float* xs, const float* wk,
+                                           const float* wv, int ldw, float* ks, float* vs,
+                                           int Lp, int Dp, int ld, int t) {
+  const int L = P.L, D = P.D, lt = Lp / 4, dw = Dp / kTw, s_ldw = tile_slots(lt, dw);
+  for (int slot = t; slot < 2 * s_ldw; slot += kGT) {
+    const bool is_v = slot >= s_ldw;
+    int tm, tn;
+    if (!tile_at(is_v ? slot - s_ldw : slot, lt, dw, tm, tn)) continue;
+    const float* bias = is_v ? P.bv : P.bk;
+    float* out = is_v ? vs : ks;
+    float acc[4][kTw] = {};
+    tile_fma<false, true, kTw>(xs, ld, is_v ? wv : wk, ldw, tm, tn, lt, dw, Dp, acc);
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int l = tm + r * lt;
+      float row[kTw];
+#pragma unroll
+      for (int j = 0; j < kTw; ++j) {
+        const int c = kTw * tn + j;
+        row[j] = l < L ? acc[r][j] + (c < D ? bias[c] : 0.0f) : 0.0f;
+      }
+      store_row<kTw>(out + l * ld + kTw * tn, row);
+    }
+  }
+}
+
+// The scores Q k^T into ps [Lp][Lp].
+template <int kGT>
+__device__ __forceinline__ void score_rows(const float* qs, const float* ks, float* ps, int Lp,
+                                           int Dp, int ld, int t) {
+  const int lt = Lp / 4, s_ll = tile_slots(lt, lt);
+  for (int slot = t; slot < s_ll; slot += kGT) {
+    int tm, tn;
+    if (!tile_at(slot, lt, lt, tm, tn)) continue;
+    float acc[4][4] = {};
+    tile_fma<false, false, 4>(qs, ld, ks, ld, tm, tn, lt, lt, Dp, acc);
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) ps[(tm + r * lt) * Lp + tn + j * lt] = acc[r][j];
+  }
+}
+
+// P = softmax of each score row in place, a quarter-warp a row (8 keys a
+// lane); 0 past L.  A warp's four rows are all below Lp or all past it.
+template <int kGT>
+__device__ __forceinline__ void softmax_rows(float* ps, int L, int Lp, int t) {
+  const int quarter = t / 8, ql = t % 8;
+  for (int l = quarter; l < Lp; l += 4 * (kGT / 32)) {
+    float* row = ps + l * Lp;
+    const bool valid = l < L;
+    float sv[8];
+#pragma unroll
+    for (int h = 0; h < 8; ++h) {
+      const int j = ql + 8 * h;
+      sv[h] = valid && j < L ? row[j] : __int_as_float(0xff800000);  // -inf
+    }
+    float m = sv[0];
+#pragma unroll
+    for (int h = 1; h < 8; ++h) m = fmaxf(m, sv[h]);
+    m = quarter_max(valid ? m : 0.0f);
+    float e[8], sum = 0.0f;
+#pragma unroll
+    for (int h = 0; h < 8; ++h) {
+      e[h] = valid && ql + 8 * h < L ? expf(sv[h] - m) : 0.0f;
+      sum += e[h];
+    }
+    const float total = quarter_sum(sum);
+    const float inv = valid ? __frcp_rn(total) : 0.0f;
+#pragma unroll
+    for (int h = 0; h < 8; ++h)
+      if (ql + 8 * h < Lp) row[ql + 8 * h] = e[h] * inv;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The forward (K6f): see the header for its design.
+
+constexpr int kFwdGroups = 4;          // groups a block, at most
+constexpr int kFwdGroupThreads = 256;  // the forward's threads on one sample
+
+// One forward group's buffers, floats: x [Lp][ld], which the scores and P
+// [Lp][Lp] take over once k and v are written, then k and v [Lp][ld].
+__host__ __device__ constexpr int fwd_x_floats(int Lp, int ld) { return Lp * (ld > Lp ? ld : Lp); }
+__host__ __device__ constexpr int fwd_group_floats(int Lp, int ld) {
+  return fwd_x_floats(Lp, ld) + 2 * Lp * ld;
+}
+
+struct FwdParams {
+  Params p;
+  float* y;
+  const float* wpad;  // streamed: Wk, Wv, each [Dp][Dp], zero-padded
+  int64_t n;
+  int vec;            // D % 4 == 0 and x, y 16-byte aligned: float4 loads and stores
+  int Lp, Dp, ld;
+};
+
+// blockDim.x / kGT groups; kResident: Wk, Wv in shared memory, else read
+// from `wpad`.  Group j of the grid's G takes samples [j N / G, (j + 1) N / G).
+template <int kGT, bool kResident>
+__global__ void __launch_bounds__(kFwdGroups * kGT, 1) global_attn_fwd_kernel(FwdParams F) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const Params& P = F.p;
+  const int L = P.L, D = P.D, Lp = F.Lp, Dp = F.Dp, ld = F.ld;
+  const int lt = Lp / 4, dt = Dp / 4, s_ld4 = tile_slots(lt, dt);
+  float* qs = smem;           // [Lp][ld]
+  float* wks = qs + Lp * ld;  // resident: [Dp][ld]
+  float* wvs = wks + Dp * ld;
+  float* groups = kResident ? wvs + Dp * ld : wks;
+  load_padded(P.q, L, D, qs, Lp, Dp, ld, threadIdx.x, blockDim.x);
+  if (kResident) {
+    load_padded(P.wk, D, D, wks, Dp, Dp, ld, threadIdx.x, blockDim.x);
+    load_padded(P.wv, D, D, wvs, Dp, Dp, ld, threadIdx.x, blockDim.x);
+  }
+  __syncthreads();
+  const float* wk = kResident ? wks : F.wpad;
+  const float* wv = kResident ? wvs : F.wpad + Dp * Dp;
+  const int ldw = kResident ? ld : Dp;
+
+  const int per_block = blockDim.x / kGT;
+  const int g = threadIdx.x / kGT, t = threadIdx.x % kGT;
+  const int64_t total = (int64_t)gridDim.x * per_block, j = (int64_t)blockIdx.x * per_block + g;
+  const int64_t first = j * F.n / total, last = (j + 1) * F.n / total;
+  float* xs = groups + g * fwd_group_floats(Lp, ld);  // x, then the scores and P
+  float* ks = xs + fwd_x_floats(Lp, ld);
+  float* vs = ks + Lp * ld;
+  const Dropout& dr = P.drop;
+  for (int64_t n = first; n < last; ++n) {
+    // x, zero-padded to [Lp][Dp] (P overwrote the last sample's padding)
+    const float* xg = P.x + n * L * D;
+    if (F.vec) {
+      const int dq = Dp / 4;
+      for (int i = t; i < Lp * dq; i += kGT) {
+        const int l = i / dq, c = 4 * (i % dq);
+        float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        if (l < L && c < D) v = *reinterpret_cast<const float4*>(xg + l * D + c);
+        *reinterpret_cast<float4*>(xs + l * ld + c) = v;
+      }
+    } else {
+      for (int i = t; i < Lp * Dp; i += kGT) {
+        const int l = i / Dp, c = i % Dp;
+        xs[l * ld + c] = l < L && c < D ? xg[l * D + c] : 0.0f;
+      }
+    }
+    group_sync<kGT>(g);
+    project_kv<kGT>(P, xs, wk, wv, ldw, ks, vs, Lp, Dp, ld, t);
+    group_sync<kGT>(g);
+    score_rows<kGT>(qs, ks, xs, Lp, Dp, ld, t);  // x is dead
+    group_sync<kGT>(g);
+    softmax_rows<kGT>(xs, L, Lp, t);
+    group_sync<kGT>(g);
+    // y = (P v) * drop: P with k contiguous, v k-major, so that a thread
+    // owns 4 rows strided by lt and 4 neighbouring columns
+    float* yg = F.y + n * L * D;
+    const uint32_t key = sample_key(dr, (uint32_t)n);
+    for (int slot = t; slot < s_ld4; slot += kGT) {
+      int tm, tn;
+      if (!tile_at(slot, lt, dt, tm, tn)) continue;
+      float acc[4][4] = {};
+      tile_fma<false, true, 4>(xs, Lp, vs, ld, tm, tn, lt, dt, Lp, acc);
+      const int c = 4 * tn;
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int l = tm + r * lt;
+        if (l >= L) continue;
+        if (dr.on) {
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            acc[r][q] = __fmul_rn(acc[r][q], drop_factor(dr, key, (uint32_t)(l * D + c + q)));
+        }
+        if (F.vec) {
+          if (c < D)
+            *reinterpret_cast<float4*>(yg + l * D + c) =
+                make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+        } else {
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            if (c + q < D) yg[l * D + c + q] = acc[r][q];
+        }
+      }
+    }
+    group_sync<kGT>(g);  // the next sample overwrites x, which holds P
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The backward (K6b): see the header for its design.
 
 struct BwdParams {
   Params p;
@@ -526,67 +608,12 @@ __global__ void __launch_bounds__(kGroups * kGroupThreads, 1)
       }
     }
     group_sync(g);
-    // k = x Wk + bk, v = x Wv + bv; rows past L are 0
-    for (int slot = t; slot < 2 * s_ldw; slot += kGroupThreads) {
-      const bool is_v = slot >= s_ldw;
-      int tm, tn;
-      if (!tile_at(is_v ? slot - s_ldw : slot, lt, dw, tm, tn)) continue;
-      const float* bias = is_v ? P.bv : P.bk;
-      float* out = is_v ? vs : ks;
-      float acc[4][kTw] = {};
-      tile_fma<false, true, kTw>(xs, ld, is_v ? wv : wk, ldw, tm, tn, lt, dw, Dp, acc);
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int l = tm + r * lt;
-        float row[kTw];
-#pragma unroll
-        for (int j = 0; j < kTw; ++j) {
-          const int c = kTw * tn + j;
-          row[j] = l < L ? acc[r][j] + (c < D ? bias[c] : 0.0f) : 0.0f;
-        }
-        store_row<kTw>(out + l * ld + kTw * tn, row);
-      }
-    }
+    // k = x Wk + bk, v = x Wv + bv; the scores Q k^T into P's buffer; P
+    project_kv<kGroupThreads>(P, xs, wk, wv, ldw, ks, vs, Lp, Dp, ld, t);
     group_sync(g);
-    // scores Q k^T into P's buffer
-    for (int slot = t; slot < s_ll; slot += kGroupThreads) {
-      int tm, tn;
-      if (!tile_at(slot, lt, lt, tm, tn)) continue;
-      float acc[4][4] = {};
-      tile_fma<false, false, 4>(qs, ld, ks, ld, tm, tn, lt, lt, Dp, acc);
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) ps[(tm + r * lt) * Lp + tn + j * lt] = acc[r][j];
-    }
+    score_rows<kGroupThreads>(qs, ks, ps, Lp, Dp, ld, t);
     group_sync(g);
-    // P = softmax of each score row, a quarter-warp a row (8 keys a lane); 0
-    // past L.  A warp's four rows are all below Lp or all past it.
-    for (int l = quarter; l < Lp; l += 4 * kGroupWarps) {
-      float* row = ps + l * Lp;
-      const bool valid = l < L;
-      float sv[8];
-#pragma unroll
-      for (int h = 0; h < 8; ++h) {
-        const int j = ql + 8 * h;
-        sv[h] = valid && j < L ? row[j] : __int_as_float(0xff800000);  // -inf
-      }
-      float m = sv[0];
-#pragma unroll
-      for (int h = 1; h < 8; ++h) m = fmaxf(m, sv[h]);
-      m = quarter_max(valid ? m : 0.0f);
-      float e[8], sum = 0.0f;
-#pragma unroll
-      for (int h = 0; h < 8; ++h) {
-        e[h] = valid && ql + 8 * h < L ? expf(sv[h] - m) : 0.0f;
-        sum += e[h];
-      }
-      const float total = quarter_sum(sum);
-      const float inv = valid ? __frcp_rn(total) : 0.0f;
-#pragma unroll
-      for (int h = 0; h < 8; ++h)
-        if (ql + 8 * h < Lp) row[ql + 8 * h] = e[h] * inv;
-    }
+    softmax_rows<kGroupThreads>(ps, L, Lp, t);
     group_sync(g);
     // dP = dctx v^T
     for (int slot = t; slot < s_ll; slot += kGroupThreads) {
@@ -759,8 +786,58 @@ bool shape_ok(long long n, int L, int D) {
   return n > 0 && n <= 0x7fffffffLL && L > 0 && L <= kMaxL && D > 0 && D <= kMaxD;
 }
 
-size_t fwd_smem(int L, int D) {
-  return sizeof(float) * ((size_t)4 * L * (D + 1) + (size_t)L * (L + 1));
+// The current device's SM count (kept a device), 0 where CUDA fails.
+int sm_count() {
+  static int counts[rp::kMaxDevices] = {};
+  int device = 0;
+  if (cudaGetDevice(&device) != cudaSuccess || device < 0 || device >= rp::kMaxDevices) return 0;
+  if (counts[device] == 0 &&
+      cudaDeviceGetAttribute(&counts[device], cudaDevAttrMultiProcessorCount, device) != cudaSuccess)
+    counts[device] = 0;
+  return counts[device];
+}
+
+// The forward's launch at one shape: the variant, the groups a block (as
+// many as the shared memory holds, at most kFwdGroups), the blocks (at most
+// one an SM) and their shared memory.
+struct FwdPlan {
+  bool ok, resident;
+  int Lp, Dp, ld, groups, blocks;
+  size_t smem;
+  int64_t wpad_words;  // the streamed variant's padded weights (pad_weights_kernel)
+};
+
+FwdPlan fwd_plan(long long n, int L, int D, int variant, int sms) {
+  FwdPlan f{};
+  f.Lp = round4(L);
+  f.Dp = round8(D);
+  f.ld = odd4(f.Dp);
+  const int64_t cap = kMaxSmem / sizeof(float), q = (int64_t)f.Lp * f.ld,
+                w = (int64_t)2 * f.Dp * f.ld, gf = fwd_group_floats(f.Lp, f.ld);
+  const int64_t resident_groups = q + w < cap ? (cap - q - w) / gf : 0;
+  const int64_t streamed_groups = q < cap ? (cap - q) / gf : 0;
+  f.resident = variant == kAuto ? resident_groups > 0 : variant == kResident;
+  const int64_t groups = f.resident ? resident_groups : streamed_groups;
+  f.groups = (int)(groups < kFwdGroups ? groups : kFwdGroups);
+  f.ok = shape_ok(n, L, D) && sms > 0 && f.groups > 0 &&
+         (variant == kAuto || variant == kStreamed || variant == kResident);
+  if (!f.ok) return f;
+  f.smem = sizeof(float) * (q + (f.resident ? w : 0) + f.groups * gf);
+  const long long blocks = (n + f.groups - 1) / f.groups;
+  f.blocks = (int)(blocks < sms ? blocks : sms);
+  f.wpad_words = f.resident ? 0 : (int64_t)4 * f.Dp * f.Dp;
+  return f;
+}
+
+template <int kGT, bool kResident>
+cudaError_t launch_fwd(const FwdParams& F, const FwdPlan& plan, cudaStream_t st) {
+  static size_t opted[rp::kMaxDevices] = {};
+  const void* fn = (const void*)global_attn_fwd_kernel<kGT, kResident>;
+  cudaError_t err = rp::opt_in(fn, plan.smem, opted);
+  if (err != cudaSuccess) return err;
+  global_attn_fwd_kernel<kGT, kResident>
+      <<<(unsigned)plan.blocks, plan.groups * kGT, plan.smem, st>>>(F);
+  return cudaGetLastError();
 }
 
 // The backward's launch at one shape: the variant, its shared memory, slices
@@ -820,24 +897,55 @@ Params make_params(const void* x, const void* wk, const void* bk, const void* wv
 
 }  // namespace
 
+// 4-byte words of workspace rp_global_attn_fwd_f32 needs for `variant` on
+// the current device: the streamed variant's padded weights, 0 for the
+// resident one; -1 for a shape or variant it does not take.
+extern "C" long long rp_global_attn_fwd_workspace_words(long long n, int L, int D, int variant) {
+  const FwdPlan plan = fwd_plan(n, L, D, variant, sm_count());
+  return plan.ok ? plan.wpad_words : -1;
+}
+
+// The forward's groups on the current device for n samples of L x D (the
+// variant picked from the shape): group j of them takes samples
+// [j n / G, (j + 1) n / G).  0 for a shape it does not take.
+extern "C" long long rp_global_attn_fwd_groups(long long n, int L, int D) {
+  const FwdPlan plan = fwd_plan(n, L, D, kAuto, sm_count());
+  return plan.ok ? (long long)plan.blocks * plan.groups : 0;
+}
+
 // x [n, L, D], wk and wv [D, D] (flax [in, out]), bk and bv [D], q [L, D],
 // y [n, L, D], all float32, contiguous, on the current device.  Dropout: a
 // kept element is scaled by `scale`; drop_on = 0 keeps every element.
-// Returns cudaGetLastError() after the launch (0 = launched).
+// variant: -1 picks from the shape's shared memory, 1 keeps the weights in
+// shared memory (where they fit), 0 streams them.  workspace: at least
+// rp_global_attn_fwd_workspace_words 4-byte words.  Returns
+// cudaGetLastError() after the launches (0 = launched).
 extern "C" int rp_global_attn_fwd_f32(const void* x, const void* wk, const void* bk,
                                       const void* wv, const void* bv, const void* q, void* y,
-                                      long long n, int L, int D, unsigned seed, unsigned stream,
-                                      unsigned threshold, float scale, int drop_on,
+                                      void* workspace, long long workspace_words, long long n,
+                                      int L, int D, unsigned seed, unsigned stream,
+                                      unsigned threshold, float scale, int drop_on, int variant,
                                       void* stream_ptr) {
-  if (!shape_ok(n, L, D)) return (int)cudaErrorInvalidValue;
-  const size_t bytes = fwd_smem(L, D);
-  static size_t opted[rp::kMaxDevices] = {};
-  cudaError_t err = rp::opt_in((const void*)global_attn_fwd_kernel, bytes, opted);
+  const FwdPlan plan = fwd_plan(n, L, D, variant, sm_count());
+  if (!plan.ok || workspace_words < plan.wpad_words) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream_ptr);
+  FwdParams F;
+  F.p = make_params(x, wk, bk, wv, bv, q, L, D, seed, stream, threshold, scale, drop_on);
+  F.y = static_cast<float*>(y);
+  F.wpad = static_cast<const float*>(workspace);
+  F.n = n;
+  F.vec = D % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+          reinterpret_cast<uintptr_t>(y) % 16 == 0;
+  F.Lp = plan.Lp;
+  F.Dp = plan.Dp;
+  F.ld = plan.ld;
+  if (plan.resident) return (int)launch_fwd<kFwdGroupThreads, true>(F, plan, st);
+  const unsigned tiles = (unsigned)(plan.Dp + 31) / 32;
+  pad_weights_kernel<<<dim3(tiles, tiles, 2), dim3(32, 32), 0, st>>>(
+      F.p.wk, F.p.wv, D, plan.Dp, static_cast<float*>(workspace));
+  const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  Params P = make_params(x, wk, bk, wv, bv, q, L, D, seed, stream, threshold, scale, drop_on);
-  global_attn_fwd_kernel<<<(unsigned)n, kThreads, bytes, static_cast<cudaStream_t>(stream_ptr)>>>(
-      P, static_cast<float*>(y));
-  return (int)cudaGetLastError();
+  return (int)launch_fwd<kFwdGroupThreads, false>(F, plan, st);
 }
 
 // 4-byte words of workspace rp_global_attn_bwd_f32 needs for `variant`: the

@@ -10,18 +10,25 @@ bv [D], q_s [L, D])`` (flax ``[in, out]`` kernels)::
 with no ``1/sqrt(D)`` scale and, as in the reference, no padding mask: a
 padded position is attended like a real one.
 
-The CUDA kernels (``rec_pangu_tpu_torch/csrc/global_attn.cu``): the forward
-gives each sample a thread block that keeps x, q_s, k, v and the ``[L, L]``
-probabilities in shared memory.  The backward keeps q_s and, where they fit
-(IOCRec's L=50, D=64), wk and wv in shared memory for a block's whole run of
-samples; two groups of 256 threads each recompute a sample's forward, run
-its products in 4 x 4 register tiles and add the parameter gradients to sums
-held in registers, written once per group into 264 slices that a second
-launch adds in order (no atomics: the same bits every run).  Bound:
+The CUDA kernels (``rec_pangu_tpu_torch/csrc/global_attn.cu``) share one
+design and one recompute of k, v and the probabilities, so the backward sees
+the forward's probabilities bit for bit.  Persistent blocks keep q_s and,
+where they fit (every D <= 64), wk and wv in shared memory for a block's
+whole run of samples; groups of 256 threads, each with a barrier of its own,
+take one sample at a time and run its products in 4 x 4 register tiles of
+float4 operands.  The forward runs up to four groups a block (218,688 B of
+shared memory at IOCRec's L=50, D=64), at most one block an SM: group j of
+the G in all (``forward_groups``) takes samples ``[j N / G, (j + 1) N / G)``,
+and its y does not depend on the group.  The backward runs two groups a
+block and adds the parameter gradients to sums held in registers, written
+once per group into 264 slices that a second launch adds in order (no
+atomics: the same bits every run).  Shapes whose buffers do not fit stream
+wk and wv from zero-padded copies in a workspace instead.  Bound:
 operations, 1,459,200 FLOP a sample forward and 4,057,600 backward at L=50,
-D=64.  The wrapper launches them for CUDA tensors and raises if it cannot (a
-shape outside ``MAX_L``/``MAX_D`` is a ``ValueError``); the plain version
-below serves tensors on the CPU.
+D=64; what holds each kernel back is in PERF.md.  The wrapper launches them
+for CUDA tensors and raises if it cannot (a shape outside
+``MAX_L``/``MAX_D`` is a ``ValueError``); the plain version below serves
+tensors on the CPU.
 
 Dropout (training) multiplies the output by the fused encoder's hash masks
 (``fused_encoder.dropout_scale``) at layer ``DROPOUT_LAYER``, site
@@ -41,8 +48,8 @@ from .fused_encoder import _MASK32, check_rate, drop_scale, drop_threshold, drop
 LAUNCHES = 0
 BACKWARD_LAUNCHES = 0
 
-MAX_L = 64    # a warp holds one row of scores, two keys a lane
-MAX_D = 128   # the backward's buffers stay within a block's shared memory
+MAX_L = 64    # a quarter-warp holds one row of scores, eight keys a lane
+MAX_D = 128   # the streamed variants' buffers stay within a block's shared memory
 PARAM_NAMES = ("wk", "bk", "wv", "bv", "q_s")
 # dropout streams of IOCRec's own sites, above every transformer layer's
 DROPOUT_LAYER = 256
@@ -95,17 +102,29 @@ def check_supported(L: int, D: int) -> None:
                          f"1 <= D <= {MAX_D}; got L={L}, D={D}")
 
 
+def _bind_forward(lib):
+    """(forward, its workspace words, its groups) of a loaded library."""
+    fwd = lib.rp_global_attn_fwd_f32
+    fwd.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 2
+                    + [ctypes.c_uint] * 3 + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                                             ctypes.c_void_p])
+    fwd.restype = ctypes.c_int
+    words = lib.rp_global_attn_fwd_workspace_words
+    words.argtypes = [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int]
+    groups = lib.rp_global_attn_fwd_groups
+    groups.argtypes = [ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
+    words.restype = groups.restype = ctypes.c_longlong
+    return fwd, words, groups
+
+
 def _functions():
-    """(forward, backward, backward workspace words) from the library."""
+    """((forward, its workspace words, its groups), (backward, its workspace
+    words)) from the library."""
     global _FWD_FN, _BWD_FN
     if _FWD_FN is None:
         from . import _build
 
         lib = _build.load("global_attn")
-        fwd = lib.rp_global_attn_fwd_f32
-        fwd.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
-                        + [ctypes.c_uint] * 3 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-        fwd.restype = ctypes.c_int
         bwd = lib.rp_global_attn_bwd_f32
         bwd.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_longlong] * 2
                         + [ctypes.c_int, ctypes.c_int] + [ctypes.c_uint] * 3
@@ -114,9 +133,13 @@ def _functions():
         words = lib.rp_global_attn_bwd_workspace_words
         words.argtypes = [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int]
         words.restype = ctypes.c_longlong
-        _FWD_FN = fwd
+        _FWD_FN = _bind_forward(lib)
         _BWD_FN = bwd, words
     return _FWD_FN, _BWD_FN
+
+
+def _variant(resident: Optional[bool]) -> int:
+    return -1 if resident is None else int(resident)
 
 
 def _dropout_args(seed: int, rate: float) -> tuple:
@@ -132,19 +155,35 @@ def _checked(x: torch.Tensor, params: Sequence[torch.Tensor]):
     return N, L, D
 
 
-def launch_forward(x: torch.Tensor, params: Sequence[torch.Tensor], rate: float,
-                   seed: int) -> torch.Tensor:
-    """K6f on checked CUDA inputs: y [N, L, D] (dropout at ``rate``)."""
+def forward_groups(n: int, L: int, D: int) -> int:
+    """The forward's groups on the current CUDA device for n samples of L x D
+    (group j takes samples ``[j n / G, (j + 1) n / G)``); 0 for a shape it
+    does not take."""
+    (_, _, groups), _ = _functions()
+    return int(groups(n, L, D))
+
+
+def launch_forward(x: torch.Tensor, params: Sequence[torch.Tensor], rate: float, seed: int,
+                   resident: Optional[bool] = None) -> torch.Tensor:
+    """K6f on checked CUDA inputs: y [N, L, D] (dropout at ``rate``).
+    ``resident`` picks the kernel's variant as in ``launch_backward``."""
     global LAUNCHES
     N, L, D = _checked(x, params)
     y = torch.empty_like(x)
     if N == 0:
         return y
-    fwd, _ = _functions()
+    (fwd, words, _), _ = _functions()
+    variant = _variant(resident)
     with torch.cuda.device(x.device):
+        need = words(N, L, D, variant)
+        if need < 0:
+            raise ValueError(f"the global attention forward cannot run with resident="
+                             f"{resident} at L={L}, D={D}")
+        work = torch.empty(need, dtype=torch.float32, device=x.device) if need else None
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fwd(x.data_ptr(), *(t.data_ptr() for t in params), y.data_ptr(), N, L, D,
-                  *_dropout_args(seed, rate), stream)
+        err = fwd(x.data_ptr(), *(t.data_ptr() for t in params), y.data_ptr(),
+                  0 if work is None else work.data_ptr(), need, N, L, D,
+                  *_dropout_args(seed, rate), variant, stream)
     if err != 0:
         raise RuntimeError(f"global_attn kernel launch failed: CUDA error {err}")
     LAUNCHES += 1
@@ -166,7 +205,7 @@ def launch_backward(x: torch.Tensor, params: Sequence[torch.Tensor], dy: torch.T
         grads.zero_()
     else:
         _, (bwd, words) = _functions()
-        variant = -1 if resident is None else int(resident)
+        variant = _variant(resident)
         need = words(N, L, D, variant)
         if need == 0:
             raise ValueError(f"the global attention backward cannot keep the weights in "

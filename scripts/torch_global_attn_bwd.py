@@ -59,22 +59,31 @@ VARIANTS = {
     "k_loop_not_unrolled": [("  for (int k = 0; k < K; k += 4) {",
                              "#pragma unroll 1\n  for (int k = 0; k < K; k += 4) {")],
     "no_row_passes": [("for (int l = quarter; l < Lp; l += 4 * kGroupWarps) {",
-                       "for (int l = quarter; l < 0; l += 4 * kGroupWarps) {")],
-    "no_barriers": [('asm volatile("bar.sync %0, %1;" ::"r"(g + 1), "n"(kGroupThreads) : "memory");',
+                       "for (int l = quarter; l < 0; l += 4 * kGroupWarps) {"),
+                      ("for (int l = quarter; l < Lp; l += 4 * (kGT / 32)) {",
+                       "for (int l = quarter; l < 0; l += 4 * (kGT / 32)) {")],
+    "no_barriers": [('asm volatile("bar.sync %0, %1;" ::"r"(g + 1), "n"(kGT) : "memory");',
                      "(void)g;")],
 }
 
 
-def build_variants() -> tuple:
+def kernel_registers(log: str, kernel: str) -> list:
+    """ptxas's properties and registers of each kernel named `kernel` in `log`."""
+    lines = log.splitlines()
+    return [" ".join(x.strip() for x in lines[i + 1:i + 3])
+            for i, line in enumerate(lines) if "Function properties for" in line and kernel in line]
+
+
+def build_variants(variants: dict = VARIANTS, kernel: str = "bwd_kernel") -> tuple:
     """(name -> the loaded library of each edited copy, name -> ptxas's
-    register lines on its backward kernels), built in parallel."""
+    register lines on its kernels named `kernel`), built in parallel."""
     import ctypes
 
     out = os.path.join(ROOT, "chiprun_out", "ga_variants")
     os.makedirs(out, exist_ok=True)
     src = (_build.CSRC_DIR / "global_attn.cu").read_text()
     procs = {}
-    for name, edits in VARIANTS.items():
+    for name, edits in variants.items():
         text = src
         for old, new in edits:
             if old not in text:
@@ -93,10 +102,7 @@ def build_variants() -> tuple:
         if proc.returncode != 0:
             raise RuntimeError(f"variant {name} failed to build:\n{err}")
         libs[name] = ctypes.CDLL(lib)
-        lines = err.splitlines()
-        regs[name] = [" ".join(x.strip() for x in lines[i + 1:i + 3])
-                      for i, line in enumerate(lines) if "Function properties for" in line
-                      and "bwd_kernel" in line]
+        regs[name] = kernel_registers(err, kernel)
     return libs, regs
 
 

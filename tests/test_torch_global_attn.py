@@ -13,8 +13,9 @@ hold rounding noise there (seen: 1.9e-6), held within 1e-5 of 0.  The dropout ma
 are the fused encoder's hash on a stream of their own.  The CUDA kernels
 run only on the card (``chip_smoke.py``).  The comparison with the Pallas
 kernels runs at the shapes the card checks K6b at, beside the small one: odd
-sizes (N=7, L=13, D=24) and the largest the kernels take (L=64, D=128), each
-with a tile of samples that divides N.
+sizes (N=7, L=13, D=24), the largest the kernels take (L=64, D=128), and L=64
+at D=64, where the forward's two variants meet the backward's streamed one,
+each with a tile of samples that divides N.
 """
 import jax
 import jax.numpy as jnp
@@ -80,7 +81,8 @@ def _assert_close(got, want, names):
         np.testing.assert_allclose(a, b, rtol=1e-5, atol=atol, err_msg=name)
 
 
-@pytest.mark.parametrize("n,length,dim,tb", [(N, L, D, 4), (7, 13, 24, 7), (3, 64, 128, 3)])
+@pytest.mark.parametrize("n,length,dim,tb",
+                         [(N, L, D, 4), (7, 13, 24, 7), (3, 64, 128, 3), (5, 64, 64, 5)])
 def test_matches_jax_kernels_interpret(n, length, dim, tb):
     flax_p = _make_flax_params(length, dim)
     x, co = _inputs(1, n, length, dim)
