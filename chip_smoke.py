@@ -19,7 +19,11 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                also at the sequence shape with its dense gradient stream and
                bfloat16 moments (``phase_fused_adam_seq``); the table
                gradient again at K7's call-site shape with its sort on the
-               card (``phase_sorted_accumulate``); the fused
+               card (``phase_sorted_accumulate``); with both, the radix
+               sort (``sort_ids``) equal to its plain version (a stable
+               torch.sort of the clamped ids) at their shapes, edge shapes
+               and tables of 1 to 4 passes (``check_sorts``), and the
+               gradient's parts timed alone (``table_grad_parts``); the fused
                encoder (K4f) within the tolerances at ``check_encoder``; its
                backward (K4b) and dropout forward against the plain version's
                autograd with the same dropout masks, within the tolerances at
@@ -360,6 +364,79 @@ def bench_table_inputs(gen):
     return rows, id_sets, cot
 
 
+# tables whose keys need 1, 2, 3 and 4 radix passes (sort_plan), each at
+# the last size before the key bits grow and the first after
+SORT_PASS_ROWS = (1, 2, 254, 255, 2 ** 16 - 2, 2 ** 16 - 1, 2 ** 24 - 2, 2 ** 24 - 1, 2 ** 31 - 1)
+
+
+def check_sorts(cases: dict) -> list:
+    """The radix sort (``sort_ids``) against its plain version on the card,
+    (sorted ids, perm) equal, for each name -> (ids, num_rows)."""
+    for name, (ids, num_rows) in cases.items():
+        got = grad.sort_ids(ids, num_rows)
+        want = grad.sort_ids_reference(ids, num_rows)
+        for g, w, what in zip(got, want, ("sorted ids", "perm")):
+            require_equal(g, w, f"sort {name} ({ids.numel()} ids, {num_rows} rows): {what}")
+    return sorted(cases)
+
+
+def pass_sort_cases(gen) -> dict:
+    """Sort cases at SORT_PASS_ROWS: bench-many ids past both ends of each
+    table, and 20 of them; then ids over the whole int32 range."""
+    n, dev = BATCH * FIELDS, gen.device
+    cases = {}
+    for rows in SORT_PASS_ROWS:
+        hi = min(rows + 50, 2 ** 31 - 1)
+        ids = torch.randint(-50, hi, (n,), generator=gen, device=dev, dtype=torch.int32)
+        cases[f"rows={rows},passes={grad.sort_plan(rows)[2]}"] = (ids, rows)
+        cases[f"rows={rows},20 ids"] = (ids[:20], rows)
+    wide = torch.randint(-2 ** 31, 2 ** 31 - 1, (n,), generator=gen, device=dev,
+                         dtype=torch.int32)
+    cases["int32 range,bench rows"] = (wide, padded_rows(FIELDS * (VOCAB + 1)))
+    cases["int32 range,2^31-1 rows"] = (wide, 2 ** 31 - 1)
+    return cases
+
+
+def table_grad_parts(id_sets, cot, num_rows: int) -> dict:
+    """The parts of the table gradient's path, each alone at one shape,
+    median_ms over the id sets: the radix sort, the parent's prep it
+    replaced (torch.sort and a cast), the kernel alone on presorted ids
+    (``launch``: a mark pass, then the masked fill beside the levels), and
+    its two halves: the zero fill of the unmarked rows and the levels (with
+    a memset of their counts, which the whole path folds into the sort's).
+    ``scripts/torch_table_grad.py --variants`` times the other orders."""
+    fns = grad._functions(cot.device)
+    dev, dim = cot.device, cot.shape[1]
+
+    def stream():
+        return torch.cuda.current_stream(dev).cuda_stream
+
+    def old_sort(x):
+        sorted_ids, perm = torch.sort(x, stable=True)
+        return sorted_ids, perm.to(torch.int32)
+
+    sorted_sets = [grad.sort_ids(x, num_rows) for x in id_sets]
+    marks = [torch.empty((num_rows + 31) // 32, dtype=torch.int32, device=dev) for _ in id_sets]
+    for x, m in zip(id_sets, marks):
+        grad._check_launch(fns.mark_rows(x.data_ptr(), x.numel(), num_rows, m.data_ptr(),
+                                         m.numel(), stream()), "row marks")
+    out = torch.empty(num_rows, dim, device=dev)
+
+    def fill(m):
+        grad._check_launch(fns.fill_unmarked(out.data_ptr(), num_rows, dim, m.data_ptr(),
+                                             stream()), "zero fill")
+
+    return {
+        "sort": median_ms([lambda x=x: grad.sort_ids(x, num_rows) for x in id_sets]),
+        "torch_sort": median_ms([lambda x=x: old_sort(x) for x in id_sets]),
+        "kernel_only": median_ms([lambda s=s: grad.launch(*s, cot, num_rows)
+                                  for s in sorted_sets]),
+        "masked_fill": median_ms([lambda m=m: fill(m) for m in marks]),
+        "levels": median_ms([lambda s=s: grad._levels(*s, cot, out, stream())
+                             for s in sorted_sets]),
+    }
+
+
 def phase_table_grad(bandwidth: float) -> dict:
     """K2: the dense table gradient against index_add_ on the card."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
@@ -391,12 +468,19 @@ def phase_table_grad(bandwidth: float) -> dict:
         skewed[kind] = {"max_hits_per_row": int(x_hits.max().item()), "ms": median_ms(
             [lambda: grad.table_grad(x, cot, num_rows)], SKEW_LAUNCHES)}
 
+    sorts = check_sorts({
+        **{f"bench {i}": (x, num_rows) for i, x in enumerate(id_sets)},
+        **{f"edge {kind}": (edge_ids(kind, 5000, EDGE_ROWS, gen), EDGE_ROWS)
+           for kind in EDGE_KINDS},
+        **{f"bench {kind}": (x, num_rows)
+           for kind, x in skewed_id_sets(num_rows, cot.device).items()},
+        **pass_sort_cases(gen)})
+
     n = ids.numel()
     moved = num_rows * DIM * 4 + n * DIM * 4 + n * 4  # grad written; rows, ids read
-    sorted_sets = [grad.sort_ids(x) for x in id_sets]
     long_sets = [x.long() for x in id_sets]
     lib = torch.zeros(num_rows, DIM, device="cuda")
-    return {
+    row = {
         "name": "embedding_grad", "route": "cuda",
         "source": "rec_pangu_tpu_torch/csrc/embedding_grad.cu",
         "replaces": "rec_pangu_tpu/ops/kernels/embedding_grad.py:493",
@@ -404,9 +488,6 @@ def phase_table_grad(bandwidth: float) -> dict:
         "tolerance": "per element 2(k-1)*2^-24*sum|x| over its k terms (sum order)",
         "max_hits_per_row": int(hits.max().item()),
         "ms": median_ms([lambda x=x: grad.table_grad(x, cot, num_rows) for x in id_sets]),
-        "kernel_only_ms": median_ms([lambda s=s: grad.launch(*s, cot, num_rows)
-                                     for s in sorted_sets]),
-        "sort_ms": median_ms([lambda x=x: grad.sort_ids(x) for x in id_sets]),
         "plain_ms": median_ms([lambda x=x: grad.table_grad_reference(x, cot, num_rows)
                                for x in id_sets]),
         "bound_ms": moved / bandwidth * 1e3, "bound_by": "bytes",
@@ -414,8 +495,19 @@ def phase_table_grad(bandwidth: float) -> dict:
                                  for x in long_sets]),
         "library": "torch.zeros(V, D).index_add_(0, ids, rows) (atomics)",
         "call_ms": call_ms(lambda: grad.table_grad(ids, cot, num_rows)),
-        "bytes": moved, "edge_cases": edges, "skewed": skewed,
+        "bytes": moved, "edge_cases": edges, "skewed": skewed, "sort_cases": sorts,
     }
+    return with_parts(row, table_grad_parts(id_sets, cot, num_rows))
+
+
+def with_parts(row: dict, parts: dict) -> dict:
+    """A table-gradient row with its parts (``table_grad_parts``): the sort's
+    times, the kernel alone, and the shares of the bound and the library
+    call in ``ms``."""
+    return {**row, "sort_ms": parts["sort"], "torch_sort_ms": parts["torch_sort"],
+            "kernel_only_ms": parts["kernel_only"],
+            "bound_share": row["bound_ms"] / row["ms"],
+            "library_share": row["library_ms"] / row["ms"], "parts": parts}
 
 
 def adam_state(num_rows: int, dim: int, gen):
@@ -494,6 +586,7 @@ def phase_fused_adam_seq(bandwidth: float) -> dict:
         out[key] = {
             "ms": median_ms([lambda x=x: adam.planned_adam_update(x, cot, p, m, v, hyper, dense)
                              for x in hist]),
+            "sort_ms": median_ms([lambda x=x: grad.sort_ids(x, num_rows) for x in hist]),
             "plain_ms": median_ms([lambda x=x: adam.planned_adam_update_reference(
                 x, cot, p, m, v, hyper, dense) for x in hist]),
             "bytes": moved, "bound_ms": moved / bandwidth * 1e3,
@@ -537,7 +630,7 @@ def phase_fused_adam(bandwidth: float) -> dict:
         skewed[kind] = {"ms": median_ms(
             [lambda: adam.planned_adam_update(x, cot, p, m, v, hyper)], SKEW_LAUNCHES)}
     moved = 6 * num_rows * DIM * 4 + n * DIM * 4 + n * 4  # p, m, v read and written; rows, ids read
-    sorted_sets = [grad.sort_ids(x) for x in id_sets]
+    sorted_sets = [grad.sort_ids(x, num_rows) for x in id_sets]
     long_sets = [x.long() for x in id_sets]
     lib_p = torch.nn.Parameter(p.clone())
     lib_p.grad = torch.zeros_like(p)
@@ -560,6 +653,7 @@ def phase_fused_adam(bandwidth: float) -> dict:
                          for x in id_sets]),
         "kernel_only_ms": median_ms([lambda s=s: adam.launch(*s, cot, p, m, v, hyper)
                                      for s in sorted_sets]),
+        "sort_ms": median_ms([lambda x=x: grad.sort_ids(x, num_rows) for x in id_sets]),
         "plain_ms": median_ms([lambda x=x: adam.planned_adam_update_reference(
             x, cot, p, m, v, hyper) for x in id_sets]),
         "bound_ms": moved / bandwidth * 1e3, "bound_by": "bytes",
@@ -739,6 +833,7 @@ def labelled_loader(score, batches: int, seed: int) -> DataLoader:
 
 # each kernel's launch count: (module, attribute)
 COUNTERS = {"embedding_lookup": (lookup, "LAUNCHES"), "embedding_grad": (grad, "LAUNCHES"),
+            "radix_sort": (grad, "SORT_LAUNCHES"),
             "fused_adam": (adam, "LAUNCHES"), "fused_encoder": (encoder, "LAUNCHES"),
             "fused_encoder_bwd": (encoder, "BACKWARD_LAUNCHES"),
             "global_attn": (gattn, "LAUNCHES"), "global_attn_bwd": (gattn, "BACKWARD_LAUNCHES"),
@@ -755,7 +850,10 @@ def read_launches() -> dict:
 
 
 def require_launches(got: dict, want: dict, what: str) -> None:
-    """Every count as ``want`` gives it, 0 where it gives none."""
+    """Every count as ``want`` gives it, 0 where it gives none; the radix
+    sort, unless named, once for each table gradient and fused Adam launch
+    (both sort their ids first)."""
+    want = {"radix_sort": want.get("embedding_grad", 0) + want.get("fused_adam", 0), **want}
     if any(got[k] != want.get(k, 0) for k in got):
         raise RuntimeError(f"{what}: kernel launches {got}, expected {want} (0 elsewhere)")
 
@@ -2726,12 +2824,15 @@ def phase_sorted_accumulate(bandwidth: float) -> dict:
         skewed[kind] = {"max_hits_per_row": int(x_hits.max().item()), "ms": median_ms(
             [lambda: accumulate(x, cot, num_rows)], SKEW_LAUNCHES)}
 
+    sorts = check_sorts({**{f"K7 shape {i}": (x, num_rows) for i, x in enumerate(id_sets)},
+                         **{f"K7 shape {kind}": (x, num_rows)
+                            for kind, x in seq_skewed_ids(num_rows, dev).items()}})
+
     n = ids.numel()
     moved = num_rows * SEQ_DIM * 4 + n * SEQ_DIM * 4 + n * 4  # grad written; rows, ids read
-    sorted_sets = [grad.sort_ids(x) for x in id_sets]
     long_sets = [x.long() for x in id_sets]
     lib = torch.zeros(num_rows, SEQ_DIM, device=dev)
-    return {
+    row = {
         "name": "embedding_grad_sorted", "route": "cuda",
         "source": "rec_pangu_tpu_torch/csrc/embedding_grad.cu",
         "replaces": "rec_pangu_tpu/ops/kernels/embedding_grad.py:67",
@@ -2739,17 +2840,15 @@ def phase_sorted_accumulate(bandwidth: float) -> dict:
         "tolerance": "per element 2(k-1)*2^-24*sum|x| over its k terms (sum order)",
         "ids": n, "table_rows": num_rows, "max_hits_per_row": int(hits.max().item()),
         "ms": median_ms([lambda x=x: accumulate(x, cot, num_rows) for x in id_sets]),
-        "kernel_only_ms": median_ms([lambda s=s: grad.launch(*s, cot, num_rows)
-                                     for s in sorted_sets]),
-        "sort_ms": median_ms([lambda x=x: grad.sort_ids(x) for x in id_sets]),
         "plain_ms": median_ms([lambda x=x: grad.table_grad_reference(x, cot, num_rows)
                                for x in id_sets]),
         "bound_ms": moved / bandwidth * 1e3, "bound_by": "bytes",
         "library_ms": median_ms([lambda x=x: lib.zero_().index_add_(0, x, cot)
                                  for x in long_sets]),
         "library": "torch.zeros(V, D).index_add_(0, ids, rows) (atomics)",
-        "bytes": moved, "skewed": skewed,
+        "bytes": moved, "skewed": skewed, "sort_cases": sorts,
     }
+    return with_parts(row, table_grad_parts(id_sets, cot, num_rows))
 
 
 def phase_device_aug(path: str, enc_dict: dict, device: str = "cuda") -> dict:
@@ -2977,7 +3076,13 @@ def main() -> int:
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     lines = [{k: launches[row["name"]] if k == "launches" else row[k] for k in keys}
              for row in rows]
+    # the radix sort's launches on the same runs: once before each K2, K7 and K3
+    sort_launches = {"embedding_grad": training["standard_launches"]["radix_sort"],
+                     "embedding_grad_sorted": device_aug["launches"]["radix_sort"],
+                     "fused_adam": training["launches"]["radix_sort"]}
     for line in lines:
+        if line["name"] in sort_launches:
+            line["sort_launches"] = sort_launches[line["name"]]
         if line["name"] in ("fused_adam", "fused_encoder"):
             line["launches_seq_training"] = seq_training["launches"][line["name"]]
         if line["name"] in ("embedding_lookup", "fused_adam", "fused_encoder",

@@ -305,7 +305,7 @@ extern "C" int rp_fused_adam_f32(const void* sorted_ids, const void* perm, const
   cudaError_t err = rp::segment_sum(s, static_cast<const int32_t*>(perm),
                                     static_cast<const float*>(rows), n, dim,
                                     rp::Output{scratch.sums, false, num_rows},
-                                    scratch.run_starts, scratch.levels, st);
+                                    scratch.run_starts, scratch.levels, nullptr, st);
   if (err != cudaSuccess) return (int)err;
   const int threads = 256;
   tile_starts_kernel<<<(unsigned)((n + threads) / threads), threads, 0, st>>>(

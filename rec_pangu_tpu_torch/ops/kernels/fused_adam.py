@@ -16,7 +16,8 @@ as ``torch.optim.Adam`` over an ``nn.Embedding``'s dense gradient would do.
 
 The CUDA kernel (``rec_pangu_tpu_torch/csrc/fused_adam.cu``) sums each run
 of equal ids with K2's fixed tree of warps (``csrc/segment_sum.cuh``; the
-prep is ``sort_ids`` from ``embedding_grad.py``) into a compact buffer of
+prep is ``sort_ids`` from ``embedding_grad.py``, the package's radix sort
+over the table's key bits) into a compact buffer of
 run sums, then gives each block a tile of table rows: it copies the tile's
 run sums into shared memory and streams its slice of p, m and v once,
 updating them in place, so the dense gradient never reaches device memory.
@@ -187,6 +188,6 @@ def planned_adam_update(ids: torch.Tensor, rows: torch.Tensor, table: torch.Tens
     _check(ids, rows, table, mu, nu, dense)
     if ids.device.type == "cpu":
         return planned_adam_update_reference(ids, rows, table, mu, nu, hyper, dense)
-    sorted_ids, perm = sort_ids(ids)
+    sorted_ids, perm = sort_ids(ids, table.shape[0])
     launch(sorted_ids, perm, rows, table, mu, nu, hyper, dense)
     return table, mu, nu

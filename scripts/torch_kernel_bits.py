@@ -1,12 +1,13 @@
 """Bit-compare every CUDA kernel of ``rec_pangu_tpu_torch`` between two trees.
 
-Each tree runs every kernel wrapper (K1 lookup, K2 table gradient, K3 fused
-Adam, K4f inference and training forward, K4b, K6f, K6b, K5f, K5b) on the
-same seeded inputs, in a process of its own that builds that tree's kernels.
-The script prints one JSON line, each output array mapped to whether the two
-trees gave the same bits, and exits 1 if any differs.  It checks a change
-that claims to leave the kernels' results alone, such as a refactor of shared
-CUDA code.  Needs one CUDA card.
+Each tree runs every kernel wrapper (K1 lookup, K2 table gradient with ids
+past both ends of the table, K7 at ContraRec's device-view shape, K3 fused
+Adam on K2's ids, K4f inference and training forward, K4b, K6f, K6b, K5f,
+K5b) on the same seeded inputs, in a process of its own that builds that
+tree's kernels.  The script prints one JSON line, each output array mapped
+to whether the two trees gave the same bits, and exits 1 if any differs.
+It checks a change that claims to leave the kernels' results alone, such
+as a refactor of shared CUDA code.  Needs one CUDA card.
 
     mkdir -p _archive/parent && git archive HEAD | tar -x -C _archive/parent
     python3 scripts/torch_kernel_bits.py _archive/parent
@@ -40,8 +41,18 @@ sparse = torch.randint(0, 100_000, (8192, 4), generator=g, device=dev, dtype=tor
 offsets = torch.arange(4, device=dev, dtype=torch.int32) * 100_000
 out["k1"] = k1.fused_embedding_lookup(table, sparse, offsets)
 ids = k1.fused_ids(sparse, offsets).reshape(-1)
+# ids past both ends of the table, some far past: they add nothing
+ids[:8] = torch.tensor([-2 ** 31, 2 ** 31 - 1, -1, -7, 400_000, 400_003, -2 ** 20, 2 ** 30],
+                       dtype=torch.int32, device=dev)
 rows = torch.randn(ids.numel(), 32, generator=g, device=dev)
 out["k2"] = k2.table_grad(ids, rows, table.shape[0])
+# K7 at ContraRec's device-view shape: 3 x 1024 histories of 50 over the
+# [1,007,616, 64] table, padding 0 and a masked view's long run of one token
+hist = torch.randint(1, 1_000_000, (3 * 1024 * 50,), generator=g, device=dev, dtype=torch.int32)
+hist[torch.rand(hist.shape, generator=g, device=dev) < 0.1] = 0
+hist[torch.rand(hist.shape, generator=g, device=dev) < 0.165] = 999_999
+out["k7"] = k2.sorted_segment_accumulate(
+    hist, torch.randn(hist.numel(), 64, generator=g, device=dev), 1_007_616)
 # K3 with the dense stream
 mu = torch.randn(table.shape, generator=g, device=dev) * 1e-4
 nu = torch.rand(table.shape, generator=g, device=dev) * 1e-8

@@ -83,7 +83,7 @@ def test_plain_version_sums_in_batch_order():
         want[i] += r
     got = grad.table_grad(torch.from_numpy(ids), torch.from_numpy(rows), 50)
     np.testing.assert_array_equal(got.numpy(), want)
-    sorted_ids, perm = grad.sort_ids(torch.from_numpy(ids))
+    sorted_ids, perm = grad.sort_ids(torch.from_numpy(ids), 50)
     assert sorted_ids.dtype == perm.dtype == torch.int32
     np.testing.assert_array_equal(perm.numpy(), np.argsort(ids, kind="stable"))
 
