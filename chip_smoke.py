@@ -27,7 +27,10 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                encoder (K4f) within the tolerances at ``check_encoder``; its
                backward (K4b) and dropout forward against the plain version's
                autograd with the same dropout masks, within the tolerances at
-               ``check_encoder_bwd``, and the masks' seed and keep share.
+               ``check_encoder_bwd``, the forward's saved activations and
+               each launch of K4b against its stage's plain version
+               (``check_encoder_bwd_stages``), each launch timed alone
+               (``encoder_bwd_parts``), and the masks' seed and keep share.
 4. serving  -- DeepFM at the bench's full width (16 sparse fields x 100,000
                vocab, 9 dense, D=32, MLP (64, 64, 64)) from a checkpoint in
                the JAX package's layout, random weights from a seed: requests
@@ -109,6 +112,7 @@ from rec_pangu_tpu_torch.ops.embedding import check_ids, check_item_ids, padded_
 from rec_pangu_tpu_torch.ops.kernels import _build
 from rec_pangu_tpu_torch.ops.kernels import embedding_grad as grad
 from rec_pangu_tpu_torch.ops.kernels import embedding_lookup as lookup
+from rec_pangu_tpu_torch.ops.kernels import encoder_bwd as ebwd
 from rec_pangu_tpu_torch.ops.kernels import fused_adam as adam
 from rec_pangu_tpu_torch.ops.kernels import fused_encoder as encoder
 from rec_pangu_tpu_torch.ops.kernels import global_attn as gattn
@@ -1090,13 +1094,16 @@ def check_encoder(x, key_valid, enc: TransformerEncoder, causal: bool, what: str
 
 
 def library_encoder(enc: TransformerEncoder) -> torch.nn.TransformerEncoder:
-    """torch.nn.TransformerEncoder (post-LN, batch_first, tanh-gelu, dropout
-    0, the same eps) holding ``enc``'s weights."""
+    """torch.nn.TransformerEncoder (post-LN, batch_first, ``enc``'s
+    activation with gelu in its tanh form, dropout 0, the same eps) holding
+    ``enc``'s weights."""
     first = enc.blocks[0]
     dim, inner = first.query.weight.shape[0], first.ffn_1.weight.shape[0]
+    activation = {"relu": "relu",
+                  "gelu": lambda h: torch.nn.functional.gelu(h, approximate="tanh")}.get(
+                      enc.hidden_act, torch.nn.functional.silu)
     layer = torch.nn.TransformerEncoderLayer(
-        dim, enc.n_heads, dim_feedforward=inner, dropout=0.0,
-        activation=lambda h: torch.nn.functional.gelu(h, approximate="tanh"),
+        dim, enc.n_heads, dim_feedforward=inner, dropout=0.0, activation=activation,
         layer_norm_eps=enc.layer_norm_eps, batch_first=True, norm_first=False)
     lib = torch.nn.TransformerEncoder(layer, len(enc.blocks), enable_nested_tensor=False)
     lib = lib.to(first.query.weight.device).eval()
@@ -1345,13 +1352,108 @@ def check_encoder_bwd_relu(x, kv, enc: TransformerEncoder, what: str, rate: floa
     return out
 
 
+def rows_rel_err(got: torch.Tensor, want: torch.Tensor, rows: torch.Tensor) -> float:
+    """rel_err over the rows selected by the [R] bool ``rows``."""
+    if not bool(rows.any()):
+        return 0.0
+    return rel_err(got[rows], want[rows])
+
+
+def encoder_bwd_work(n: int, length: int, dim: int, inner: int, layers: int, packed) -> tuple:
+    """(flop, bytes) K4b needs from the saved activations: the weight and
+    the input gradients of every projection (twice the forward's products),
+    and the attention's backward (dv, dp, dq and dk: twice the forward's
+    L x L products) with the scores recomputed (half of them again); the
+    saved activations, dy and the mask read, dx and the gradients written,
+    the weights read once."""
+    proj = 2 * n * length * layers * (4 * dim * dim + 2 * dim * inner)
+    attn = 2 * n * length * layers * 2 * length * dim
+    flop = 2 * proj + 2 * attn + attn // 2
+    moved = (layers * encoder.saved_floats(n * length, dim, inner) + 2 * n * length * dim
+             + n * length) * 4 + 2 * sum(t.numel() * 4 for t in packed)
+    return flop, moved
+
+
+def encoder_bwd_parts(saved, kv, dy, packed, opts, launches: int = BWD_LAUNCHES) -> dict:
+    """Each launch of K4b alone (layer 0's R, A and W, the weight transposes
+    and the final ordered sum; ebwd.Stages): ms by launch."""
+    heads, causal, act, _, rate, attn_rate, seed = opts
+    stages = ebwd.Stages(saved, kv, dy, packed, heads, causal, act, rate, attn_rate, seed, 0)
+    stages.run(*stages.NAMES)  # once in order, so each launch reads written inputs
+    return {name: median_ms([fn], launches, 5) for name, fn in stages.calls.items()}
+
+
+def check_encoder_bwd_stages(x, kv, packed, opts, what: str) -> dict:
+    """K4f's saved activations and each launch of K4b against its plain
+    version (ops/kernels/encoder_bwd.py) on the same inputs: the training
+    forward's stores against the plain forward's values; the weight
+    transposes (equal); then from the last layer to the first, R on dy, A on
+    R's dctx and dpre1, W on their outputs, each array within BWD_REL_TOL of
+    its largest entry.  dy is zero on the query rows with no valid key (see
+    check_encoder_bwd); the forward's arrays are held on the rows with one.
+    The kernel's chunk plan must equal the plain version's.  Each launch
+    reads the card's outputs of the launch before it."""
+    heads, causal, act, eps, rate, attn_rate, seed = opts
+    N, L, D = x.shape
+    layers, inner = packed[0].shape[0], packed[2].shape[-1]
+    R = N * L
+    has = rows_with_key(kv, causal).reshape(R)
+    y, saved = encoder.launch_train(x, kv, packed, *opts, save=True)
+    ref_y, ref_saved = ebwd.train_forward_reference(x, kv, packed, *opts)
+    views, ref_views = (ebwd.saved_views(t, R, D, inner) for t in (saved, ref_saved))
+    out = {"case": what, "forward": {"y": rows_rel_err(y.reshape(R, D), ref_y.reshape(R, D), has)}}
+    for li in range(layers):
+        for name in ebwd.SAVED_NAMES:
+            out["forward"][f"{name}_{li}"] = rows_rel_err(views[li][name], ref_views[li][name],
+                                                          has)
+    for rows in (1, 255, 256, 257, R, 3 * R + 1):
+        if ebwd.kernel_rows_per_chunk(rows) != ebwd.wgrad_rows_per_chunk(rows):
+            raise RuntimeError(f"{what}: the kernel's chunk plan differs at {rows} rows")
+    gen = torch.Generator(device=x.device).manual_seed(seed + 3)
+    d = torch.randn(R, D, generator=gen, device=x.device) * has[:, None]
+    for li in range(layers - 1, -1, -1):
+        sv = views[li]
+        st = ebwd.Stages(saved, kv, d.view(N, L, D), packed, heads, causal, act, rate, attn_rate,
+                         seed, li)
+        st.run("transpose")
+        require_equal(st.wt, ebwd.transposed_weights_reference(packed),
+                      f"{what}: weight transposes")
+        st.run("rows")
+        r = {k: v.clone() for k, v in st.buf.items()}
+        want = ebwd.rows_backward_reference(d, sv, packed, li, L, act, rate, seed)
+        errs = {f"R_{k}": rel_err(r[k], want[k])
+                for k in ("dpre1", "dx1", "df", "dh", "dattn", "dctx", "ln_part")}
+        st.run("attention")
+        want_dx, want_dqkv = ebwd.attention_backward_reference(
+            sv, kv, r["dctx"], r["dpre1"], packed, li, heads, causal, attn_rate, seed)
+        errs.update(A_dx=rel_err(st.buf["dpre1"], want_dx),
+                    A_dqkv=rel_err(st.buf["dqkv"], want_dqkv))
+        st.run("wgrad", "sum")
+        want_g = ebwd.layer_grads_reference(sv, r["ln_part"], st.buf["dqkv"], r["dattn"],
+                                            r["dh"], r["df"], act)
+        errs.update({f"W_{k}": rel_err(v, want_g[k]) for k, v in st.layer_grads().items()})
+        out[f"layer_{li}"] = errs
+        d = st.buf["dpre1"].clone()
+    torch.cuda.synchronize()
+    worst = max(max(v.values()) for k, v in out.items() if k != "case")
+    out["max_rel_err"] = worst
+    if not math.isfinite(worst) or worst > BWD_REL_TOL:
+        raise RuntimeError(f"{what}: a K4b launch or K4f's saved activations differ from the "
+                           f"plain version: {out}")
+    return out
+
+
 def phase_fused_encoder_bwd(bandwidth: float, fp32: float) -> dict:
     """K4b (and K4f's dropout forward) against the plain version's autograd
     at the bench shape (prefix masks with empty histories, bench.py's
     0.9-density masks), dropout 0 and 0.1 from one seed, at edge shapes and
-    at IOCRec's (3072 views; gelu, and relu with dropout 0.5);
-    the dropout masks' seed dependence and keep share; times of the kernel's
-    backward, the plain backward and torch.nn.TransformerEncoder's."""
+    at IOCRec's (3072 views; gelu, and relu with dropout 0.5); each launch
+    against its stage's plain version at both shapes and at two shapes
+    whose widths are no multiple of 4; the dropout masks'
+    seed dependence and keep share; times of the kernel's backward (whole
+    and launch by launch), the training forward with and without its
+    stores, the plain backward and torch.nn.TransformerEncoder's, at both
+    shapes."""
     t_start = time.perf_counter()
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED + 43)
@@ -1379,14 +1481,14 @@ def phase_fused_encoder_bwd(bandwidth: float, fp32: float) -> dict:
         e = random_encoder(dim, n_heads, inner, layers, act, SEED + 45, dev)
         cases.append(check_encoder_bwd(x_of(256, SEQ_L, dim), prefix_masks(256, SEQ_L, gen), e,
                                        causal, f"D={dim} heads={n_heads} {act} causal={causal}"))
-    # the widest shape: its backward arena exceeds shared memory and lies in
-    # device memory instead
+    # the widest shape: its rows launch stages W1 and W2 (512 KB) through
+    # shared memory 32 rows at a time
     e = random_encoder(128, heads, 512, layers, "gelu", SEED + 46, dev)
     cases.append(check_encoder_bwd(x_of(64, 64, 128), prefix_masks(64, 64, gen), e, True,
-                                   "D=128 inner=512 L=64 (arena in device memory)"))
+                                   "D=128 inner=512 L=64"))
     # IOCRec's local encoder: 3 layers of 2 heads, inner 128, 3072 views, every
-    # key valid (its arena lies in device memory at this N); gelu without
-    # dropout, and IOCRec's own relu, eps 1e-12 and dropout 0.5
+    # key valid; gelu without dropout, and IOCRec's own relu, eps 1e-12 and
+    # dropout 0.5
     ioc_shape = (IOC_VIEWS, SEQ_L, SEQ_DIM)
     x_ioc, kv_ioc = x_of(*ioc_shape), torch.ones(IOC_VIEWS, SEQ_L, device=dev)
     e = random_encoder(SEQ_DIM, 2, 128, 3, "gelu", SEED + 47, dev)
@@ -1395,6 +1497,24 @@ def phase_fused_encoder_bwd(bandwidth: float, fp32: float) -> dict:
     e = random_encoder(SEQ_DIM, 2, 128, 3, "relu", SEED + 47, dev, IOC_CONFIG["layer_norm_eps"])
     cases.append(check_encoder_bwd_relu(x_ioc, kv_ioc, e, "IOCRec shape, relu, eps 1e-12, "
                                         f"dropout {IOC_DROP}", IOC_DROP))
+    # each launch against its stage's plain version, at both shapes
+    packed_ioc = [t.detach() for t in e.packed()]
+    ioc_opts = (2, True, "relu", 1e-12, IOC_DROP, IOC_DROP, 7)
+    stages = [check_encoder_bwd_stages(x, masks["prefix"], [t.detach() for t in enc.packed()],
+                                       (heads, True, "gelu", enc.layer_norm_eps, DROP, DROP, 7),
+                                       "stages, bench shape, prefix masks"),
+              check_encoder_bwd_stages(x_ioc, kv_ioc, packed_ioc, ioc_opts,
+                                       "stages, IOCRec shape, relu, dropout 0.5")]
+    # widths that are no multiple of 4 (D, dh, inner): the launches' unaligned paths
+    for n, length, dim, n_heads, inner_w, causal in ((33, 13, 36, 3, 18, False),
+                                                     (5, 7, 6, 2, 10, True)):
+        eo = random_encoder(dim, n_heads, inner_w, layers, "gelu", SEED + 48, dev)
+        xo, kvo = x_of(n, length, dim), prefix_masks(n, length, gen)
+        what = f"D={dim} heads={n_heads} inner={inner_w} L={length} causal={causal}"
+        cases.append(check_encoder_bwd(xo, kvo, eo, causal, what))
+        stages.append(check_encoder_bwd_stages(
+            xo, kvo, [t.detach() for t in eo.packed()],
+            (n_heads, causal, "gelu", eo.layer_norm_eps, DROP, DROP, 7), f"stages, {what}"))
 
     # the masks: another seed changes them; the keep share at the bench shape
     kv = masks["prefix"]
@@ -1452,6 +1572,8 @@ def phase_fused_encoder_bwd(bandwidth: float, fp32: float) -> dict:
         "ms_no_dropout": median_ms(backward_calls(0.0), BWD_LAUNCHES),
         "forward_ms": median_ms([lambda: encoder.launch_train(x, kv, packed, *opts, DROP, DROP,
                                                               7, save=True)]),
+        "forward_no_save_ms": median_ms([lambda: encoder.launch_train(
+            x, kv, packed, *opts, DROP, DROP, 7, save=False)]),
         "fwd_bwd_ms": median_ms(fwd_bwd(kernel, grad_packed), BWD_LAUNCHES),
         "plain_fwd_bwd_ms": median_ms(fwd_bwd(plain, grad_packed), BWD_LAUNCHES),
         "plain_forward_ms": median_ms(forward(plain), BWD_LAUNCHES),
@@ -1460,25 +1582,44 @@ def phase_fused_encoder_bwd(bandwidth: float, fp32: float) -> dict:
     }
     times["plain_ms"] = times["plain_fwd_bwd_ms"] - times["plain_forward_ms"]
     times["library_ms"] = times["library_fwd_bwd_ms"] - times["library_forward_ms"]
-    # at IOCRec's shape and rates (relu, eps 1e-12, dropout 0.5)
-    e = random_encoder(SEQ_DIM, 2, 128, 3, "relu", SEED + 47, dev)
-    packed_ioc = [t.detach() for t in e.packed()]
-    ioc_opts = (2, True, "relu", 1e-12, IOC_DROP, IOC_DROP, 7)
+    _, saved = encoder.launch_train(x, kv, packed, *opts, DROP, DROP, 7, save=True)
+    times["parts"] = encoder_bwd_parts(saved, kv, dy, packed, (*opts, DROP, DROP, 7))
+    times["saved_bytes"] = saved.numel() * 4
+    del saved
+    # at IOCRec's shape and rates (relu, eps 1e-12, dropout 0.5), and
+    # torch.nn.TransformerEncoder there without dropout
     _, saved_ioc = encoder.launch_train(x_ioc, kv_ioc, packed_ioc, *ioc_opts, save=True)
     dy_ioc = torch.randn(ioc_shape, generator=gen, device=dev)
     times["iocrec_shape_ms"] = median_ms(
         [lambda: encoder.launch_backward(saved_ioc, kv_ioc, dy_ioc, packed_ioc, *ioc_opts)], 5, 5)
+    times["iocrec_shape_parts"] = encoder_bwd_parts(saved_ioc, kv_ioc, dy_ioc, packed_ioc,
+                                                    ioc_opts, 5)
+    times["iocrec_shape_saved_bytes"] = saved_ioc.numel() * 4
+    del saved_ioc
     times["iocrec_shape_forward_ms"] = median_ms(
         [lambda: encoder.launch_train(x_ioc, kv_ioc, packed_ioc, *ioc_opts, save=True)], 5, 5)
-    ioc_flop, _ = encoder_work(*ioc_shape, 128, 3, packed_ioc)
-    times["iocrec_shape_bound_ms"] = 3 * ioc_flop / fp32 * 1e3
-    del saved_ioc, dy_ioc
-    flop, moved = encoder_work(SEQ_BATCH, SEQ_L, SEQ_DIM, inner, layers, packed)
-    flop *= 3  # the recomputed forward, then the weight and the input gradients
-    n_el = SEQ_BATCH * SEQ_L * SEQ_DIM
-    # each layer's saved input, dy and the mask read; dx and the gradients written
-    moved = (layers + 2) * n_el * 4 + SEQ_BATCH * SEQ_L * 4 + 2 * sum(t.numel() * 4
-                                                                      for t in packed)
+    times["iocrec_shape_forward_no_save_ms"] = median_ms(
+        [lambda: encoder.launch_train(x_ioc, kv_ioc, packed_ioc, *ioc_opts, save=False)], 5, 5)
+    ioc_lib = library_encoder(e).train()
+    ioc_lib_params = list(ioc_lib.parameters())
+    ioc_mask = encoder.additive_mask(kv_ioc, True)[:, 0].repeat_interleave(2, dim=0)
+
+    def ioc_fwd_bwd():
+        xs = x_ioc.detach().requires_grad_()
+        torch.autograd.grad(ioc_lib(xs, mask=ioc_mask), [xs] + ioc_lib_params, dy_ioc)
+
+    def ioc_forward():
+        with torch.no_grad():
+            ioc_lib(x_ioc, mask=ioc_mask)
+
+    times["iocrec_shape_library_fwd_bwd_ms"] = median_ms([ioc_fwd_bwd], 5, 5)
+    times["iocrec_shape_library_forward_ms"] = median_ms([ioc_forward], 5, 5)
+    times["iocrec_shape_library_ms"] = (times["iocrec_shape_library_fwd_bwd_ms"]
+                                        - times["iocrec_shape_library_forward_ms"])
+    del dy_ioc, ioc_lib, ioc_lib_params
+    ioc_flop, ioc_moved = encoder_bwd_work(IOC_VIEWS, SEQ_L, SEQ_DIM, 128, 3, packed_ioc)
+    times["iocrec_shape_bound_ms"] = max(ioc_flop / fp32, ioc_moved / bandwidth) * 1e3
+    flop, moved = encoder_bwd_work(SEQ_BATCH, SEQ_L, SEQ_DIM, inner, layers, packed)
     by_ops, by_bytes = flop / fp32 * 1e3, moved / bandwidth * 1e3
     return {
         "name": "fused_encoder_bwd", "route": "cuda",
@@ -1492,7 +1633,9 @@ def phase_fused_encoder_bwd(bandwidth: float, fp32: float) -> dict:
         **times, "bound_ms": max(by_ops, by_bytes),
         "bound_by": "operations" if by_ops >= by_bytes else "bytes",
         "library": "torch.nn.TransformerEncoder backward, dropout 0 (ms: K4b alone; "
-                   "plain_ms and library_ms: forward+backward minus forward)",
+                   "plain_ms and library_ms: forward+backward minus forward; at IOCRec's "
+                   "shape relu, 2 heads, inner 128, 3 layers, eps 1e-12)",
+        "stages": stages,
         "flop": flop, "bytes": moved, "ops_bound_ms": by_ops, "bytes_bound_ms": by_bytes,
         "keep_share": keep_share, "masks_drawn": drawn, "seed_changes_masks": seed_changes,
         "shape": {"N": SEQ_BATCH, "L": SEQ_L, "D": SEQ_DIM, "heads": heads, "inner": inner,
@@ -3088,6 +3231,12 @@ def main() -> int:
         if line["name"] in ("embedding_lookup", "fused_adam", "fused_encoder",
                             "fused_encoder_bwd", "global_attn"):
             line["launches_iocrec_training"] = ioc_training["launches"][line["name"]]
+        if line["name"] == "fused_encoder_bwd":  # its launches' times and the forward's stores
+            row = next(r for r in rows if r["name"] == "fused_encoder_bwd")
+            line.update({k: row[k] for k in (
+                "parts", "forward_ms", "forward_no_save_ms", "saved_bytes", "fwd_bwd_ms",
+                "library_fwd_bwd_ms", "iocrec_shape_ms", "iocrec_shape_parts",
+                "iocrec_shape_library_ms", "iocrec_shape_bound_ms")})
         if line["name"] in BERT_KERNELS + BERT_STEP_KERNELS:
             for name, m_training in contrastive.items():
                 line[f"launches_{name.lower()}_training"] = m_training["launches"][line["name"]]

@@ -30,10 +30,13 @@ Training (``train=True``) adds inverted dropout at the flax block's three
 places (the attention probabilities, the output projection and the FFN
 output, each before it is used or added to its residual) and a backward.  On
 the card the forward is the training kernel of the same source (K4f in
-training mode), which also keeps each layer's input, and autograd's backward
-is K4b (``_bwd_kernel``): per sample and layer it recomputes the layer from
-its input and runs the layer's backward, summing the parameter gradients in
-a fixed order (no atomics: the same bits every run).  The dropout masks are
+training mode), which also keeps the activations the backward needs (about
+0.11 MB a sample and layer at the bench shape), and autograd's backward is
+K4b (``_bwd_kernel``): from the last layer to the first, three launches over
+the whole batch (the rows' LayerNorm and FFN part, the attention a sample at
+a time, the weight gradients over fixed chunks of rows), then the chunks'
+partial sums added in a fixed order (no atomics: the same bits every run);
+``encoder_bwd.py`` has each stage and its plain version.  The dropout masks are
 a counter-based hash of (seed, sample, layer, site, element) that the
 kernels and ``dropout_scale`` below compute alike, so the card and the CPU
 draw the same masks for a seed; the TPU kernel's on-chip bits cannot be
@@ -314,17 +317,23 @@ def _shape_args(x, packed, n_heads, causal, act, eps) -> tuple:
     return (N, L, D, layers, n_heads, inner, int(bool(causal)), ACTIVATIONS[act], float(eps))
 
 
+def saved_floats(rows: int, D: int, inner: int) -> int:
+    """Floats of one layer's saved activations over ``rows = N * L`` rows
+    (``encoder_bwd.saved_views``)."""
+    return rows * (8 * D + inner + 2)
+
+
 def launch_train(x: torch.Tensor, key_valid: torch.Tensor, packed: Sequence[torch.Tensor],
                  n_heads: int, causal: bool, act: str, eps: float, hidden_dropout: float,
                  attn_dropout: float, seed: int, save: bool):
-    """One launch of the training forward on checked CUDA inputs: (y, each
-    layer's input [layers, N, L, D] when ``save``, else None)."""
+    """One launch of the training forward on checked CUDA inputs: (y, the
+    activations K4b reads [layers, saved_floats] when ``save``, else None)."""
     global LAUNCHES
     shape = _shape_args(x, packed, n_heads, causal, act, eps)
-    N, layers = shape[0], shape[3]
+    N, L, D, layers, inner = shape[0], shape[1], shape[2], shape[3], shape[5]
     kv = key_valid.to(torch.float32).contiguous()
     y = torch.empty_like(x)
-    saved = x.new_empty((layers,) + tuple(x.shape)) if save else None
+    saved = x.new_empty(layers, saved_floats(N * L, D, inner)) if save else None
     if N == 0:
         return y, saved
     fn = _train_kernel()
@@ -342,22 +351,25 @@ def launch_train(x: torch.Tensor, key_valid: torch.Tensor, packed: Sequence[torc
 def launch_backward(saved: torch.Tensor, key_valid: torch.Tensor, dy: torch.Tensor,
                     packed: Sequence[torch.Tensor], n_heads: int, causal: bool, act: str,
                     eps: float, hidden_dropout: float, attn_dropout: float, seed: int):
-    """K4b on CUDA inputs: (dx [N, L, D], the 8 packed arrays' gradients)."""
+    """K4b on CUDA inputs, from the training forward's ``saved``: (dx [N, L,
+    D], the 8 packed arrays' gradients)."""
     global BACKWARD_LAUNCHES
-    x = saved[0]
-    shape = _shape_args(x, packed, n_heads, causal, act, eps)
-    N, L, D, layers, inner = shape[0], shape[1], shape[2], shape[3], shape[5]
-    kv = key_valid.to(torch.float32).contiguous()
     dy = dy.to(torch.float32).contiguous()
-    dx = torch.empty_like(x)
-    grads = torch.empty(sum(t.numel() for t in packed), dtype=torch.float32, device=x.device)
+    shape = _shape_args(dy, packed, n_heads, causal, act, eps)
+    N, L, D, layers, inner = shape[0], shape[1], shape[2], shape[3], shape[5]
+    if saved.shape != (layers, saved_floats(N * L, D, inner)) or not saved.is_contiguous():
+        raise ValueError(f"saved must be the training forward's contiguous [{layers}, "
+                         f"{saved_floats(N * L, D, inner)}], got {tuple(saved.shape)}")
+    kv = key_valid.to(torch.float32).contiguous()
+    dx = torch.empty_like(dy)
+    grads = torch.empty(sum(t.numel() for t in packed), dtype=torch.float32, device=dy.device)
     if N == 0:
         grads.zero_()
     else:
         fn, words = _bwd_kernel()
-        work = torch.empty(words(N, L, D, layers, inner), dtype=torch.float32, device=x.device)
-        with torch.cuda.device(x.device):
-            stream = torch.cuda.current_stream(x.device).cuda_stream
+        work = torch.empty(words(N, L, D, layers, inner), dtype=torch.float32, device=dy.device)
+        with torch.cuda.device(dy.device):
+            stream = torch.cuda.current_stream(dy.device).cuda_stream
             err = fn(saved.data_ptr(), kv.data_ptr(), dy.data_ptr(),
                      *(t.data_ptr() for t in packed), dx.data_ptr(), grads.data_ptr(),
                      work.data_ptr(), work.numel(), *shape,

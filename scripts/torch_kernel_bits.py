@@ -10,10 +10,14 @@ It checks a change that claims to leave the kernels' results alone, such
 as a refactor of shared CUDA code.  Needs one CUDA card.
 
     mkdir -p _archive/parent && git archive HEAD | tar -x -C _archive/parent
-    python3 scripts/torch_kernel_bits.py _archive/parent
+    python3 scripts/torch_kernel_bits.py _archive/parent [--changed=PREFIX ...] [--rel-tol=T]
 
-The second tree is this checkout unless a second path is given.  Temporary
-result files go to ``chiprun_out/`` and are removed.
+The second tree is this checkout unless a second path is given.  A change
+that reorders one kernel's sums names its outputs with ``--changed`` (e.g.
+``--changed=k4b_``): those may differ, each by at most ``--rel-tol``
+(default 1e-5) of the array's largest entry, and their largest relative
+difference is reported.  Temporary result files go to ``chiprun_out/`` and
+are removed.
 """
 import json
 import os
@@ -105,19 +109,29 @@ def run(tree: str, path: str) -> dict:
 
 
 def main(argv) -> int:
-    if len(argv) not in (2, 3):
+    options = [a for a in argv[1:] if a.startswith("--")]
+    paths = [a for a in argv[1:] if not a.startswith("--")]
+    changed = tuple(a.split("=", 1)[1] for a in options if a.startswith("--changed="))
+    rel_tol = float(next((a.split("=", 1)[1] for a in options if a.startswith("--rel-tol=")),
+                         1e-5))
+    if len(paths) not in (1, 2):
         print(__doc__, file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("torch_kernel_bits: CUDA is not available", file=sys.stderr)
         return 1
-    trees = (argv[1], argv[2] if len(argv) == 3 else ROOT)
+    trees = (paths[0], paths[1] if len(paths) == 2 else ROOT)
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     first, second = (run(t, os.path.join(out_dir, f"bits_{i}.pt")) for i, t in enumerate(trees))
     same = {k: bool(torch.equal(first[k], second[k])) for k in first}
-    print(json.dumps({"trees": trees, "bit_equal": same}))
-    return 0 if all(same.values()) else 1
+    rel = {k: ((second[k] - first[k]).abs().max() / first[k].abs().max().clamp(min=1e-30)).item()
+           for k in first if k.startswith(changed) and changed}
+    ok = all(v or k.startswith(changed) and changed for k, v in same.items())
+    ok = ok and all(v <= rel_tol for v in rel.values())
+    print(json.dumps({"trees": trees, "bit_equal": same, "changed_max_rel_diff": rel,
+                      "rel_tol": rel_tol}))
+    return 0 if ok else 1
 
 
 if __name__ == "__main__":
