@@ -30,7 +30,9 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                ``check_encoder_bwd``, the forward's saved activations and
                each launch of K4b against its stage's plain version
                (``check_encoder_bwd_stages``), each launch timed alone
-               (``encoder_bwd_parts``), and the masks' seed and keep share.
+               (``encoder_bwd_parts``), and the masks' seed and keep share;
+               the K-max CE (K5f, K5b) and each of K5b's launches against
+               its stage's plain version (``check_multimax_stages``).
 4. serving  -- DeepFM at the bench's full width (16 sparse fields x 100,000
                vocab, 9 dense, D=32, MLP (64, 64, 64)) from a checkpoint in
                the JAX package's layout, random weights from a seed: requests
@@ -2498,7 +2500,9 @@ def check_multimax(u, items, valid_v: int, zero_row0: bool, what: str) -> dict:
     del du2, di2
     ref_du, ref_di = mmce.multimax_grads_reference(u, items, lse, valid_v, zero_row0)
     torch.cuda.synchronize()
-    out = {"case": what, "lse": rel_err(lse, ref_lse), "du": rel_err(du, ref_du),
+    B, K, D = u.shape
+    out = {"case": what, "chunks": mmce.grads_plan(B, K, D, items.shape[0]).chunks,
+           "lse": rel_err(lse, ref_lse), "du": rel_err(du, ref_du),
            "d_items": rel_err(di, ref_di),
            "padding_and_row0_zero": not bool(di[valid_v:].any())
            and not (zero_row0 and bool(di[0].any()))}
@@ -2509,13 +2513,117 @@ def check_multimax(u, items, valid_v: int, zero_row0: bool, what: str) -> dict:
     return out
 
 
+def mm_key_flips(u, items, base: int, ks, ks_ref, p_ref) -> int:
+    """(b, v) of a chunk whose k* differs from the plain version's, where p
+    is not 0; each must be a near-tie: its two interests' scores, in
+    float64, within twice float32's rounding bound of a D-term dot product
+    (D 2^-24 of the sum of |u_d item_d|) of each other."""
+    diff = (ks != ks_ref) & (p_ref > 0)
+    flips = int(diff.sum())
+    if flips:
+        b, v = diff.nonzero(as_tuple=True)
+        rows = items[base + v].double()
+        ua, ub = u[b, ks[b, v].long()].double(), u[b, ks_ref[b, v].long()].double()
+        bound = 2 * u.shape[2] * 2.0 ** -24 * torch.maximum((ua * rows).abs().sum(-1),
+                                                             (ub * rows).abs().sum(-1))
+        gap = ((ua - ub) * rows).sum(-1).abs()
+        if bool((gap > bound).any()):
+            raise RuntimeError(f"k* differs from the plain version's by more than a rounding "
+                               f"at {int((gap > bound).sum())} of {flips} pairs")
+    return flips
+
+
+def check_multimax_stages(u, items, valid_v: int, zero_row0: bool, what: str) -> dict:
+    """Each launch of K5b against its stage's plain version, chunk by chunk
+    of the plan: P's p within MM_REL_TOL of its largest entry and k* equal
+    but at near-ties (mm_key_flips) against ``pairs_reference``, on the
+    columns P writes (the tiles up to the last valid item's); U's partials
+    summed by S, within MM_REL_TOL of the chunk's du's largest entry; D's
+    d_items rows against ``items_reference`` on the card's own p and k*,
+    within MM_REL_TOL, zero past the valid tiles, no row outside the chunk
+    written.  The plan's words agree with the library's."""
+    B, K, D = u.shape
+    rows = items.shape[0]
+    plan = mmce.grads_plan(B, K, D, rows)
+    _, (_, words, _) = mmce._functions()
+    if words(B, K, D, rows, plan.chunk_tiles, plan.tiles_per_split) != plan.words:
+        raise RuntimeError(f"{what}: the library's workspace words differ from the plan's")
+    lse = mmce.multimax_lse(u, items, valid_v, zero_row0)
+    work = torch.empty(plan.words, device=u.device)
+    p_ws, ks_ws, _ = mmce.workspace_views(work, B, K, D, plan)
+    out = {"case": what, "plan": plan._asdict(), "p": 0.0, "du": 0.0, "d_items": 0.0,
+           "k_flips": 0, "pairs": 0}
+    # P writes the pairs of the tiles that hold valid items, D reads them
+    valid_end = -(-valid_v // mmce.ITEM_TILE) * mmce.ITEM_TILE
+    for c in range(plan.chunks):
+        base = c * plan.chunk_items
+        count = min(plan.chunk_items, rows - base)
+        live = max(0, min(count, valid_end - base))
+        d_items = torch.full_like(items, math.nan)
+        if live:
+            du = torch.empty_like(u)
+            for stage in range(3):
+                mmce.launch_grads_stage(u, items, lse, valid_v, zero_row0, plan, work, c, stage,
+                                        du)
+            p, ks = p_ws[:, :live], ks_ws[:, :live]
+            p_ref, ks_ref, du_ref = mmce.pairs_reference(u, items[base:base + live], base, lse,
+                                                         valid_v, zero_row0)
+            out["p"] = max(out["p"], rel_err(p, p_ref))
+            out["du"] = max(out["du"], rel_err(du, du_ref))
+            out["k_flips"] += mm_key_flips(u, items, base, ks, ks_ref, p_ref)
+            out["pairs"] += p.numel()
+            want = mmce.items_reference(u, p, ks)
+            del p_ref, ks_ref
+        mmce.launch_grads_stage(u, items, lse, valid_v, zero_row0, plan, work, c, 3, d_items)
+        torch.cuda.synchronize()
+        got = d_items[base:base + count]
+        if live and bool(want.any()):
+            out["d_items"] = max(out["d_items"], rel_err(got[:live], want))
+        if bool(got[live:].any()) or not bool(torch.isfinite(got).all()):
+            raise RuntimeError(f"{what}: D of chunk {c} wrote non-zeros past the valid items' "
+                               f"tiles, or non-finite values")
+        outside = torch.cat([d_items[:base], d_items[base + count:]])
+        if not bool(torch.isnan(outside).all()):
+            raise RuntimeError(f"{what}: D of chunk {c} wrote outside its rows")
+    if max(out["p"], out["du"], out["d_items"]) > MM_REL_TOL:
+        raise RuntimeError(f"{what}: a K5b stage differs from its plain version: {out}")
+    return out
+
+
+def mm_bwd_parts(u, items, lse, valid_v: int, zero_row0: bool) -> dict:
+    """Each launch of K5b alone, over every chunk of the plan as K5b runs
+    them: P (p and k*), U (partial du), S (du summed), D (d_items); ms a
+    call."""
+    B, K, D = u.shape
+    plan = mmce.grads_plan(B, K, D, items.shape[0])
+    work = torch.empty(plan.words, device=u.device)
+    du, d_items = torch.empty_like(u), torch.empty_like(items)
+    outs = (None, None, du, d_items)
+
+    def stage(s):
+        def call():
+            for c in range(plan.chunks):
+                if s == 3 or c * plan.chunk_items < valid_v:
+                    mmce.launch_grads_stage(u, items, lse, valid_v, zero_row0, plan, work, c, s,
+                                            outs[s], accumulate=c > 0)
+        return call
+
+    stage(0)()  # pairs for U and D to read
+    stage(1)()
+    return {name: median_ms([stage(s)], MM_LAUNCHES, 3) for s, name in enumerate("PUSD")}
+
+
 def phase_multimax_ce(bandwidth: float, fp32: float) -> tuple:
     """K5f and K5b against their plain versions at the bench shape (1024
     users x 4 interests x 64 against the raw [1,007,616, 64] table, 1,000,000
-    valid items, row 0 read as zero) and at edge shapes (odd item counts, one
-    valid item, K=1 and 3, D=24 and 128, all interests equal); times of the
-    kernels and the plain versions (no PyTorch call computes the K-max CE).
-    Returns the two kernel rows."""
+    valid items, row 0 read as zero; K5b in 5 workspace chunks) and at edge
+    shapes (odd item counts, one valid item, K=1 and 3, D=24 and 128, all
+    interests equal; valid_v on a chunk boundary at the bench shape; other
+    tables of several chunks, with more users, valid_v on a chunk boundary
+    and inside a tile); each launch of K5b against its
+    stage's plain version (check_multimax_stages); times of the kernels,
+    K5b's launches (mm_bwd_parts) and the plain versions (no PyTorch call
+    computes the K-max CE).  Returns the two kernel rows."""
     t_start = time.perf_counter()
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED + 110)
@@ -2538,6 +2646,27 @@ def phase_multimax_ce(bandwidth: float, fp32: float) -> tuple:
     du, _ = mmce.multimax_grads(same, tie_items, lse, 3001, True)
     if bool(du[:, 1:].any()) or not bool(du[:, 0].any()):
         raise RuntimeError("all interests equal: the gradient left the lowest interest")
+    # chunk boundaries: the bench table with valid_v on its last boundary (the
+    # last chunk holds padding alone), and other tables of several chunks
+    # (user counts no multiple of the user tile; valid_v None: on the last
+    # chunk's boundary)
+    plan = mmce.grads_plan(SEQ_BATCH, 4, SEQ_DIM, rows)
+    edge = (plan.chunks - 1) * plan.chunk_items
+    cases.append(check_multimax(u, table, edge, True, f"bench shape, valid_v={edge} on a "
+                                                      f"chunk boundary"))
+    stages = [check_multimax_stages(u, table, SEQ_VOCAB, True, "bench shape")]
+    for b, k, dim, n, valid, z0 in ((4100, 3, 24, 150_000, None, True),
+                                    (3000, 4, SEQ_DIM, 80_000, 70_001, False),
+                                    (2100, 4, 128, 120_000, 120_000, True)):
+        uu = torch.randn(b, k, dim, generator=gen, device=dev) * 0.5
+        items = torch.randn(n, dim, generator=gen, device=dev)
+        plan = mmce.grads_plan(b, k, dim, n)
+        valid = valid or (plan.chunks - 1) * plan.chunk_items
+        what = (f"B={b} K={k} D={dim} rows={n} valid={valid} row0={z0}, {plan.chunks} chunks "
+                f"of {plan.chunk_tiles} tiles")
+        cases.append(check_multimax(uu, items, valid, z0, what))
+        stages.append(check_multimax_stages(uu, items, valid, z0, what))
+        del uu, items
 
     lse = mmce.multimax_lse(u, table, SEQ_VOCAB, True)
     t = {"fwd": median_ms([lambda: mmce.launch_lse(u, table, SEQ_VOCAB, True)], MM_LAUNCHES, 5),
@@ -2547,14 +2676,19 @@ def phase_multimax_ce(bandwidth: float, fp32: float) -> tuple:
                                 MM_LAUNCHES, 3),
          "plain_bwd": median_ms([lambda: mmce.multimax_grads_reference(u, table, lse, SEQ_VOCAB,
                                                                          True)], MM_LAUNCHES, 3)}
+    parts = mm_bwd_parts(u, table, lse, SEQ_VOCAB, True)
     flop = mm_work(SEQ_BATCH, 4, SEQ_DIM, SEQ_VOCAB)
     u_bytes, table_bytes, lse_bytes = u.numel() * 4, table.numel() * 4, SEQ_BATCH * 4
+    # p (f32) and k* (u8) of each valid tile's pairs, written once by P and
+    # read twice, by U and by D
+    pairs = SEQ_BATCH * min(-(-SEQ_VOCAB // mmce.ITEM_TILE) * mmce.ITEM_TILE, rows)
+    workspace_bytes = 3 * pairs * 5
     out = []
     for name, work, moved, ms, plain_ms, replaces, errs in (
             ("multimax_ce", flop, u_bytes + table_bytes + lse_bytes, t["fwd"], t["plain_fwd"],
              "rec_pangu_tpu/ops/kernels/multimax_ce.py:72", ("lse",)),
             ("multimax_ce_bwd", mm_bwd_work(SEQ_BATCH, 4, SEQ_DIM, SEQ_VOCAB),
-             2 * (u_bytes + table_bytes) + lse_bytes, t["bwd"],
+             2 * (u_bytes + table_bytes) + lse_bytes + workspace_bytes, t["bwd"],
              t["plain_bwd"], "rec_pangu_tpu/ops/kernels/multimax_ce.py:103",
              ("du", "d_items"))):
         by_ops, by_bytes = work / fp32 * 1e3, moved / bandwidth * 1e3
@@ -2570,7 +2704,9 @@ def phase_multimax_ce(bandwidth: float, fp32: float) -> tuple:
             "flop": work, "bytes": moved, "ops_bound_ms": by_ops, "bytes_bound_ms": by_bytes,
             "shape": {"B": SEQ_BATCH, "K": 4, "D": SEQ_DIM, "table_rows": rows,
                       "valid_items": SEQ_VOCAB, "zero_row0": True}})
-    out[1].update({"cases": cases, "seconds": time.perf_counter() - t_start})
+    out[1].update({"parts": parts, "workspace_bytes": workspace_bytes,
+                   "workspace_words": plan.words, "plan": plan._asdict(), "cases": cases,
+                   "stages": stages, "seconds": time.perf_counter() - t_start})
     return tuple(out)
 
 
@@ -2674,11 +2810,14 @@ def phase_model_training(path: str, enc_dict: dict, ckpt_dir: str, name: str, co
     setup_s = time.perf_counter() - t_start
 
     # the main path: every count is 0 just before it and read just after
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
     reset_launches()
     t0 = time.perf_counter()
     times, losses = timed_seq_fit(trainer, model, train_loader, valid_loader, epochs, device)
     fit_s = time.perf_counter() - t0
     launches = read_launches()
+    peak = torch.cuda.max_memory_allocated() if device == "cuda" else None
     steps, evals = epochs * FIT_TRAIN_BATCHES, epochs * FIT_VALID_BATCHES
     require_launches(launches, {**{k: steps for k in per_step},
                                 **{k: steps + evals for k in per_batch}}, f"{name} fused fit")
@@ -2699,7 +2838,7 @@ def phase_model_training(path: str, enc_dict: dict, ckpt_dir: str, name: str, co
         "steps_per_epoch": FIT_TRAIN_BATCHES, "valid_batches": FIT_VALID_BATCHES, "lr": LR,
         "launches": launches, "fused": step_stats(times, SEQ_BATCH), "fit_s": fit_s,
         "setup_s": setup_s, "loss_first3": first, "loss_last3": last, "losses": losses,
-        "files": files,
+        "files": files, "peak_allocated_bytes": peak,
     }
     if std_steps:  # the standard step: K2 for K3, torch.optim.Adam over the table
         loader = DataLoader(_SeqArrays({k: v[:std_steps * SEQ_BATCH] for k, v in
@@ -3237,6 +3376,8 @@ def main() -> int:
                 "parts", "forward_ms", "forward_no_save_ms", "saved_bytes", "fwd_bwd_ms",
                 "library_fwd_bwd_ms", "iocrec_shape_ms", "iocrec_shape_parts",
                 "iocrec_shape_library_ms", "iocrec_shape_bound_ms")})
+        if line["name"] == "multimax_ce_bwd":  # its launches' times
+            line["parts"] = next(r for r in rows if r["name"] == "multimax_ce_bwd")["parts"]
         if line["name"] in BERT_KERNELS + BERT_STEP_KERNELS:
             for name, m_training in contrastive.items():
                 line[f"launches_{name.lower()}_training"] = m_training["launches"][line["name"]]

@@ -147,16 +147,16 @@ def ptxas_report(source) -> list:
             if "registers" in line or "spill" in line or "Compiling entry" in line]
 
 
-def build_sources(sources: dict) -> dict:
+def build_sources(sources: dict, out_dir: str = OUT) -> dict:
     """name -> the loaded library of each source text, built in parallel
-    (the shared headers from this tree's csrc/)."""
-    os.makedirs(OUT, exist_ok=True)
+    into ``out_dir`` (the shared headers from this tree's csrc/)."""
+    os.makedirs(out_dir, exist_ok=True)
     procs = {}
     for name, text in sources.items():
-        path = os.path.join(OUT, f"{name}.cu")
+        path = os.path.join(out_dir, f"{name}.cu")
         with open(path, "w") as f:
             f.write(text)
-        lib = os.path.join(OUT, f"lib{name}.so")
+        lib = os.path.join(out_dir, f"lib{name}.so")
         cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC_DIR), "-o", lib, path]
         procs[name] = (subprocess.Popen(cmd, stderr=subprocess.PIPE, text=True), lib)
     libs = {}
