@@ -165,6 +165,9 @@ _BANDWIDTH = (("H100 PCIe", 2.0e12), ("H100 NVL", 3.9e12), ("H200", 4.8e12),
               ("H100", 3.35e12))
 # data-sheet float32 rate outside the tensor cores (FLOP/s)
 _FP32_PEAK = (("H100 PCIe", 51e12), ("H100 NVL", 60e12), ("H200", 67e12), ("H100", 67e12))
+# data-sheet dense TF32 tensor-core rate (FLOP/s)
+_TF32_PEAK = (("H100 PCIe", 378e12), ("H100 NVL", 417.5e12), ("H200", 495e12),
+              ("H100", 495e12))
 
 
 def emit(obj) -> None:
@@ -184,6 +187,10 @@ def peak_bandwidth(name: str) -> float:
 
 def peak_fp32(name: str) -> float:
     return _lookup_rate(_FP32_PEAK, name, "float32 rate")
+
+
+def peak_tf32(name: str) -> float:
+    return _lookup_rate(_TF32_PEAK, name, "TF32 tensor-core rate")
 
 
 def median_ms(fns, launches: int = 100, reps: int = TIMING_REPS) -> float:
@@ -2489,7 +2496,9 @@ def mm_bwd_work(batch: int, k: int, dim: int, items: int) -> int:
 def check_multimax(u, items, valid_v: int, zero_row0: bool, what: str) -> dict:
     """K5f and K5b against the plain versions on the same inputs, each run
     twice for the same bits: lse within MM_REL_TOL of its largest entry, du
-    and d_items within MM_REL_TOL of each array's largest entry."""
+    and d_items within MM_REL_TOL of each array's largest entry, both on
+    K5f's lse and end to end (K5b on K5f's lse against the plain backward
+    on the plain forward's lse)."""
     lse = mmce.multimax_lse(u, items, valid_v, zero_row0)
     require_equal(mmce.multimax_lse(u, items, valid_v, zero_row0), lse, f"{what}, lse twice")
     ref_lse = mmce.multimax_lse_reference(u, items, valid_v, zero_row0)
@@ -2499,14 +2508,17 @@ def check_multimax(u, items, valid_v: int, zero_row0: bool, what: str) -> dict:
     require_equal(di2, di, f"{what}, d_items twice")
     del du2, di2
     ref_du, ref_di = mmce.multimax_grads_reference(u, items, lse, valid_v, zero_row0)
+    e2e_du, e2e_di = mmce.multimax_grads_reference(u, items, ref_lse, valid_v, zero_row0)
     torch.cuda.synchronize()
     B, K, D = u.shape
     out = {"case": what, "chunks": mmce.grads_plan(B, K, D, items.shape[0]).chunks,
            "lse": rel_err(lse, ref_lse), "du": rel_err(du, ref_du),
-           "d_items": rel_err(di, ref_di),
+           "d_items": rel_err(di, ref_di), "du_end_to_end": rel_err(du, e2e_du),
+           "d_items_end_to_end": rel_err(di, e2e_di),
            "padding_and_row0_zero": not bool(di[valid_v:].any())
            and not (zero_row0 and bool(di[0].any()))}
-    if (max(out["lse"], out["du"], out["d_items"]) > MM_REL_TOL
+    if (max(out["lse"], out["du"], out["d_items"], out["du_end_to_end"],
+            out["d_items_end_to_end"]) > MM_REL_TOL
             or not out["padding_and_row0_zero"]
             or not all(bool(torch.isfinite(t).all()) for t in (lse, du, di))):
         raise RuntimeError(f"{what}: the K-max CE kernels differ from plain: {out}")
@@ -2613,17 +2625,22 @@ def mm_bwd_parts(u, items, lse, valid_v: int, zero_row0: bool) -> dict:
     return {name: median_ms([stage(s)], MM_LAUNCHES, 3) for s, name in enumerate("PUSD")}
 
 
-def phase_multimax_ce(bandwidth: float, fp32: float) -> tuple:
+def phase_multimax_ce(bandwidth: float, fp32: float, tf32: float) -> tuple:
     """K5f and K5b against their plain versions at the bench shape (1024
     users x 4 interests x 64 against the raw [1,007,616, 64] table, 1,000,000
     valid items, row 0 read as zero; K5b in 5 workspace chunks) and at edge
     shapes (odd item counts, one valid item, K=1 and 3, D=24 and 128, all
     interests equal; valid_v on a chunk boundary at the bench shape; other
     tables of several chunks, with more users, valid_v on a chunk boundary
-    and inside a tile); each launch of K5b against its
-    stage's plain version (check_multimax_stages); times of the kernels,
-    K5b's launches (mm_bwd_parts) and the plain versions (no PyTorch call
-    computes the K-max CE).  Returns the two kernel rows."""
+    and inside a tile); each launch of K5b against its stage's plain version
+    (check_multimax_stages, whose ``k_flips`` count the pairs where K5f's
+    and P's z picks another interest than the plain version); times of the
+    kernels, K5b's launches (mm_bwd_parts) and the plain versions (no
+    PyTorch call computes the K-max CE).  K5f is held to the bound of its
+    float32 products on the CUDA cores; the row also gives the bound of the
+    same products in split TF32 on the tensor cores (three 2 B K D V
+    products at the TF32 rate), a route its gates refuse.  Returns the two
+    kernel rows."""
     t_start = time.perf_counter()
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED + 110)
@@ -2650,8 +2667,8 @@ def phase_multimax_ce(bandwidth: float, fp32: float) -> tuple:
     # last chunk holds padding alone), and other tables of several chunks
     # (user counts no multiple of the user tile; valid_v None: on the last
     # chunk's boundary)
-    plan = mmce.grads_plan(SEQ_BATCH, 4, SEQ_DIM, rows)
-    edge = (plan.chunks - 1) * plan.chunk_items
+    bench_plan = mmce.grads_plan(SEQ_BATCH, 4, SEQ_DIM, rows)
+    edge = (bench_plan.chunks - 1) * bench_plan.chunk_items
     cases.append(check_multimax(u, table, edge, True, f"bench shape, valid_v={edge} on a "
                                                       f"chunk boundary"))
     stages = [check_multimax_stages(u, table, SEQ_VOCAB, True, "bench shape")]
@@ -2704,9 +2721,15 @@ def phase_multimax_ce(bandwidth: float, fp32: float) -> tuple:
             "flop": work, "bytes": moved, "ops_bound_ms": by_ops, "bytes_bound_ms": by_bytes,
             "shape": {"B": SEQ_BATCH, "K": 4, "D": SEQ_DIM, "table_rows": rows,
                       "valid_items": SEQ_VOCAB, "zero_row0": True}})
+    # K5f: held to its float32 products' bound; split TF32's beside it
+    out[0].update({"ops_bound_split_tf32_ms": 3 * flop / tf32 * 1e3,
+                   "bound_held_to": "float32: 2 B K D V FLOP at the CUDA cores' float32 rate "
+                                    "(ops_bound_ms); ops_bound_split_tf32_ms: 3 x 2 B K D V "
+                                    "at the TF32 tensor-core rate"})
     out[1].update({"parts": parts, "workspace_bytes": workspace_bytes,
-                   "workspace_words": plan.words, "plan": plan._asdict(), "cases": cases,
-                   "stages": stages, "seconds": time.perf_counter() - t_start})
+                   "workspace_words": bench_plan.words, "plan": bench_plan._asdict(),
+                   "cases": cases, "stages": stages,
+                   "seconds": time.perf_counter() - t_start})
     return tuple(out)
 
 
@@ -3222,11 +3245,11 @@ def main() -> int:
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "libraries": sorted(os.path.relpath(p, ROOT) for p in libs.values())})
 
-    bandwidth, fp32 = peak_bandwidth(kind), peak_fp32(kind)
+    bandwidth, fp32, tf32 = peak_bandwidth(kind), peak_fp32(kind), peak_tf32(kind)
     rows = [phase_kernel(bandwidth), phase_table_grad(bandwidth),
             phase_sorted_accumulate(bandwidth), phase_fused_adam(bandwidth),
             phase_fused_encoder(bandwidth, fp32), phase_fused_encoder_bwd(bandwidth, fp32),
-            *phase_global_attn(bandwidth, fp32), *phase_multimax_ce(bandwidth, fp32)]
+            *phase_global_attn(bandwidth, fp32), *phase_multimax_ce(bandwidth, fp32, tf32)]
     for row in rows:
         emit({"phase": "kernel", **row})
     torch.cuda.empty_cache()

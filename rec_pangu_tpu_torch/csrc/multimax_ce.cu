@@ -20,38 +20,49 @@
 // core, carrying the running (max, sum) and the whole du in VMEM from one
 // grid step to the next.  Hopper's blocks run in parallel in no order, so:
 //
-// * The forward (K5f) gives each block 32 users (128 rows of u at K=4, held
-//   in shared memory) and a contiguous range of 128-item tiles.  Per tile the
-//   K products run as one 128 x 128 x D register-tiled product (a thread owns
-//   2 users x K interests x 8 items), the max over K stays in registers, and
-//   the block's running (max, sum) per user is updated tile by tile in a
-//   fixed order.  Each block writes its range's partial (max, sum); a second
-//   launch combines the ranges in order.  The [B, K, V] logits never exist.
+// * One z routine (ZTile) serves the forward (K5f) and the backward's P: a
+//   block owns 32 users and walks its range of 128-item tiles; thread
+//   (ty, tx) holds users 2 ty and 2 ty + 1, every interest, and items
+//   tx + 16 j (j < 8), so z and k* come from a strict > over k in
+//   registers (the lowest k wins ties).  Each (user, interest, item) is one
+//   fmaf chain over the dims in order, on the CUDA cores: the plain
+//   version's float32 products bit for bit, so P's z is the forward's and p
+//   sums to 1 against its lse.  The users sit in shared memory as rows
+//   [b K + k][D padded to 4]; each item tile arrives by 16-byte cp.async, a
+//   tile ahead, into a ring of two, as rows padded to 4 (mod 32) words so
+//   that 16-byte loads of 8 consecutive rows hit 32 distinct banks.  Per 4
+//   dims a thread loads 8 item and 2 K user float4s for 64 K fmafs.  Split
+//   TF32 on the tensor cores (3 mma.sync products) ran the forward in two
+//   thirds of the time but moved z by a few float32 roundings: at |z| near
+//   25 the gradients from its lse were 1.5e-5 to 3.5e-5 off the plain
+//   version's (their gates allow 1e-5), and near-ties went to another
+//   interest.
+// * The forward reduces each thread's running (max, sum) over the 16 lanes
+//   that share a user, tile by tile, in a fixed order; each block writes
+//   its range's partial (max, sum), and a second launch combines the ranges
+//   in order.  The [B, K, V] logits never exist.
 // * The backward (K5b) computes z, k* and p once per (b, v) and keeps them,
-//   chunk by chunk of the item axis, in four launches.  P (blocks of 32
-//   users and a range of item tiles, as the forward's; two blocks an SM)
-//   runs tile_z and writes p (f32) and k* (u8) to a workspace [B][chunk].
-//   U reads them back and sums the masked du product of each range of items
-//   (4 users x K x 4 dims a thread) into a partial per range; S adds the
-//   ranges' partials in range order.  D gives each block 256 items (128 past
-//   64 dims) of d_items, reads p and k* of every user from the workspace
-//   (no second z) and runs the masked product with u from shared memory
-//   (8 items x 8 dims a thread).  The workspace holds one chunk's pairs
-//   (about 1 GiB at most, whatever the table's size:
+//   chunk by chunk of the item axis, in four launches.  P (ZTile's blocks)
+//   writes p (f32) and k* (u8) to a workspace [B][chunk].  U reads them
+//   back and sums the masked du product of each range of items (4 users x
+//   K x 4 dims a thread) into a partial per range; S adds the ranges'
+//   partials in range order.  D gives each block 256 items (128 past 64
+//   dims) of d_items, reads p and k* of every user from the workspace (no
+//   second z) and runs the masked product with u from shared memory (8
+//   items x 8 dims a thread).  The workspace holds one chunk's pairs (about
+//   1 GiB at most, whatever the table's size:
 //   ops/kernels/multimax_ce.grads_plan).  No atomics: the same bits every
 //   run.
 //
 // Bound: operations.  2 B K D V FLOP forward (524 GFLOP at B=1024, K=4, D=64,
-// V=1,000,000: 7.8 ms at 67 TFLOP/s f32).  Backward 2 B V D (K + 2): z again,
-// then one D-vector multiply-add per (b, v) into du and one into d_items,
-// since each (b, v) reaches only its winning interest (786 GFLOP, 11.7 ms);
-// this version runs those two as K-fold masked products (a gather of the
-// winning row costs a shared-memory word per multiply-add; the masked
-// register tiles reuse each word 16 K or 8 times), twice the forward's work
-// in all, plus 5 B per (b, v) written by P and read by U and by D (15.4 GB
-// at that shape, 4.6 ms at 3.35 TB/s).  The table (258 MB) takes 0.08 ms to
-// read.  f32 on CUDA cores, no tensor cores yet: the reference's products
-// are f32.
+// V=1,000,000: 7.8 ms at 67 TFLOP/s f32).  Backward 2 B V D (K + 2): z
+// again, then one D-vector multiply-add per (b, v) into du and one into
+// d_items, since each (b, v) reaches only its winning interest (786 GFLOP,
+// 11.7 ms); this version runs z and those two as K-fold masked products in
+// f32 on the CUDA cores (a gather of the winning row costs a shared-memory word per
+// multiply-add; the masked register tiles reuse each word 16 K or 8 times),
+// plus 5 B per (b, v) written by P and read by U and by D (15.4 GB at that
+// shape, 4.6 ms at 3.35 TB/s).  The table (258 MB) takes 0.08 ms to read.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -60,13 +71,15 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kTU = 2;                  // users a thread owns in the z product
-constexpr int kUB = 16 * kTU;           // users a block owns
-constexpr int kTI = 128;                // items in a tile: 16 threads x 8
+constexpr int kUB = 32;                 // users a z block owns
+constexpr int kTI = 128;                // items in a tile
+constexpr int kTU = 2;                  // users a thread owns in a z product
+static_assert(16 * kTU == kUB && kThreads == 16 * 16, "ZTile: 16 user lanes x 16 item lanes");
 constexpr int kMaxK = 4;
 constexpr int kMaxD = 128;
-// blocks of the forward's user-tile launch: many waves of the 132 SMs, so
-// that the last, partial wave costs little (the splits' partials are small)
+// blocks of the forward's user-tile launch: many waves of the 132 SMs (two
+// blocks an SM), so that the last, partial wave costs little (the splits'
+// partials are small)
 constexpr int kFwdTargetBlocks = 2112;
 constexpr float kNeg = -1e30f;
 
@@ -79,102 +92,156 @@ struct Args {
   int user_tiles, item_tiles, splits, tiles_per_split;
 };
 
-__host__ __device__ int rows_ld(int K) { return kUB * K + 4; }
+__host__ __device__ int valid_tiles(const Args& A) { return (int)((A.valid_v + kTI - 1) / kTI); }
 
-// Shared memory: the block's users, transposed [D][kUB * K + 4] (rows b * K +
-// k), and one item tile [kTI][D + 1].
-struct Tiles {
-  float* us;
-  float* is;
-  int uld, ild;
-  __device__ Tiles(float* base, int D, int K) {
-    uld = rows_ld(K);
-    ild = D + 1;
-    us = base;
-    is = us + D * uld;
-  }
-};
-
-__device__ void load_users(const Args& A, const Tiles& t, int user_tile) {
-  const int R = kUB * A.K;
-  const int64_t first = (int64_t)user_tile * R, last_row = A.B * A.K - 1;
-  for (int e = threadIdx.x; e < R * A.D; e += kThreads) {
-    const int r = e / A.D, d = e - r * A.D;
-    const int64_t row = first + r < last_row ? first + r : last_row;
-    t.us[d * t.uld + r] = A.u[row * A.D + d];
+// Asynchronous N-byte copies from device to shared memory (cp.async; the
+// 16-byte ones through L2 only).
+template <int N>
+__device__ __forceinline__ void cp_async(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if constexpr (N == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s), "l"(src), "n"(N));
   }
 }
 
-__device__ void load_items(const Args& A, const Tiles& t, int64_t base) {
-  for (int e = threadIdx.x; e < kTI * A.D; e += kThreads) {
-    const int i = e / A.D, d = e - i * A.D;
-    const int64_t row = base + i < A.rows ? base + i : A.rows - 1;
-    t.is[i * t.ild + d] = A.items[row * A.D + d];
-  }
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+__device__ __forceinline__ void cp_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
-// The thread's z and k* over the tile at `base`: users ty * kTU + s, items
-// tx + 16 j.  Padding rows score kNeg; with zero_row0 item 0 scores 0.
-template <int K>
-__device__ void tile_z(const Args& A, const Tiles& t, int64_t base, float z[kTU][8],
-                       int ks[kTU][8]) {
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  float acc[kTU][K][8];
-#pragma unroll
-  for (int s = 0; s < kTU; ++s)
-#pragma unroll
-    for (int k = 0; k < K; ++k)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[s][k][j] = 0.0f;
-  const float* urow = t.us + ty * kTU * K;
-  const float* icol = t.is + tx * t.ild;
-#pragma unroll 2
-  for (int d = 0; d < A.D; ++d) {
-    float a[kTU * K];
-    if constexpr ((kTU * K) % 4 == 0) {
-#pragma unroll
-      for (int q = 0; q < kTU * K / 4; ++q) {
-        const float4 v = reinterpret_cast<const float4*>(urow + d * t.uld)[q];
-        a[4 * q] = v.x;
-        a[4 * q + 1] = v.y;
-        a[4 * q + 2] = v.z;
-        a[4 * q + 3] = v.w;
-      }
-    } else {
-#pragma unroll
-      for (int q = 0; q < kTU * K; ++q) a[q] = urow[d * t.uld + q];
+// rows [first, first + n) of src [*, D] (clamped to last_row) into dst
+// [n][ld], asynchronously: 16-byte copies where every row is 16-byte
+// aligned, else 4-byte ones; columns [D, ld) are left alone.
+__device__ void stage_rows(float* dst, int ld, const float* __restrict__ src, int D, int n,
+                           int64_t first, int64_t last_row) {
+  if (D % 4 == 0 && ld % 4 == 0 && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+    const int q = D / 4;  // 16-byte pieces of a row
+    for (int e = threadIdx.x; e < n * q; e += kThreads) {
+      const int r = e / q, c = (e - r * q) * 4;
+      const int64_t row = first + r < last_row ? first + r : last_row;
+      cp_async<16>(dst + r * ld + c, src + row * D + c);
     }
-    float b[8];
+  } else {
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    for (int r = warp; r < n; r += kThreads / 32) {
+      const int64_t row = first + r < last_row ? first + r : last_row;
+      for (int d = lane; d < D; d += 32) cp_async<4>(dst + r * ld + d, src + row * D + d);
+    }
+  }
+  cp_commit();
+}
+
+// Words of a z product's rows in shared memory: D padded to 4 (with zeros).
+__host__ __device__ int dims_padded(int D) { return (D + 3) & ~3; }
+
+// Words of a staged item row: dims_padded(D), then to 4 (mod 32) words, so
+// that 16-byte loads of 8 consecutive rows hit 32 distinct banks.
+__host__ __device__ int item_ld(int D) {
+  const int w = dims_padded(D);
+  return w + (36 - w % 32) % 32;
+}
+
+// Shared memory of ZTile: the users [kUB K][dims_padded] and the ring of
+// two item tiles [kTI][item_ld].
+size_t z_smem_bytes(int D, int K) {
+  return sizeof(float) * ((size_t)kUB * K * dims_padded(D) + 2 * (size_t)kTI * item_ld(D));
+}
+
+// The z product of the forward and of P: one block's users (user tile
+// `user_tile`) against the item tiles [first, last), one tile a call, in
+// order.  Thread (ty, tx) computes users kTU ty + s (s < kTU) of the user
+// tile, every interest, against items tx + 16 j (j < 8) of each item tile.
+template <int K>
+struct ZTile {
+  const Args& A;
+  float* us;    // the users, rows b K + k [kUB K][dp], zero past D
+  float* ring;  // two item tiles [kTI][ld], zero in [D, dp)
+  int dp, ld, first, last;
+
+  __device__ ZTile(const Args& args, float* smem, int user_tile, int first_tile, int last_tile)
+      : A(args), first(first_tile), last(last_tile) {
+    dp = dims_padded(A.D);
+    ld = item_ld(A.D);
+    us = smem;
+    ring = us + kUB * K * dp;
+    // past the last user, its rows again (their pairs are never written)
+    const int64_t row0 = (int64_t)user_tile * kUB * K, last_row = A.B * K - 1;
+    for (int e = threadIdx.x; e < kUB * K * dp; e += kThreads) {
+      const int r = e / dp, d = e - r * dp;
+      const int64_t row = row0 + r < last_row ? row0 + r : last_row;
+      us[e] = d < A.D ? A.u[row * A.D + d] : 0.0f;
+    }
+    // the copies write a row's first D words; the rest of its last 4-dim
+    // group meets the users' zeros
+    for (int e = threadIdx.x; e < 2 * kTI; e += kThreads)
+      for (int d = A.D; d < dp; ++d) ring[e * ld + d] = 0.0f;
+    stage(first);
+  }
+
+  // Item tile `tile` into its slot of the ring, asynchronously.
+  __device__ void stage(int tile) {
+    stage_rows(ring + ((tile - first) & 1) * kTI * ld, ld, A.items, A.D, kTI,
+               (int64_t)tile * kTI, A.rows - 1);
+  }
+
+  // The thread's z and k* over item tile `tile` (the next in order): each
+  // (user, interest, item) one fmaf chain over the dims in order, the
+  // largest interest by a strict >, kNeg past valid_v and 0 at row 0 with
+  // zero_row0.  One barrier a tile: the tile is in, and every thread is
+  // done with the one before, whose slot the next tile's copy then takes.
+  __device__ void tile_z(int tile, float z[kTU][8], int ks[kTU][8]) {
+    const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+    cp_wait_all();
+    __syncthreads();
+    if (tile + 1 < last) stage(tile + 1);
+    float acc[kTU * K][8];
 #pragma unroll
-    for (int j = 0; j < 8; ++j) b[j] = icol[16 * j * t.ild + d];
+    for (int r = 0; r < kTU * K; ++r)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[r][j] = 0.0f;
+    const float* irow = ring + ((tile - first) & 1) * kTI * ld + tx * ld;
+    const float* urow = us + ty * kTU * K * dp;
+    for (int d = 0; d < dp; d += 4) {
+      float4 b[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) b[j] = *reinterpret_cast<const float4*>(irow + 16 * j * ld + d);
+#pragma unroll
+      for (int r = 0; r < kTU * K; ++r) {
+        const float4 a = *reinterpret_cast<const float4*>(urow + r * dp + d);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          acc[r][j] = fmaf(a.x, b[j].x, acc[r][j]);
+          acc[r][j] = fmaf(a.y, b[j].y, acc[r][j]);
+          acc[r][j] = fmaf(a.z, b[j].z, acc[r][j]);
+          acc[r][j] = fmaf(a.w, b[j].w, acc[r][j]);
+        }
+      }
+    }
+    const int64_t base = (int64_t)tile * kTI + tx;
 #pragma unroll
     for (int s = 0; s < kTU; ++s)
 #pragma unroll
-      for (int k = 0; k < K; ++k)
+      for (int j = 0; j < 8; ++j) {
+        float best = acc[s * K][j];
+        int arg = 0;
 #pragma unroll
-        for (int j = 0; j < 8; ++j) acc[s][k][j] = fmaf(a[s * K + k], b[j], acc[s][k][j]);
+        for (int k = 1; k < K; ++k)
+          if (acc[s * K + k][j] > best) {
+            best = acc[s * K + k][j];
+            arg = k;
+          }
+        const int64_t v = base + 16 * j;
+        if (v >= A.valid_v) best = kNeg;
+        else if (A.zero_row0 && v == 0) best = 0.0f;
+        z[s][j] = best;
+        ks[s][j] = arg;
+      }
   }
-#pragma unroll
-  for (int s = 0; s < kTU; ++s)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      float best = acc[s][0][j];
-      int arg = 0;
-#pragma unroll
-      for (int k = 1; k < K; ++k)
-        if (acc[s][k][j] > best) {
-          best = acc[s][k][j];
-          arg = k;
-        }
-      const int64_t v = base + tx + 16 * j;
-      if (v >= A.valid_v) best = kNeg;
-      else if (A.zero_row0 && v == 0) best = 0.0f;
-      z[s][j] = best;
-      ks[s][j] = arg;
-    }
-}
+};
 
-// Reductions over the 16 threads that share a user (half a warp).
 __device__ __forceinline__ float half_max(float v) {
 #pragma unroll
   for (int o = 8; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
@@ -187,45 +254,41 @@ __device__ __forceinline__ float half_sum(float v) {
   return v;
 }
 
-size_t z_smem_floats(int D, int K) { return (size_t)D * rows_ld(K) + (size_t)kTI * (D + 1); }
-
 // ------------------------------------------------------------------ forward
 // Block (user tile, split): the running (max, sum) of each of its users over
-// the split's tiles, in order, written to pm / ps [splits, B].
+// the split's tiles up to the last valid one, in order, reduced over the 16
+// lanes that share the user at each tile, written to pm / ps [splits, B].
 template <int K>
-__global__ void __launch_bounds__(kThreads) lse_partial_kernel(Args A, float* __restrict__ pm,
-                                                               float* __restrict__ psum) {
+__global__ void __launch_bounds__(kThreads, 2) lse_partial_kernel(Args A, float* __restrict__ pm,
+                                                                  float* __restrict__ psum) {
   extern __shared__ float smem[];
-  Tiles t(smem, A.D, K);
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  load_users(A, t, blockIdx.x);
+  const int first = blockIdx.y * A.tiles_per_split;
+  const int last = min(first + A.tiles_per_split, valid_tiles(A));
   float m[kTU], s[kTU];
 #pragma unroll
   for (int q = 0; q < kTU; ++q) {
     m[q] = kNeg;
     s[q] = 0.0f;
   }
-  const int first = blockIdx.y * A.tiles_per_split;
-  const int last = min(first + A.tiles_per_split, A.item_tiles);
-  for (int tile = first; tile < last; ++tile) {
-    const int64_t base = (int64_t)tile * kTI;
-    __syncthreads();
-    load_items(A, t, base);
-    __syncthreads();
-    float z[kTU][8];
-    int ks[kTU][8];
-    tile_z<K>(A, t, base, z, ks);
+  if (first < last) {
+    ZTile<K> zt(A, smem, blockIdx.x, first, last);
+    for (int tile = first; tile < last; ++tile) {
+      float z[kTU][8];
+      int ks[kTU][8];
+      zt.tile_z(tile, z, ks);
 #pragma unroll
-    for (int q = 0; q < kTU; ++q) {
-      float tmax = z[q][0];
+      for (int q = 0; q < kTU; ++q) {
+        float tmax = z[q][0];
 #pragma unroll
-      for (int j = 1; j < 8; ++j) tmax = fmaxf(tmax, z[q][j]);
-      const float m_new = fmaxf(m[q], half_max(tmax));
-      float e = 0.0f;
+        for (int j = 1; j < 8; ++j) tmax = fmaxf(tmax, z[q][j]);
+        const float m_new = fmaxf(m[q], half_max(tmax));
+        float e = 0.0f;
 #pragma unroll
-      for (int j = 0; j < 8; ++j) e += expf(z[q][j] - m_new);
-      s[q] = s[q] * expf(m[q] - m_new) + half_sum(e);
-      m[q] = m_new;
+        for (int j = 0; j < 8; ++j) e += expf(z[q][j] - m_new);
+        s[q] = s[q] * expf(m[q] - m_new) + half_sum(e);
+        m[q] = m_new;
+      }
     }
   }
   if (tx == 0) {
@@ -257,15 +320,16 @@ __global__ void lse_combine_kernel(const float* __restrict__ pm, const float* __
 // of kTI items, and the workspace holds one chunk's pairs, so its size does
 // not grow with the table.  Per chunk, four launches:
 //  P  pairs_kernel, block (user tile, split): z and k* of each (b, v) of the
-//     split's tiles by tile_z (the forward's bits) and p = exp(z - lse),
+//     split's tiles by ZTile and p = exp(z - lse),
 //     written to the workspace as p [B][chunk] (f32) and k* [B][chunk] (u8);
 //  U  users_kernel, block (64 users, split): the masked du product of the
 //     split's items from the workspace, written as the split's partial du;
 //  S  add_splits_kernel: du (+)= the splits' partials, in split order;
 //  D  items_kernel, block = 256 items (128 past 64 dims): their d_items
 //     rows from p and k* of every user; z is not recomputed.
-// P holds only tile_z's registers, so two blocks share an SM; U and D run
-// 4 x 4 x K and 8 x 8 register tiles fed by 16-byte shared loads.  No
+// P holds ZTile's registers and shared memory (100 KiB at K = 4, D = 64), so
+// two blocks share an SM; U and D run 4 x 4 x K and 8 x 8 register tiles
+// fed by 16-byte shared loads.  No
 // atomics: the same bits every run.
 
 struct Plan {
@@ -277,58 +341,6 @@ struct Plan {
 };
 
 constexpr int kPairs = 2048;  // (user, item) pairs U and D stage at a time: 8 a thread
-
-// Asynchronous N-byte copies from device to shared memory (cp.async; the
-// 16-byte ones through L2 only).
-template <int N>
-__device__ __forceinline__ void cp_async(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  if constexpr (N == 16) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
-  } else {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s), "l"(src), "n"(N));
-  }
-}
-
-__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-__device__ __forceinline__ void cp_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
-// load_items' rows (the same clamp) into P's item tile dst [kTI][ild],
-// asynchronously (a loop of its own: through stage_rows P ran 4% slower).
-__device__ void stage_items(const Args& A, float* dst, int ild, int64_t base) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int i = warp; i < kTI; i += kThreads / 32) {
-    const int64_t row = base + i < A.rows ? base + i : A.rows - 1;
-    const float* src = A.items + row * A.D;
-    for (int d = lane; d < A.D; d += 32) cp_async<4>(dst + i * ild + d, src + d);
-  }
-  cp_commit();
-}
-
-// rows [first, first + n) of src [*, D] (clamped to last_row) into dst
-// [n][ld], asynchronously: 16-byte copies where every row is 16-byte
-// aligned, else 4-byte ones; columns [D, ld) are left alone.
-__device__ void stage_rows(float* dst, int ld, const float* __restrict__ src, int D, int n,
-                           int64_t first, int64_t last_row) {
-  if (D % 4 == 0 && ld % 4 == 0 && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
-    const int q = D / 4;  // 16-byte pieces of a row
-    for (int e = threadIdx.x; e < n * q; e += kThreads) {
-      const int r = e / q, c = (e - r * q) * 4;
-      const int64_t row = first + r < last_row ? first + r : last_row;
-      cp_async<16>(dst + r * ld + c, src + row * D + c);
-    }
-  } else {
-    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-    for (int r = warp; r < n; r += kThreads / 32) {
-      const int64_t row = first + r < last_row ? first + r : last_row;
-      for (int d = lane; d < D; d += 32) cp_async<4>(dst + r * ld + d, src + row * D + d);
-    }
-  }
-  cp_commit();
-}
 
 // A staging thread's 8 pairs (p and k* of one user, 8 items from `at`)
 // into its own slots of the raw tiles rp [kThreads][8] and rk [kThreads][8],
@@ -350,8 +362,6 @@ __device__ __forceinline__ void read_pairs(const float* rp, const unsigned char*
   for (int j = 0; j < 8; ++j) kk[j] = ((j < 4 ? k.x : k.y) >> (8 * (j % 4))) & 0xffu;
 }
 
-__host__ __device__ int valid_tiles(const Args& A) { return (int)((A.valid_v + kTI - 1) / kTI); }
-
 // The items of chunk `chunk` whose pairs P writes: whole tiles up to the
 // last one that holds a valid item (p = 0 past valid_v within it).
 __device__ int64_t live_items(const Args& A, const Plan& P, int chunk) {
@@ -361,39 +371,31 @@ __device__ int64_t live_items(const Args& A, const Plan& P, int chunk) {
   return end > base ? end - base : 0;
 }
 
-// P.  Thread (ty, tx) of tile_z writes p and k* of users ty * kTU + s,
-// items tx + 16 j; one barrier a tile, the next tile staged by cp.async.
+// P.  Thread (ty, tx) of ZTile writes p and k* of users ty * kTU + s,
+// items tx + 16 j.
 template <int K>
 __global__ void __launch_bounds__(kThreads, 2)
     pairs_kernel(Args A, Plan P, int chunk, float* __restrict__ wp,
                  unsigned char* __restrict__ wk) {
   extern __shared__ float smem[];
-  Tiles t(smem, A.D, K);
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
   const int64_t ci = P.chunk_items(), chunk_base = (int64_t)chunk * ci;
   const int first = chunk * P.chunk_tiles + blockIdx.y * P.tiles_per_split;
   const int last = min(min(first + P.tiles_per_split, (chunk + 1) * P.chunk_tiles),
                        min(A.item_tiles, valid_tiles(A)));
   if (first >= last) return;
-  load_users(A, t, blockIdx.x);
   float l[kTU];
 #pragma unroll
   for (int s = 0; s < kTU; ++s) {
     const int64_t b = (int64_t)blockIdx.x * kUB + ty * kTU + s;
     l[s] = b < A.B ? A.lse[b] : 0.0f;
   }
-  stage_items(A, t.is, t.ild, (int64_t)first * kTI);
+  ZTile<K> zt(A, smem, blockIdx.x, first, last);
   for (int tile = first; tile < last; ++tile) {
-    const int cur = (tile - first) & 1;
     const int64_t base = (int64_t)tile * kTI;
-    cp_wait_all();
-    __syncthreads();  // the tile is in; every thread is done with the one before
-    if (tile + 1 < last) stage_items(A, t.is + (cur ^ 1) * kTI * t.ild, t.ild, base + kTI);
-    Tiles tt = t;
-    tt.is = t.is + cur * kTI * t.ild;
     float z[kTU][8];
     int ks[kTU][8];
-    tile_z<K>(A, tt, base, z, ks);
+    zt.tile_z(tile, z, ks);
 #pragma unroll
     for (int s = 0; s < kTU; ++s) {
       const int64_t b = (int64_t)blockIdx.x * kUB + ty * kTU + s;
@@ -717,7 +719,7 @@ size_t g_opted[6][kMaxK + 1][rp::kMaxDevices] = {};
 
 template <int K>
 cudaError_t launch_lse(const Args& A, float* pm, float* psum, float* lse, cudaStream_t st) {
-  const size_t bytes = sizeof(float) * z_smem_floats(A.D, K);
+  const size_t bytes = z_smem_bytes(A.D, K);
   cudaError_t err = rp::opt_in((const void*)lse_partial_kernel<K>, bytes, g_opted[0][K]);
   if (err != cudaSuccess) return err;
   lse_partial_kernel<K><<<dim3(A.user_tiles, A.splits), kThreads, bytes, st>>>(A, pm, psum);
@@ -726,10 +728,6 @@ cudaError_t launch_lse(const Args& A, float* pm, float* psum, float* lse, cudaSt
   lse_combine_kernel<<<(unsigned)((A.B + 255) / 256), 256, 0, st>>>(pm, psum, A.splits, A.B,
                                                                      lse);
   return cudaGetLastError();
-}
-
-size_t pairs_smem_bytes(int D, int K) {
-  return sizeof(float) * ((size_t)D * rows_ld(K) + 2 * (size_t)kTI * (D + 1));
 }
 
 // U's and D's double-buffered rows (n a stage, D padded to 4) and masked
@@ -778,7 +776,7 @@ cudaError_t launch_stage(const Args& A, const Plan& P, int chunk, int stage, int
   const int tiles = P.chunk_tiles < A.item_tiles - first ? P.chunk_tiles : A.item_tiles - first;
   const int splits = (tiles + P.tiles_per_split - 1) / P.tiles_per_split;
   if (stage == 0) {
-    const size_t bytes = pairs_smem_bytes(A.D, K);
+    const size_t bytes = z_smem_bytes(A.D, K);
     const cudaError_t err = rp::opt_in((const void*)pairs_kernel<K>, bytes, g_opted[1][K]);
     if (err != cudaSuccess) return err;
     pairs_kernel<K><<<dim3(A.user_tiles, splits), kThreads, bytes, st>>>(A, P, chunk, wp, wk);

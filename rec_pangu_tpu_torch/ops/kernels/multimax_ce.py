@@ -19,7 +19,9 @@ positive-class terms (``ops/softmax_ce.py`` applies both)::
     d_items[v] = sum_b p[b, v] u[b, k*(b, v)]
 
 The CUDA kernels (``rec_pangu_tpu_torch/csrc/multimax_ce.cu``) never hold
-the ``[B, K, V]`` logits: the forward keeps each block's running (max, sum)
+the ``[B, K, V]`` logits.  The forward and the backward's P compute z by one
+routine, float32 products on the CUDA cores in the plain version's order, so
+P's z is the forward's.  The forward keeps each block's running (max, sum)
 over its range of item tiles and combines the ranges in order.  The backward
 runs chunk by chunk over the item axis (``grads_plan``): launch P computes
 z, k* and p once per (b, v) and keeps p and k* of the chunk in a workspace;
