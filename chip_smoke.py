@@ -1142,8 +1142,12 @@ def encoder_work(n: int, length: int, dim: int, inner: int, layers: int, packed)
 
 def phase_fused_encoder(bandwidth: float, fp32: float) -> dict:
     """K4f against its plain version at the bench shape (prefix masks with
-    empty histories, bench.py's 0.9-density masks) and at edge shapes; times
-    of the kernel, the plain version and torch.nn.TransformerEncoder."""
+    empty histories, bench.py's 0.9-density masks), at edge shapes, at
+    IOCRec's, ContraRec's and CLRec's encoders, at the largest shape the
+    kernel takes and at widths no multiple of 4; the kernel's launch plan
+    against launch_plan; times of the kernel, the plain version and
+    torch.nn.TransformerEncoder, and at IOCRec's training shape
+    (encoder_iocrec_times)."""
     t_start = time.perf_counter()
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED + 41)
@@ -1170,6 +1174,35 @@ def phase_fused_encoder(bandwidth: float, fp32: float) -> dict:
         e = random_encoder(dim, n_heads, inner, layers, act, SEED + 42, dev)
         cases.append(check_encoder(x_of(256, SEQ_L, dim), prefix_masks(256, SEQ_L, gen), e,
                                    causal, f"D={dim} heads={n_heads} {act} causal={causal}"))
+    # IOCRec's local encoder at its training batch (every key valid);
+    # ContraRec's and CLRec's BERT4Rec encoder (bidirectional, 2 heads, relu,
+    # inner D, eps 1e-5); the largest shape the kernel takes; widths no
+    # multiple of 4 (the unaligned paths) and odd sample counts
+    ioc = random_encoder(SEQ_DIM, 2, 128, 3, "relu", SEED + 47, dev, IOC_CONFIG["layer_norm_eps"])
+    x_ioc, kv_ioc = x_of(IOC_VIEWS, SEQ_L, SEQ_DIM), torch.ones(IOC_VIEWS, SEQ_L, device=dev)
+    cases.append(check_encoder(x_ioc, kv_ioc, ioc, True, f"IOCRec: {IOC_VIEWS} x {SEQ_L} x "
+                               f"{SEQ_DIM}, 3 layers of 2 heads, inner 128, relu, eps 1e-12"))
+    bert = random_encoder(SEQ_DIM, 2, SEQ_DIM, 2, "relu", SEED + 49, dev, 1e-5)
+    cases.append(check_encoder(x, masks["prefix"], bert, False, "ContraRec/CLRec: 2 layers of 2 "
+                               "heads, inner 64, relu, eps 1e-5, causal=False"))
+    widest = random_encoder(encoder.MAX_D, heads, 4 * encoder.MAX_D, layers, "gelu", SEED + 50, dev)
+    cases.append(check_encoder(x_of(65, encoder.MAX_L, encoder.MAX_D),
+                               prefix_masks(65, encoder.MAX_L, gen), widest, True,
+                               f"limits: N=65 L={encoder.MAX_L} D={encoder.MAX_D} "
+                               f"inner={4 * encoder.MAX_D}"))
+    for n, length, dim, n_heads, inner_w, causal in ((33, 13, 36, 3, 18, False),
+                                                     (5, 7, 6, 2, 10, True),
+                                                     (7, 57, 20, 5, 80, False)):
+        e = random_encoder(dim, n_heads, inner_w, layers, "gelu", SEED + 48, dev)
+        cases.append(check_encoder(x_of(n, length, dim), prefix_masks(n, length, gen), e, causal,
+                                   f"N={n} L={length} D={dim} heads={n_heads} inner={inner_w} "
+                                   f"causal={causal}"))
+    plans = [(length, dim, inner_w, n_heads) for length in (1, 7, 50, 63, 64)
+             for dim in (6, 64, 128) for inner_w in (1, dim, 4 * dim) for n_heads in (1, 2)]
+    for shape in plans:
+        if encoder.kernel_launch_plan(*shape) != encoder.launch_plan(*shape):
+            raise RuntimeError(f"K4f's launch plan differs from launch_plan at {shape}: "
+                               f"{encoder.kernel_launch_plan(*shape)}")
 
     kv = masks["prefix"]
     eps = enc.layer_norm_eps
@@ -1191,6 +1224,7 @@ def phase_fused_encoder(bandwidth: float, fp32: float) -> dict:
         call = call_ms(lambda: encoder.fused_encoder(x, kv, packed, heads, True, "gelu", eps))
     flop, moved = encoder_work(SEQ_BATCH, SEQ_L, SEQ_DIM, inner, layers, packed)
     by_ops, by_bytes = flop / fp32 * 1e3, moved / bandwidth * 1e3
+    ioc_row = encoder_iocrec_times(x_ioc, kv_ioc, ioc, bandwidth, fp32)
     return {
         "name": "fused_encoder", "route": "cuda",
         "source": "rec_pangu_tpu_torch/csrc/fused_encoder.cu",
@@ -1207,8 +1241,39 @@ def phase_fused_encoder(bandwidth: float, fp32: float) -> dict:
         "flop": flop, "bytes": moved, "ops_bound_ms": by_ops, "bytes_bound_ms": by_bytes,
         "shape": {"N": SEQ_BATCH, "L": SEQ_L, "D": SEQ_DIM, "heads": heads, "inner": inner,
                   "layers": layers, "act": "gelu", "causal": True, "masks": "prefix"},
+        "launch_plan": encoder.launch_plan(SEQ_L, SEQ_DIM, inner, heads)._asdict(),
+        "launch_plans_checked": len(plans), **ioc_row,
         "cases": cases, "seconds": time.perf_counter() - t_start,
     }
+
+
+def encoder_iocrec_times(x, kv, enc: TransformerEncoder, bandwidth: float, fp32: float) -> dict:
+    """K4f at IOCRec's training shape (its relu encoder, dropout 0.5, with
+    the saved activations and without), its bound there (the products over
+    the float32 rate; x, y, the weights and the stores over the memory
+    rate) and torch.nn.TransformerEncoder's forward there (dropout 0)."""
+    N, L, D = x.shape
+    packed = [t.detach() for t in enc.packed()]
+    layers, inner = packed[0].shape[0], packed[2].shape[-1]
+    opts = (enc.n_heads, True, enc.hidden_act, enc.layer_norm_eps, IOC_DROP, IOC_DROP, 7)
+    with torch.no_grad():
+        lib = library_encoder(enc)
+        lib_mask = encoder.additive_mask(kv, True)[:, 0].repeat_interleave(enc.n_heads, dim=0)
+        out = {
+            "iocrec_training_ms": median_ms(
+                [lambda: encoder.launch_train(x, kv, packed, *opts, save=True)], 5, 5),
+            "iocrec_training_no_save_ms": median_ms(
+                [lambda: encoder.launch_train(x, kv, packed, *opts, save=False)], 5, 5),
+            "iocrec_library_ms": median_ms([lambda: lib(x, mask=lib_mask)], 5, 5)}
+    flop, moved = encoder_work(N, L, D, inner, layers, packed)
+    stores = layers * encoder.saved_floats(N * L, D, inner) * 4
+    by_ops, by_bytes = flop / fp32 * 1e3, (moved + stores) / bandwidth * 1e3
+    out.update(iocrec_flop=flop, iocrec_store_bytes=stores, iocrec_bound_ms=max(by_ops, by_bytes),
+               iocrec_bound_by="operations" if by_ops >= by_bytes else "bytes",
+               iocrec_bytes_bound_ms=by_bytes,
+               iocrec_shape={"N": N, "L": L, "D": D, "heads": enc.n_heads, "inner": inner,
+                             "layers": layers, "act": enc.hidden_act, "dropout": IOC_DROP})
+    return out
 
 
 BWD_REL_TOL = 1e-5         # K4b against plain autograd, dy on rows with a valid key
@@ -1392,6 +1457,35 @@ def encoder_bwd_parts(saved, kv, dy, packed, opts, launches: int = BWD_LAUNCHES)
     return {name: median_ms([fn], launches, 5) for name, fn in stages.calls.items()}
 
 
+def saved_errors(x, kv, packed, opts) -> tuple:
+    """({array: its error}, saved): K4f's training forward (y and each
+    layer's saved activations) against ebwd.train_forward_reference on the
+    rows with a valid key, each within rows_rel_err of its largest entry."""
+    N, L, D = x.shape
+    layers, inner, R = packed[0].shape[0], packed[2].shape[-1], N * L
+    has = rows_with_key(kv, opts[1]).reshape(R)
+    y, saved = encoder.launch_train(x, kv, packed, *opts, save=True)
+    ref_y, ref_saved = ebwd.train_forward_reference(x, kv, packed, *opts)
+    views, ref_views = (ebwd.saved_views(t, R, D, inner) for t in (saved, ref_saved))
+    errs = {"y": rows_rel_err(y.reshape(R, D), ref_y.reshape(R, D), has)}
+    for li in range(layers):
+        for name in ebwd.SAVED_NAMES:
+            errs[f"{name}_{li}"] = rows_rel_err(views[li][name], ref_views[li][name], has)
+    return errs, saved
+
+
+def check_encoder_saved(x, kv, packed, opts, what: str) -> dict:
+    """K4f's training forward, y and every saved activation, against the
+    plain version within BWD_REL_TOL of each array's largest entry (rows
+    with a valid key)."""
+    errs, _ = saved_errors(x, kv, packed, opts)
+    out = {"case": what, "forward": errs, "max_rel_err": max(errs.values())}
+    if not math.isfinite(out["max_rel_err"]) or out["max_rel_err"] > BWD_REL_TOL:
+        raise RuntimeError(f"{what}: K4f's training forward differs from the plain version: "
+                           f"{out}")
+    return out
+
+
 def check_encoder_bwd_stages(x, kv, packed, opts, what: str) -> dict:
     """K4f's saved activations and each launch of K4b against its plain
     version (ops/kernels/encoder_bwd.py) on the same inputs: the training
@@ -1407,14 +1501,9 @@ def check_encoder_bwd_stages(x, kv, packed, opts, what: str) -> dict:
     layers, inner = packed[0].shape[0], packed[2].shape[-1]
     R = N * L
     has = rows_with_key(kv, causal).reshape(R)
-    y, saved = encoder.launch_train(x, kv, packed, *opts, save=True)
-    ref_y, ref_saved = ebwd.train_forward_reference(x, kv, packed, *opts)
-    views, ref_views = (ebwd.saved_views(t, R, D, inner) for t in (saved, ref_saved))
-    out = {"case": what, "forward": {"y": rows_rel_err(y.reshape(R, D), ref_y.reshape(R, D), has)}}
-    for li in range(layers):
-        for name in ebwd.SAVED_NAMES:
-            out["forward"][f"{name}_{li}"] = rows_rel_err(views[li][name], ref_views[li][name],
-                                                          has)
+    forward, saved = saved_errors(x, kv, packed, opts)
+    views = ebwd.saved_views(saved, R, D, inner)
+    out = {"case": what, "forward": forward}
     for rows in (1, 255, 256, 257, R, 3 * R + 1):
         if ebwd.kernel_rows_per_chunk(rows) != ebwd.wgrad_rows_per_chunk(rows):
             raise RuntimeError(f"{what}: the kernel's chunk plan differs at {rows} rows")

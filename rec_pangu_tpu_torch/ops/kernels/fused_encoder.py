@@ -8,14 +8,20 @@ x ``[N, L, D]`` and each of the stacked blocks: q/k/v projections; per head
 projection, a residual and LayerNorm; an FFN (relu, gelu in its tanh form, or
 swish), a residual and LayerNorm.
 
-The CUDA kernel (``rec_pangu_tpu_torch/csrc/fused_encoder.cu``) gives each
-sample one thread block that keeps its activations in shared memory through
-every layer, so only x and y cross device memory; it is float32 on CUDA
-cores.  Bound: operations, about 5.5 GFLOP at the bench shape (N=1024, L=50,
+The CUDA kernel (``rec_pangu_tpu_torch/csrc/fused_encoder.cu``) is one
+kernel body for serving and for training: each sample gets one thread block
+that keeps its activations in shared memory through every layer, so only x
+and y (and in training the saved activations) cross device memory.  Each
+layer's weights stream through shared memory in chunks copied by
+``cp.async``, and every value is the float32 fmaf chain of the kernel's
+earlier versions, bit for bit (the backward's gates hold only those bits).
+Bound: operations, about 5.5 GFLOP at SASRec's bench shape (N=1024, L=50,
 D=64, 4 heads, inner 32, 2 layers), 0.082 ms at the H100 SXM's 67 TFLOP/s
-float32 rate.  The TPU kernel's tile of 4 samples, its lane-masked heads and
-its block-diagonal ``[TB*L, TB*L]`` scores fed the TPU's matrix unit; none
-of it carries over, and N need not be a multiple of anything.
+float32 rate.  ``launch_plan`` is the launch's shape (threads and shared
+memory a block), computed as the kernel computes it.  The TPU kernel's tile
+of 4 samples, its lane-masked heads and its block-diagonal ``[TB*L, TB*L]``
+scores fed the TPU's matrix unit; none of it carries over, and N need not
+be a multiple of anything.
 
 A query row with no valid key (an empty history) is softmaxed over its own
 sample's L keys, each score minus 1e6 in float32, as the flax path does; the
@@ -29,9 +35,9 @@ The weights are packed as the JAX package's ``pack_params`` packs them
 Training (``train=True``) adds inverted dropout at the flax block's three
 places (the attention probabilities, the output projection and the FFN
 output, each before it is used or added to its residual) and a backward.  On
-the card the forward is the training kernel of the same source (K4f in
-training mode), which also keeps the activations the backward needs (about
-0.11 MB a sample and layer at the bench shape), and autograd's backward is
+the card the forward is the same kernel in training mode, which also keeps
+the activations the backward needs (about 0.11 MB a sample and layer at the
+bench shape), and autograd's backward is
 K4b (``_bwd_kernel``): from the last layer to the first, three launches over
 the whole batch (the rows' LayerNorm and FFN part, the attention a sample at
 a time, the weight gradients over fixed chunks of rows), then the chunks'
@@ -52,11 +58,13 @@ call (no gradient, no dropout) is the forward kernel alone, as before.
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence
+from typing import NamedTuple, Sequence
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from . import _build
 
 # kernel launches so far (the forward, in inference or training mode; the
 # backward); a run resets them and reads them to show the path went through
@@ -65,8 +73,8 @@ LAUNCHES = 0
 BACKWARD_LAUNCHES = 0
 
 ACTIVATIONS = {"relu": 0, "gelu": 1, "swish": 2, "silu": 2}
-MAX_L = 64    # a warp holds one row of scores, two keys a lane
-MAX_D = 128   # five [L, D + 1] float buffers stay within a block's shared memory
+MAX_L = 64    # eight lanes hold a row of scores, eight keys a lane
+MAX_D = 128   # a warp holds a LayerNorm row, four columns a lane
 PACKED_NAMES = ("wqkvo", "bqkvo", "w1", "b1", "w2", "b2", "ln_g", "ln_b")
 _NEG = -1e6
 _MASK32 = 0xFFFFFFFF
@@ -220,6 +228,59 @@ def check_inputs(x: torch.Tensor, key_valid: torch.Tensor, packed: Sequence[torc
         raise ValueError(f"key_valid lies on {key_valid.device}, x on {x.device}")
 
 
+def _pad_ld(k: int) -> int:
+    """The kernel's row stride for k columns in shared memory (pad_ld)."""
+    k4 = (k + 3) // 4 * 4
+    return k4 + (4 if (k4 // 4) % 2 == 0 else 8)
+
+
+class LaunchPlan(NamedTuple):
+    samples: int       # samples a block
+    threads: int       # threads a block
+    smem_bytes: int    # dynamic shared memory a block
+    heads: int         # heads an attention pass holds scores for
+
+
+SMEM_LIMIT = 232_448  # shared memory one block may use on the H100
+SMEM_TWO = 115_712    # ... with two blocks on an SM (228 KB, 1 KB a block reserved)
+RING = 2              # weight chunks in the kernel's ring (kRing)
+CHUNK = 64            # weight rows of a chunk (kFwdChunk), 64 columns
+
+
+def launch_plan(L: int, D: int, inner: int, heads: int) -> LaunchPlan:
+    """K4f's launch for rows of L x D, FFN width inner and ``heads`` heads,
+    as the kernel computes it (``fwd_threads``, ``fwd_layout``;
+    ``rp_fused_encoder_plan`` returns the same): one sample a block, 16
+    threads per 4-row tile in whole warps; shared memory for x, q, k and v
+    (the FFN's hidden rows over q..v), the scores of as many heads as leave
+    two blocks an SM where that is possible (else as fit one block, at
+    least one), the weight ring of RING CHUNK x 64 chunks and the keys'
+    validity."""
+    check_supported(L, D, inner, 1)
+    if heads <= 0 or D % heads:
+        raise ValueError(f"D={D} is not divisible by n_heads={heads}")
+    threads = (16 * ((L + 3) // 4) + 31) // 32 * 32
+    ld, ldp = _pad_ld(D), (L + 3) // 4 * 4
+    probs = L * ld + L * max(3 * ld, _pad_ld(inner))
+    rest = RING * CHUNK * 64 + ldp
+    base, head = 4 * (probs + rest), 4 * L * ldp
+    budget = SMEM_TWO if base + head <= SMEM_TWO else SMEM_LIMIT
+    hb = max(1, min(heads, (budget - base) // head))
+    return LaunchPlan(1, threads, base + hb * head, hb)
+
+
+def kernel_launch_plan(L: int, D: int, inner: int, heads: int) -> LaunchPlan:
+    """The library's own plan (``rp_fused_encoder_plan``), for holding
+    launch_plan to it on the card."""
+    fn = _build.load("fused_encoder").rp_fused_encoder_plan
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 4)()
+    if fn(L, D, inner, heads, out) != 0:
+        raise ValueError(f"the kernel refuses L={L}, D={D}, inner={inner}, heads={heads}")
+    return LaunchPlan(*out)
+
+
 def check_supported(L: int, D: int, inner: int, layers: int) -> None:
     """Raise ValueError on a shape the kernel does not take."""
     if not (1 <= L <= MAX_L and 1 <= D <= MAX_D and 1 <= inner <= 4 * D and layers >= 1):
@@ -231,8 +292,6 @@ def check_supported(L: int, D: int, inner: int, layers: int) -> None:
 def _kernel():
     global _FN
     if _FN is None:
-        from . import _build
-
         fn = _build.load("fused_encoder").rp_fused_encoder_f32
         fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_longlong] + [ctypes.c_int] * 7
                        + [ctypes.c_float, ctypes.c_void_p])
@@ -273,8 +332,6 @@ _DROP_ARGS = [ctypes.c_uint, ctypes.c_uint, ctypes.c_uint, ctypes.c_float, ctype
 def _train_kernel():
     global _TRAIN_FN
     if _TRAIN_FN is None:
-        from . import _build
-
         fn = _build.load("fused_encoder").rp_fused_encoder_train_f32
         fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_longlong] + [ctypes.c_int] * 7
                        + [ctypes.c_float] + _DROP_ARGS + [ctypes.c_void_p])
@@ -287,8 +344,6 @@ def _bwd_kernel():
     """(the launch, its workspace size in 4-byte words) from the library."""
     global _BWD_FN
     if _BWD_FN is None:
-        from . import _build
-
         lib = _build.load("fused_encoder")
         fn = lib.rp_fused_encoder_bwd_f32
         fn.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_longlong, ctypes.c_longlong]

@@ -3,9 +3,10 @@
 Each tree runs every kernel wrapper (K1 lookup, K2 table gradient with ids
 past both ends of the table, K7 at ContraRec's device-view shape, K3 fused
 Adam on K2's ids, K4f inference and training forward, K4b, K6f, K6b, K5f,
-K5b) on the same seeded inputs, in a process of its own that builds that
-tree's kernels.  The script prints one JSON line, each output array mapped
-to whether the two trees gave the same bits, and exits 1 if any differs.
+K5b; K4f's saved activations too, and K4f at SASRec's shape) on the same
+seeded inputs, in a process of its own that builds that tree's kernels.
+The script prints one JSON line, each output array mapped to whether the
+two trees gave the same bits, and exits 1 if any differs.
 It checks a change that claims to leave the kernels' results alone, such
 as a refactor of shared CUDA code.  Needs one CUDA card.
 
@@ -78,6 +79,19 @@ for act, rate in (("gelu", 0.0), ("relu", 0.5)):
     grads = torch.autograd.grad(y, [xs] + ps, torch.randn(y.shape, generator=g, device=dev))
     out[f"k4f_train_{act}"] = y.detach()
     out.update({f"k4b_{act}_{i}": t for i, t in enumerate(grads)})
+    out[f"k4f_saved_{act}"] = k4.launch_train(x, kv, packed, 2, True, act, 1e-12, rate, rate, 7,
+                                              save=True)[1]
+# K4f at SASRec's shape: 2 blocks of 4 heads, inner 32, prefix histories
+enc = TransformerEncoder(64, 2, 4, 32, 0.0, 0.0, "gelu", 1e-3,
+                         torch.Generator().manual_seed(4)).to(dev)
+packed = [t.detach() for t in enc.packed()]
+x = torch.randn(1024, 50, 64, generator=g, device=dev) * 0.18
+lens = torch.randint(0, 51, (1024,), generator=g, device=dev)
+kv = (torch.arange(50, device=dev)[None] < lens[:, None]).float()
+with torch.no_grad():
+    out["k4f_sasrec"] = k4.fused_encoder(x, kv, packed, 4, True, "gelu", 1e-3)
+out["k4f_train_sasrec"], out["k4f_saved_sasrec"] = k4.launch_train(
+    x, kv, packed, 4, True, "gelu", 1e-3, 0.1, 0.1, 7, save=True)
 # K6f and K6b at 3072 views with dropout 0.5
 params = [torch.randn(64, 64, generator=g, device=dev) * 0.18,
           torch.randn(64, generator=g, device=dev) * 0.1,

@@ -155,3 +155,61 @@ def test_dropout_in_training_waits_for_the_training_slice(inputs):
         np.testing.assert_allclose(packed.numpy(), y.numpy(), rtol=0, atol=ATOL)
     with pytest.raises(ValueError, match="dropout rate"):
         TransformerEncoder(D, 1, HEADS, INNER, 1.0, 0.1)
+
+
+# the kernel's launch plan (rp_fused_encoder_plan computes the same on the
+# card; chip_smoke.py holds the two equal)
+BENCH_SHAPES = {"sasrec": (50, 64, 32, 4), "iocrec": (50, 64, 128, 2), "bert4rec": (50, 64, 64, 2)}
+SM_SHARED = 233_472  # an H100 SM's shared memory; a block also takes 1 KB of it
+
+
+@pytest.mark.parametrize("name", sorted(BENCH_SHAPES))
+def test_launch_plan_at_the_bench_shapes(name):
+    """One sample a block, 224 threads (13 row tiles of 16 threads, in whole
+    warps), two heads' scores a pass, and two blocks an SM."""
+    plan = fe.launch_plan(*BENCH_SHAPES[name])
+    assert plan == fe.LaunchPlan(samples=1, threads=224, smem_bytes=108_176, heads=2)
+    assert 2 * (plan.smem_bytes + 1024) <= SM_SHARED
+
+
+def test_launch_plan_fits_every_shape_the_kernel_takes():
+    """Shared memory grows with L, D and inner, so inner = 4 D bounds each
+    (L, D); threads cover 16 a 4-row tile, in whole warps, at most 256; an
+    attention pass holds at least one head, all of them where they fit."""
+    worst = 0
+    for L in range(1, fe.MAX_L + 1):
+        for D in range(1, fe.MAX_D + 1):
+            for heads in (1, D):
+                plan = fe.launch_plan(L, D, 4 * D, heads)
+                assert plan.samples == 1 and 1 <= plan.heads <= heads
+                assert plan.threads % 32 == 0 and 16 * ((L + 3) // 4) <= plan.threads <= 256
+                worst = max(worst, plan.smem_bytes)
+    assert worst <= fe.SMEM_LIMIT
+    for inner in (1, 31, 32, 33, 127, 128, 256):
+        assert (fe.launch_plan(50, 64, inner, 4).smem_bytes
+                <= fe.launch_plan(50, 64, 256, 4).smem_bytes)
+    # the widest rows leave room for two heads' scores, in one block an SM
+    assert fe.launch_plan(fe.MAX_L, fe.MAX_D, 4 * fe.MAX_D, 4).heads == 2
+    with pytest.raises(ValueError, match="fused encoder kernel takes"):
+        fe.launch_plan(65, 64, 32, 4)
+    with pytest.raises(ValueError, match="divisible"):
+        fe.launch_plan(50, 64, 32, 3)
+
+
+@pytest.mark.parametrize("act,causal", CASES)
+def test_training_forward_with_rates_zero_is_the_serving_forward(inputs, act, causal):
+    """The contract that lets one kernel serve both modes: with both
+    dropout rates 0 the training forward is the serving forward, bit for
+    bit, with and without a gradient."""
+    x, key_valid, _ = inputs
+    enc = TransformerEncoder(D, LAYERS, HEADS, INNER, 0.0, 0.0, act, EPS)
+    packed = [t.detach() for t in enc.packed()]
+    xt, kv = torch.from_numpy(x), torch.from_numpy(key_valid)
+    with torch.no_grad():
+        serving = fe.fused_encoder(xt, kv, packed, HEADS, causal, act, EPS)
+        training = fe.fused_encoder(xt, kv, packed, HEADS, causal, act, EPS, True, 0.0, 0.0, 5)
+    assert torch.equal(serving, training)
+    xs = xt.clone().requires_grad_()
+    graded = fe.fused_encoder(xs, kv, [t.clone().requires_grad_() for t in packed], HEADS,
+                              causal, act, EPS, True, 0.0, 0.0, 5)
+    assert torch.equal(serving, graded.detach())
