@@ -84,12 +84,26 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                on batches without views: the views are drawn on the card
                and the table gradient is K7's counterpart, once a step),
                card_vs_cpu, train_profile.
+19. gru4rec_*, yotubednn_*, narm_*, stamp_*, nextitnet_* -- the classic
+               sequence models at the same width with their own defaults
+               (K1 a request, step and eval batch, K3 a fused step; no
+               transformer): checkpoint, serving, eval, training (fit, 2
+               epochs on the fused step), card_vs_cpu with cuDNN's TF32 at
+               torch's default; GRU4Rec also profile, standard steps (K2),
+               train_profile and gru (the GRU's forward and backward alone).
+20. contrarec_gru4rec_*, contrarec_caser_* -- ContraRec with its GRU4Rec
+               and Caser encoders: checkpoint, serving, training (fit on
+               the host views) and device_aug (standard steps on device
+               views: K7's path).
 
 Then the kernels line, the card's name and power limit as nvidia-smi gives
 them, and last {"ok": true, "device": {...}}.
 
 Float32 matmuls are held to full precision for the comparisons:
-torch.backends.cuda.matmul.allow_tf32 = False (and the cuDNN flag too).
+torch.backends.cuda.matmul.allow_tf32 = False (and the cuDNN flag too),
+except in the classic models' card_vs_cpu phases, which restore both flags
+to torch's defaults: the port's convolutions and GRU are products that no
+cuDNN switch reaches.
 """
 import contextlib
 import copy
@@ -1993,7 +2007,7 @@ def phase_seq_profile(model, requests, phase: str = "seq_profile") -> dict:
 
 
 def phase_seq_eval(device: str = "cuda", name: str = "SASRec", config=None,
-                   kernels=("embedding_lookup", "fused_encoder")) -> dict:
+                   kernels=("embedding_lookup", "fused_encoder"), label: str = "") -> dict:
     """SequenceTrainer.evaluate_model on the bundled MovieLens sample
     (get_dataloader, task_type "sequence", max_length 50), the model ``name``
     at D=64 from seeded weights, on the card and on the CPU: recall, ndcg and
@@ -2020,7 +2034,8 @@ def phase_seq_eval(device: str = "cuda", name: str = "SASRec", config=None,
            for k, v in splits.items()}
     if card != cpu:
         raise RuntimeError(f"card metrics {card} differ from the CPU's {cpu}")
-    return {"phase": "seq_eval" if name == "SASRec" else f"{name.lower()}_eval", "model": name,
+    return {"phase": "seq_eval" if name == "SASRec" else f"{label or name.lower()}_eval",
+            "model": name,
             "users": {k: len(v.dataset)
                       for k, v in splits.items()},
             "vocab": loaders[3]["item_id"]["vocab_size"], "launches": launches,
@@ -2288,7 +2303,8 @@ def phase_seq_train_profile(path: str, enc_dict: dict, batches, ckpt_dir: str,
             "host_stage_p50_ms": {k: statistics.median(v) * 1e3 for k, v in stages.items()},
             "wall_ms_per_step": wall_s * 1e3 / n,
             "device_busy_ms_per_step": busy_s * 1e3 / n,
-            "device_idle_share": 1.0 - busy_s / wall_s, "device_ops": ops,
+            "device_idle_share": 1.0 - busy_s / wall_s,
+            "device_kernels_per_step": device_kernels(prof) / n, "device_ops": ops,
             "seconds": time.perf_counter() - t_start}
 
 
@@ -2839,18 +2855,22 @@ def write_model_checkpoint(path: str, name: str, config: dict, seed: int) -> dic
 
 
 def phase_model_serving(path: str, enc_dict: dict, name: str, config: dict, kernels,
-                        seed: int, device: str = "cuda"):
+                        seed: int, device: str = "cuda", requests: int = 0,
+                        label: str = ""):
     """Retrieval by the sequence model ``name`` at full width from a
     JAX-layout checkpoint: SequenceTrainer.load_model, make_retrieval_scorer,
     1024 histories a request, top-200 of the whole L2-normalized corpus (a
     multi-interest model scores each item by its best interest), each of
     ``kernels`` once a request (IOCRec: K1 + K4f + K6f); two requests held
-    against the CPU on their first IOC_CPU_USERS histories."""
+    against the CPU on their first IOC_CPU_USERS histories.  ``requests``
+    (SEQ_REQUESTS when 0) timed after SEQ_WARMUP; ``label`` names the phase
+    (the model's name)."""
     t_start = time.perf_counter()
     model = load_seq_model(path, enc_dict, device, name, config)
     retrieve = make_retrieval_scorer(model, topk=SEQ_TOPK, device=device)
     setup_s = time.perf_counter() - t_start
-    requests = make_seq_requests(SEQ_WARMUP + SEQ_REQUESTS, seed)
+    n_timed = requests or SEQ_REQUESTS
+    requests = make_seq_requests(SEQ_WARMUP + n_timed, seed)
 
     # the main path: every count is 0 just before it and read just after
     reset_launches()
@@ -2866,7 +2886,7 @@ def phase_model_serving(path: str, enc_dict: dict, name: str, config: dict, kern
             raise RuntimeError(f"bad {name} retrieval answer for request {i}")
     launches = read_launches()
     n = len(requests)
-    phase = f"{name.lower()}_serving"
+    phase = f"{label or name.lower()}_serving"
     require_launches(launches, {k: n for k in kernels}, phase)
 
     cpu_model = load_seq_model(path, enc_dict, "cpu", name, config)
@@ -2888,11 +2908,11 @@ def phase_model_serving(path: str, enc_dict: dict, name: str, config: dict, kern
     summary = {
         "phase": phase, "model": name, "config": config, "vocab": SEQ_VOCAB,
         "table_rows": int(model.item_emb.table.shape[0]), "batch": SEQ_BATCH, "topk": SEQ_TOPK,
-        "requests": SEQ_REQUESTS, "warmup": SEQ_WARMUP, "launches": launches,
+        "requests": n_timed, "warmup": SEQ_WARMUP, "launches": launches,
         "launches_per_request": {k: v / n for k, v in launches.items() if v},
         "p50_ms": statistics.median(latencies) * 1e3,
         "p90_ms": float(np.percentile(latencies, 90)) * 1e3,
-        "users_per_s": SEQ_REQUESTS * SEQ_BATCH / sum(latencies),
+        "users_per_s": n_timed * SEQ_BATCH / sum(latencies),
         "cpu_checked_requests": IOC_CPU_CHECKS, "cpu_checked_users": IOC_CPU_USERS,
         "user_emb_max_abs_err_vs_cpu": emb_err, "user_emb_atol": USER_EMB_ATOL,
         "score_atol": SCORE_ATOL,
@@ -2905,7 +2925,7 @@ def phase_model_serving(path: str, enc_dict: dict, name: str, config: dict, kern
 
 def phase_model_training(path: str, enc_dict: dict, ckpt_dir: str, name: str, config: dict,
                          per_step, per_batch, seed: int, std_steps: int = 0,
-                         epochs: int = FIT_EPOCHS, device: str = "cuda"):
+                         epochs: int = FIT_EPOCHS, device: str = "cuda", label: str = ""):
     """SequenceTrainer.fit on the sequence model ``name`` at full width from
     the JAX-layout checkpoint: ``epochs`` of FIT_TRAIN_BATCHES bench-shape
     batches with the host keys the trainer attaches (IOCRec's and
@@ -2913,7 +2933,8 @@ def phase_model_training(path: str, enc_dict: dict, ckpt_dir: str, name: str, co
     validation, log.csv, checkpoints and early stopping, on the sequence
     fused step: each of ``per_step`` once a step, each of ``per_batch`` once
     a step and an eval batch (IOCRec: K1, K4f, K4b, K6f, K6b, K5f, K5b, K3).
-    Then ``std_steps`` standard steps (K2 for K3)."""
+    Then ``std_steps`` standard steps (K2 for K3).  ``label`` names the
+    phase (the model's name)."""
     t_start = time.perf_counter()
     train_loader = seq_train_loader(FIT_TRAIN_BATCHES, seed)
     valid_loader = seq_valid_loader(FIT_VALID_BATCHES, seed + 1)
@@ -2945,7 +2966,7 @@ def phase_model_training(path: str, enc_dict: dict, ckpt_dir: str, name: str, co
         raise RuntimeError(f"fit's files missing: {sorted(want - set(files))} of {files}")
     del trainer, model
     summary = {
-        "phase": f"{name.lower()}_training", "model": name, "config": config,
+        "phase": f"{label or name.lower()}_training", "model": name, "config": config,
         "vocab": SEQ_VOCAB, "batch": SEQ_BATCH, "epochs": epochs,
         "steps_per_epoch": FIT_TRAIN_BATCHES, "valid_batches": FIT_VALID_BATCHES, "lr": LR,
         "launches": launches, "fused": step_stats(times, SEQ_BATCH), "fit_s": fit_s,
@@ -3094,7 +3115,7 @@ def grad_comparison(card: dict, cpu: dict, on_kink_path) -> dict:
     return {"grad_rel_err": rest[worst], "grad_worst_leaf": worst,
             "kink_path_grad_rel_err": kink.get(worst_kink, 0.0),
             "kink_path_worst_leaf": worst_kink,
-            "zero_grad_rel_size": max(zero.values()), "grad_leaves": len(errs),
+            "zero_grad_rel_size": max(zero.values(), default=0.0), "grad_leaves": len(errs),
             "grad_rel_err_by_leaf": errs, "zero_grad_rel_size_by_leaf": zero}
 
 
@@ -3130,16 +3151,16 @@ def card_vs_cpu_leg(name: str, config: dict, batches, lr: float, devices, seed: 
     # the exact zeros (IOC_ZERO_GRAD) hold rounding noise on both sides,
     # which Adam's first step turns into +-lr
     zero = [k for k in cpu if k.endswith(IOC_ZERO_GRAD)]
-    dense = torch.cat([d.reshape(-1) for k, d in diffs.items()
-                       if k != table_key and k not in zero])
+    dense = torch.cat([torch.zeros(1)] + [d.reshape(-1) for k, d in diffs.items()
+                                          if k != table_key and k not in zero])
     table = diffs[table_key]
     return {"lr": lr, "card_losses": card_losses, "cpu_losses": cpu_losses,
             "loss_rel_diffs": [abs(a - b) / abs(b) for a, b in zip(card_losses, cpu_losses)],
             **grad_comparison(card_grads, cpu_grads, on_kink_path),
             "dense_max_abs_diff": dense.max().item(),
             "dense_elements_beyond_atol": int((dense > SEQ_DENSE_ATOL).sum().item()),
-            "dense_elements": dense.numel(),
-            "zero_grad_max_abs_diff": max(diffs[k].max().item() for k in zero),
+            "dense_elements": dense.numel() - 1,
+            "zero_grad_max_abs_diff": max((diffs[k].max().item() for k in zero), default=0.0),
             "table_max_abs_diff": table.max().item(),
             "table_elements_beyond_atol": int((table > SEQ_TABLE_ATOL).sum().item()),
             "table_elements": table.numel()}
@@ -3245,19 +3266,24 @@ def phase_sorted_accumulate(bandwidth: float) -> dict:
     return with_parts(row, table_grad_parts(id_sets, cot, num_rows))
 
 
-def phase_device_aug(path: str, enc_dict: dict, device: str = "cuda") -> dict:
+def phase_device_aug(path: str, enc_dict: dict, device: str = "cuda",
+                     config: dict = CONTRA_CONFIG,
+                     kernels=("embedding_lookup", "fused_encoder", "fused_encoder_bwd"),
+                     label: str = "contrarec") -> dict:
     """K7's path: ContraRec standard steps (``train/steps.StandardStep``) on
     bench batches uploaded without ``aug_all``, so that each forward draws
     the two views on the card from the step's seed and looks up [hist; v1;
     v2] [3072, 50] in one lookup no step captures.  Its backward is the
     table gradient over 153,600 ids sorted on the card, once a step, beside
-    K1, K4f and K4b; no K3.  The loss must be finite and fall over two
-    passes of the batches (new views each time)."""
+    each of ``kernels`` (the BERT4Rec encoder's K1, K4f and K4b; K1 alone
+    for the GRU4Rec and Caser encoders of ``config``); no K3.  The loss
+    must be finite and fall over two passes of the batches (new views each
+    time)."""
     from rec_pangu_tpu_torch.train.steps import StandardStep
 
     t_start = time.perf_counter()
     batches = list(seq_train_loader(AUG_STEPS // 2, SEED + 120)) * 2
-    model = load_seq_model(path, enc_dict, device, "ContraRec", CONTRA_CONFIG).train()
+    model = load_seq_model(path, enc_dict, device, "ContraRec", config).train()
     step = StandardStep(model, LR, AUG_STEPS, generator=torch.Generator().manual_seed(SEED))
     dev = torch.device(device)
     setup_s = time.perf_counter() - t_start
@@ -3273,30 +3299,33 @@ def phase_device_aug(path: str, enc_dict: dict, device: str = "cuda") -> dict:
         times.append(time.perf_counter() - t0)
         losses.append(out["loss"].detach())
     launches = read_launches()
-    require_launches(launches, {k: AUG_STEPS for k in ("embedding_lookup", "fused_encoder",
-                                                       "fused_encoder_bwd", "embedding_grad")},
-                     "contrarec_device_aug")
+    require_launches(launches, {k: AUG_STEPS for k in tuple(kernels) + ("embedding_grad",)},
+                     f"{label}_device_aug")
     losses = [float(x) for x in losses]
     first, last = float(np.mean(losses[:3])), float(np.mean(losses[-3:]))
     if not (np.all(np.isfinite(losses)) and last < first):
         raise RuntimeError(f"the device-view training loss did not fall: {losses}")
-    return {"phase": "contrarec_device_aug", "model": "ContraRec", "config": CONTRA_CONFIG,
+    return {"phase": f"{label}_device_aug", "model": "ContraRec", "config": config,
             "vocab": SEQ_VOCAB, "batch": SEQ_BATCH, "lookup_ids_per_step": 3 * SEQ_BATCH * SEQ_L,
             "lr": LR, "launches": launches, "standard": step_stats(times, SEQ_BATCH),
             "loss_first3": first, "loss_last3": last, "losses": losses, "setup_s": setup_s,
             "seconds": time.perf_counter() - t_start}
 
 
-def phase_contrastive_card_vs_cpu(name: str, config: dict, devices=("cuda", "cpu")) -> dict:
-    """The first three fused steps of ContraRec or CLRec on the card and on
-    the CPU at a cut corpus (SEQ_CPU_VOCAB items, IOC_CPU_BATCH histories),
-    from the same weights and batches, their host keys (ContraRec's views,
-    CLRec's lookup_all) made by a trainer's hooks as fit makes them: the
-    first step's gradient of every leaf before Adam, the losses, the
-    parameters after one step, held by ``require_card_like_cpu``.  Every
-    leaf's gradient within IOC_GRAD_REL_TOL of its largest entry, those
-    behind the encoder's relu too: no sample of these inputs lies at its
-    kink (first run: 1.9e-6 at most; see phase_iocrec_card_vs_cpu)."""
+def phase_model_card_vs_cpu(name: str, config: dict, devices=("cuda", "cpu"),
+                            later_rtol: float = IOC_LATER_LOSS_RTOL, label: str = "") -> dict:
+    """The first three fused steps of the sequence model ``name`` (ContraRec,
+    CLRec, the classic models) on the card and on the CPU at a cut corpus
+    (SEQ_CPU_VOCAB items, IOC_CPU_BATCH histories), from the same weights,
+    batches and dropout seeds, the host keys (ContraRec's views, CLRec's
+    lookup_all) made by a trainer's hooks as fit makes them: the first
+    step's gradient of every leaf before Adam, the losses (the first within
+    IOC_LOSS_RTOL, the later within ``later_rtol``), the parameters after
+    one step, held by ``require_card_like_cpu``.  Every leaf's gradient
+    within IOC_GRAD_REL_TOL of its largest entry, those behind a relu too:
+    no sample of these inputs lies at its kink (ContraRec's and CLRec's
+    first run: 1.9e-6 at most; see phase_iocrec_card_vs_cpu).  The summary
+    records the TF32 flags the steps ran under."""
     t_start = time.perf_counter()
     trainer = SequenceTrainer(device="cpu")
     trainer.model = port.get_model(name)(enc_dict={"item_id": {"vocab_size": SEQ_CPU_VOCAB}},
@@ -3304,15 +3333,117 @@ def phase_contrastive_card_vs_cpu(name: str, config: dict, devices=("cuda", "cpu
     batches = [trainer._attach_host_keys(b) for b in
                seq_train_loader(CPU_STEPS, SEED + 130, SEQ_CPU_VOCAB, IOC_CPU_BATCH)]
     leg = card_vs_cpu_leg(name, config, batches, LR, devices, SEED + 131, lambda k: False)
-    summary = {"phase": f"{name.lower()}_card_vs_cpu", "steps": CPU_STEPS,
+    summary = {"phase": f"{label or name.lower()}_card_vs_cpu", "steps": CPU_STEPS,
                "vocab": SEQ_CPU_VOCAB, "batch": IOC_CPU_BATCH, f"lr_{LR:g}": leg,
-               "loss_rtol": IOC_LOSS_RTOL, "later_loss_rtol": IOC_LATER_LOSS_RTOL,
+               "loss_rtol": IOC_LOSS_RTOL, "later_loss_rtol": later_rtol,
+               "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+               "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
                "grad_rel_tol": IOC_GRAD_REL_TOL,
                "dense_atol": SEQ_DENSE_ATOL, "dense_handful": IOC_DENSE_HANDFUL,
                "table_atol": SEQ_TABLE_ATOL, "table_handful": SEQ_HANDFUL}
-    require_card_like_cpu(leg, IOC_LATER_LOSS_RTOL, IOC_GRAD_REL_TOL, summary)
+    require_card_like_cpu(leg, later_rtol, IOC_GRAD_REL_TOL, summary)
     summary["seconds"] = time.perf_counter() - t_start
     return summary
+
+
+# ------------------------------------------------------ the classic sequence zoo
+# at bench.py's sequence width with each JAX class's own defaults
+# (rec_pangu_tpu/models/sequence/{gru4rec,yotubednn,narm,stamp,nextitnet}.py):
+# GRU4Rec's two-layer GRU of width D; YotubeDNN's mean over the L positions;
+# NARM's two-layer GRU of 32 with dropout 0.1 on the embeddings and on the
+# encodings; STAMP without feat_drop; NextItNet's two ResBlockTwoMasked at
+# dilations (1, 4), kernel 3, no feat_drop.  No transformer: K1 a request,
+# step and eval batch, K3 a fused step (K2 a standard step).
+CLASSIC_BASE = {"embedding_dim": SEQ_DIM, "max_length": SEQ_L, "item_col": "item_id"}
+CLASSIC = (("GRU4Rec", CLASSIC_BASE, SEED + 150), ("YotubeDNN", CLASSIC_BASE, SEED + 160),
+           ("NARM", {**CLASSIC_BASE, "n_layers": 2, "hidden_size": 32,
+                     "dropout_probs": [0.1, 0.1]}, SEED + 170),
+           ("STAMP", {**CLASSIC_BASE, "feat_drop": 0.0}, SEED + 180),
+           ("NextItNet", {**CLASSIC_BASE, "dilations": [1, 4], "one_masked": False,
+                          "kernel_size": 3, "feat_drop": 0.0}, SEED + 190))
+CLASSIC_KERNELS = ("embedding_lookup",)
+CLASSIC_EPOCHS = 2         # fit epochs: at one, YotubeDNN's and STAMP's losses do not fall
+CLASSIC_REQUESTS = 20      # timed requests of the models after GRU4Rec (GRU4Rec: SEQ_REQUESTS)
+CLASSIC_PROFILED = 4       # GRU4Rec's fused steps traced by the profiler
+CONTRA_ENCODERS = (("GRU4Rec", SEED + 200), ("Caser", SEED + 210))  # ContraRec's other two
+# torch's own TF32 flags (matmul, cuDNN), read before main() turns both off
+TORCH_TF32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+
+
+@contextlib.contextmanager
+def torch_default_tf32():
+    """Within it, torch's default TF32 flags (cuDNN's on), as a user's fit
+    runs: the card-against-CPU gates then show that no convolution or
+    product of the classic models leans on main()'s global switch."""
+    saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = TORCH_TF32
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+def device_kernels(prof) -> int:
+    """Device kernels and copies a torch.profiler trace holds."""
+    return sum(e.count for e in prof.key_averages()
+               if e.self_device_time_total > 0 and not e.is_user_annotation
+               and e.device_type != torch.autograd.DeviceType.CPU)
+
+
+def phase_gru_share(path: str, enc_dict: dict, batches, config: dict,
+                    device: str = "cuda") -> dict:
+    """GRU4Rec's GRU alone on the training step's inputs (the bench batches'
+    history embeddings, [1024, 50, 64], two layers of 64): forward, and
+    forward plus backward, each ended by a synchronize; then torch.profiler
+    over forward plus backward: device busy time, idle share and kernels a
+    call.  Set beside gru4rec_train_profile's step, it gives the GRU's
+    share of the step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    t_start = time.perf_counter()
+    dev = torch.device(device)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    model = load_seq_model(path, enc_dict, device, "GRU4Rec", config).train()
+    inputs = []
+    for batch in batches:
+        up = model.upload_batch(batch, dev, train=True)
+        with torch.no_grad():
+            emb = model.item_emb(up["hist_item_list"])
+        inputs.append((emb, up["hist_mask_list"].sum(dim=-1).to(torch.int64)))
+
+    def fwd_bwd(emb, lengths):
+        model.gru(emb.detach().requires_grad_(), lengths).sum().backward()
+
+    def fwd(emb, lengths):
+        with torch.no_grad():
+            model.gru(emb, lengths)
+
+    times = {}
+    for key, fn in (("fwd", fwd), ("fwd_bwd", fwd_bwd)):
+        fn(*inputs[0])  # warm
+        sync()
+        times[key] = []
+        for args in inputs:
+            t0 = time.perf_counter()
+            fn(*args)
+            sync()
+            times[key].append(time.perf_counter() - t0)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for args in inputs:
+            fwd_bwd(*args)
+        sync()
+        wall_s = time.perf_counter() - t0
+    n = len(inputs)
+    busy_s, ops = profile_ops(prof, n, "call")
+    return {"phase": "gru4rec_gru", "device": device, "batch": SEQ_BATCH, "length": SEQ_L,
+            "layers": 2, "hidden": SEQ_DIM, "calls": n,
+            "fwd_p50_ms": statistics.median(times["fwd"]) * 1e3,
+            "fwd_bwd_p50_ms": statistics.median(times["fwd_bwd"]) * 1e3,
+            "wall_ms_per_call": wall_s * 1e3 / n, "device_busy_ms_per_call": busy_s * 1e3 / n,
+            "device_idle_share": 1.0 - busy_s / wall_s,
+            "device_kernels_per_call": device_kernels(prof) / n, "device_ops": ops,
+            "seconds": time.perf_counter() - t_start}
 
 
 def main() -> int:
@@ -3440,13 +3571,66 @@ def main() -> int:
                 device_aug = phase_device_aug(m_path, m_enc_dict)
                 emit(device_aug)
                 torch.cuda.empty_cache()
-            emit(phase_contrastive_card_vs_cpu(name, config))
+            emit(phase_model_card_vs_cpu(name, config))
             m_batches = [b for _, b in zip(range(CONTRA_PROFILED), m_loader)]
             emit(phase_seq_train_profile(
                 m_path, m_enc_dict, m_batches, m_ckpt,
                 functools.partial(load_seq_model, name=name, config=config),
                 f"{name.lower()}_train_profile"))
             del m_loader, m_batches
+            shutil.rmtree(m_ckpt)
+            os.remove(m_path)
+            torch.cuda.empty_cache()
+
+        # the classic zoo (GRU4Rec in full), then ContraRec's other encoders:
+        # K1 a request, step and eval batch, K3 a fused step, K2 (GRU4Rec's
+        # standard steps) and K7 (the device views) a standard step
+        classic = {}
+        for name, config, seed in CLASSIC + tuple(
+                ("ContraRec", {**CONTRA_CONFIG, "encoder_name": enc}, seed)
+                for enc, seed in CONTRA_ENCODERS):
+            full = name == "GRU4Rec"
+            contra = name == "ContraRec"
+            label = f"contrarec_{config['encoder_name'].lower()}" if contra else name.lower()
+            t0 = time.perf_counter()
+            m_path = os.path.join(tmp, f"{label}.ckpt")
+            m_enc_dict = write_model_checkpoint(m_path, name, config, seed)
+            emit({"phase": f"{label}_checkpoint", "seconds": time.perf_counter() - t0,
+                  "bytes": os.path.getsize(m_path)})
+            m_serving, m_model, m_profiled = phase_model_serving(
+                m_path, m_enc_dict, name, config, CLASSIC_KERNELS, seed + 2,
+                requests=SEQ_REQUESTS if full else CLASSIC_REQUESTS, label=label)
+            emit(m_serving)
+            if full:
+                emit(phase_seq_profile(m_model, m_profiled, f"{label}_profile"))
+            del m_model
+            torch.cuda.empty_cache()
+            if not contra:
+                emit(phase_seq_eval("cuda", name, config, CLASSIC_KERNELS, label))
+            m_ckpt = os.path.join(tmp, f"{label}_ckpt")
+            m_training, m_loader = phase_model_training(
+                m_path, m_enc_dict, m_ckpt, name, config, ("fused_adam",), CLASSIC_KERNELS,
+                seed + 3, IOC_STD_STEPS if full else 0, CLASSIC_EPOCHS, label=label)
+            emit(m_training)
+            classic[label] = {"serving": m_serving, "training": m_training}
+            torch.cuda.empty_cache()
+            if contra:
+                classic[label]["device_aug"] = phase_device_aug(
+                    m_path, m_enc_dict, config=config, kernels=CLASSIC_KERNELS, label=label)
+                emit(classic[label]["device_aug"])
+            else:
+                with torch_default_tf32():
+                    emit(phase_model_card_vs_cpu(name, config, later_rtol=SEQ_LOSS_RTOL,
+                                                 label=label))
+            if full:
+                m_batches = [b for _, b in zip(range(CLASSIC_PROFILED), m_loader)]
+                emit(phase_seq_train_profile(
+                    m_path, m_enc_dict, m_batches, m_ckpt,
+                    functools.partial(load_seq_model, name=name, config=config),
+                    f"{label}_train_profile"))
+                emit(phase_gru_share(m_path, m_enc_dict, m_batches, config))
+                del m_batches
+            del m_loader
             shutil.rmtree(m_ckpt)
             os.remove(m_path)
             torch.cuda.empty_cache()
@@ -3493,6 +3677,18 @@ def main() -> int:
         if line["name"] in BERT_KERNELS + BERT_STEP_KERNELS:
             for name, m_training in contrastive.items():
                 line[f"launches_{name.lower()}_training"] = m_training["launches"][line["name"]]
+        # the classic models' and ContraRec's other encoders' paths
+        for label, legs in classic.items():
+            if line["name"] == "embedding_lookup":
+                line[f"launches_{label}_serving"] = legs["serving"]["launches"][line["name"]]
+            if line["name"] in ("embedding_lookup", "fused_adam"):
+                line[f"launches_{label}_training"] = legs["training"]["launches"][line["name"]]
+            if line["name"] == "embedding_grad" and "standard_launches" in legs["training"]:
+                line[f"launches_{label}_standard"] = (
+                    legs["training"]["standard_launches"]["embedding_grad"])
+            if line["name"] == "embedding_grad_sorted" and "device_aug" in legs:
+                line[f"launches_{label}_device_aug"] = (
+                    legs["device_aug"]["launches"]["embedding_grad"])
     emit({"kernels": lines})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -5,7 +5,11 @@ nested dicts keyed by flax module names.  Each port model lists its weights
 under those names (``jax_leaves``), so the mapping is explicit:
 
 * flax ``Dense`` kernels are ``[in, out]``; torch ``Linear.weight`` is
-  ``[out, in]``: transposed.
+  ``[out, in]``: transposed (every axis reversed, ``arr.T``).  Reversing
+  fits a 1-D conv kernel too (``[k, in, out]`` -> torch's ``[out, in,
+  k]``), but not a 2-D one: ``[kh, kw, in, out]`` would become ``[out, in,
+  kw, kh]``.  A leaf of more than three axes therefore keeps flax's layout
+  (the port's conv kernels do), and one marked transposed raises.
 * the fused embedding table is copied as it is, pad rows included.
 * BatchNorm ``scale``/``bias``/``mean``/``var`` map to
   ``weight``/``bias``/``running_mean``/``running_var``; LayerNorm
@@ -32,9 +36,20 @@ def _flatten(tree: Any, prefix: tuple) -> Dict[tuple, Any]:
     return {prefix: tree}
 
 
+def _leaves(model):
+    """``model.jax_leaves()``, refusing a transposed leaf of more than three
+    axes (reversing them is no torch layout)."""
+    leaves = model.jax_leaves()
+    for _, path, tensor, transposed in leaves:
+        if transposed and tensor.dim() > 3:
+            raise ValueError(f"{'/'.join(path)}: a {tensor.dim()}-D leaf cannot be transposed "
+                             f"by reversing its axes; keep it in flax's layout")
+    return leaves
+
+
 def _expected(model) -> Dict[tuple, tuple]:
     return {(coll,) + path: (tensor, transposed)
-            for coll, path, tensor, transposed in model.jax_leaves()}
+            for coll, path, tensor, transposed in _leaves(model)}
 
 
 def load_jax_variables(model, variables: Dict[str, Any]) -> None:
@@ -75,7 +90,7 @@ def jax_tree(model, value_of: Callable[[torch.Tensor], Optional[torch.Tensor]] =
     weight whose value is None is left out), transposed as the weight is.
     None when no weight has a value."""
     tree: Dict[str, Any] = {}
-    for coll, path, tensor, transposed in model.jax_leaves():
+    for coll, path, tensor, transposed in _leaves(model):
         value = tensor if value_of is None else value_of(tensor)
         if coll != collection or value is None:
             continue

@@ -1,6 +1,12 @@
 from .clrec import CLRec
 from .contrarec import ContraRec
+from .gru4rec import GRU4Rec
 from .iocrec import IOCRec
+from .narm import NARM
+from .nextitnet import NextItNet
 from .sasrec import SASRec
+from .stamp import STAMP
+from .yotubednn import YotubeDNN
 
-__all__ = ["CLRec", "ContraRec", "IOCRec", "SASRec"]
+__all__ = ["CLRec", "ContraRec", "GRU4Rec", "IOCRec", "NARM", "NextItNet", "SASRec", "STAMP",
+           "YotubeDNN"]

@@ -31,9 +31,9 @@ import torch
 from torch import nn
 
 from ...ops.initializers import kaiming_normal_
-from ...ops.kernels.fused_encoder import check_rate, dropout_scale
+from ...ops.kernels.fused_encoder import check_rate
 from ...ops.kernels.global_attn import DROPOUT_LAYER, INPUT_SITE, global_attn
-from ...ops.sequence_enc import TransformerEncoder, _dense, draw_seed
+from ...ops.sequence_enc import TransformerEncoder, _dense, draw_seed, feature_dropout
 from ...ops.softmax_ce import (fused_multimax_softmax_ce_captured,
                                fused_multimax_softmax_ce_padded, naive_multimax_softmax_ce,
                                streamed_ce_applies)
@@ -223,11 +223,10 @@ class IOCRec(SequenceModelBase):
 
     def _local_from_emb(self, emb: torch.Tensor, item_seq: torch.Tensor, train: bool,
                         seed: int) -> torch.Tensor:
-        N, L, D = emb.shape
+        L = emb.shape[1]
         x = self.input_layer_norm(emb + self.position_embedding[:L])
-        if train and self.hidden_dropout > 0:
-            x = x * dropout_scale(seed, N, DROPOUT_LAYER, INPUT_SITE, (L, D),
-                                  self.hidden_dropout, x.device)
+        if train:
+            x = feature_dropout(x, self.hidden_dropout, seed, (DROPOUT_LAYER, INPUT_SITE))
         return self.local_encoder(x, item_seq != 0, causal=True, train=train, seed=seed)
 
     def _intention_factors(self, item_seq: torch.Tensor, seq_len: torch.Tensor, train: bool,

@@ -1,0 +1,42 @@
+"""STAMP: the short-term attention/memory priority layer over the history
+(``ops/sequence_enc.STAMPLayer``), the JAX package's
+``models/sequence/stamp.py``, its weights under the same flax names
+(``stamp_layer/...``).  ``feat_drop`` (0 by default) draws the fused
+encoder's hash masks on a stream of its own."""
+from __future__ import annotations
+
+import torch
+
+from ...ops.sequence_enc import STAMPLayer, draw_seed
+from ..base import SequenceModelBase, register_model
+
+
+@register_model("STAMP")
+class STAMP(SequenceModelBase):
+    fused_update_compatible = True
+
+    def __init__(self, enc_dict: dict, config: dict, seed: int = 1029):
+        super().__init__(enc_dict, config, seed)
+        self.setup_base()
+        self.stamp_layer = STAMPLayer(self.embedding_dim,
+                                      float(self.config.get("feat_drop", 0)), self.generator)
+
+    def forward(self, batch, train: bool = False, capture=None, seed=None):
+        """``capture``: the fused step's {"hist": [...], "ce": [...]} lists;
+        ``seed``: the step's seed (see SequenceModelBase)."""
+        capture = capture or {}
+        lengths = batch["hist_mask_list"].sum(dim=-1).to(torch.int64)
+        seq_emb = self.item_emb(batch["hist_item_list"], capture.get("hist"))
+        if train:
+            seed = draw_seed() if seed is None else int(seed)
+        user_emb = self.stamp_layer(seq_emb, lengths, train, seed or 0)
+        out = {"user_emb": user_emb}
+        if train:
+            out["loss"] = self.calculate_loss(user_emb, batch["target_item"],
+                                              capture.get("ce"), seed)
+        return out
+
+    def jax_leaves(self):
+        return ([(c, ("item_emb",) + p, t, tr) for c, p, t, tr in self.item_emb.jax_leaves()]
+                + [(c, ("stamp_layer",) + p, t, tr)
+                   for c, p, t, tr in self.stamp_layer.jax_leaves()])

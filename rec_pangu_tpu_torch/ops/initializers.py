@@ -7,6 +7,9 @@ explicit ``torch.Generator``.
   ``variance_scaling(2.0, "fan_in", "normal")`` the JAX package uses, which
   is :func:`kaiming_normal_` on a torch ``Linear.weight`` ``[out, in]``).
 * Linear biases: torch's default ``U(-1/sqrt(in), 1/sqrt(in))``.
+* Kernels kept in flax's layout ``[..., in, out]`` (the GRU's input
+  kernels, the conv kernels): the same fan-in normal with flax's fan-in
+  ``prod(shape[:-1])`` (:func:`flax_fan_in_normal_`).
 
 The same seed gives other numbers than the JAX package's ``jax.random``:
 parity tests carry weights across with :mod:`rec_pangu_tpu_torch.convert`.
@@ -32,3 +35,12 @@ def torch_linear_bias_(bias: torch.Tensor, fan_in: int,
                        generator: torch.Generator) -> torch.Tensor:
     bound = 1.0 / math.sqrt(max(fan_in, 1))
     return bias.uniform_(-bound, bound, generator=generator)
+
+
+@torch.no_grad()
+def flax_fan_in_normal_(t: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    """std = sqrt(2 / fan_in) with flax's fan_in = prod(shape[:-1]) of a
+    kernel in flax's layout ``[..., in, out]``."""
+    if t.dim() < 2:
+        raise ValueError("flax_fan_in_normal_ is for >=2-D kernels")
+    return t.normal_(0.0, math.sqrt(2.0 / math.prod(t.shape[:-1])), generator=generator)

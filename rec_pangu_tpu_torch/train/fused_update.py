@@ -138,7 +138,8 @@ class SeqFusedStep:
         self.schedule = make_lr_schedule(lr, steps_per_epoch, lr_scheduler_type,
                                          scheduler_params)
         self.dense = [p for p in model.parameters() if p is not table]
-        self.optimizer = make_optimizer(self.dense, lr)
+        # None for a model whose only weight is the table (YotubeDNN)
+        self.optimizer = make_optimizer(self.dense, lr) if self.dense else None
         self.generator = generator if generator is not None else torch.Generator()
         self.mu = torch.zeros_like(table, dtype=_moment_dtype())
         self.nu = torch.zeros_like(table, dtype=_moment_dtype())
@@ -167,10 +168,11 @@ class SeqFusedStep:
                 raise ValueError(f"the sequence fused step needs exactly one captured softmax "
                                  f"CE in the loss, got {len(capture['ce'])}")
             dense = capture["ce"][0]
-        set_lr(self.optimizer, lr)
-        for p, g in zip(self.dense, grads):
-            p.grad = g  # None for a weight the loss does not reach: Adam skips it
-        self.optimizer.step()
+        if self.optimizer is not None:
+            set_lr(self.optimizer, lr)
+            for p, g in zip(self.dense, grads):
+                p.grad = g  # None for a weight the loss does not reach: Adam skips it
+            self.optimizer.step()
         rows = grads[-1]
         table = self.model.item_emb.table
         ids = inputs[key]

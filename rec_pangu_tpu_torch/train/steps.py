@@ -36,12 +36,14 @@ def strip_host_keys(batch: Dict[str, Any]) -> Tuple[Dict[str, Any], Dict[str, An
     return device_batch, host
 
 
-def adam_moments(model, optimizer: torch.optim.Optimizer) -> Dict[str, Any]:
+def adam_moments(model, optimizer: Optional[torch.optim.Optimizer]) -> Dict[str, Any]:
     """The first and second moments of every parameter ``optimizer`` has
     stepped, as flax-layout trees (``mu``, ``nu``), like optax's
-    ``ScaleByAdamState``."""
+    ``ScaleByAdamState``; None trees when ``optimizer`` is None."""
+    state = {} if optimizer is None else optimizer.state
+
     def moment(key: str) -> Callable:
-        return lambda p: optimizer.state.get(p, {}).get(key)
+        return lambda p: state.get(p, {}).get(key)
 
     return {"mu": jax_tree(model, moment("exp_avg")),
             "nu": jax_tree(model, moment("exp_avg_sq"))}
