@@ -33,6 +33,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                (``encoder_bwd_parts``), and the masks' seed and keep share;
                the K-max CE (K5f, K5b) and each of K5b's launches against
                its stage's plain version (``check_multimax_stages``).
+3b. kernel_d1 -- K3 and K2 at the LR table's shape ([1,605,632, 1], the
+               131,072 ids of a batch) against their plain versions, timed.
 4. serving  -- DeepFM at the bench's full width (16 sparse fields x 100,000
                vocab, 9 dense, D=32, MLP (64, 64, 64)) from a checkpoint in
                the JAX package's layout, random weights from a seed: requests
@@ -48,6 +50,14 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                torch.optim.Adam).  Step times and examples/s for both.
 7. card_vs_cpu -- the first three fused steps on the card and on the CPU.
 8. train_profile -- torch.profiler over a few fused training steps.
+8b. wdl_*, lr_*, fm_*, nfm_*, dcn_*, xdeepfm_*, autoint_*, fibinet_*,
+               masknet_*, afm_*, ccpm_*, aoanet_*, afn_* -- the ranking zoo
+               at the same width with each JAX class's defaults:
+               checkpoint, serving, a fit on the fused step (K1 a table a
+               request, step and eval batch; K3 a table a step) and three
+               fused steps card against CPU with the MLPs' dropout on; WDL
+               also its profiles, validation, standard steps (K2 a table a
+               step) and the full-width card_vs_cpu.
 9. seq_checkpoint -- a SASRec checkpoint in the JAX layout at bench.py's
                sequence width (1,000,000 items, D=64, L=50, 2 blocks of 4
                heads, inner 32, gelu), random weights from a seed.
@@ -95,6 +105,11 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                and Caser encoders: checkpoint, serving, training (fit on
                the host views) and device_aug (standard steps on device
                views: K7's path).
+21. past_limits -- SASRec at max_len 100 and at hidden size 256, IOCRec with
+               K = 8 and at max_len 80: retrieval and two fused steps each,
+               card against CPU, on the plain versions of the kernels whose
+               limits they pass (0 launches of those; their plain-route
+               counts).
 
 Then the kernels line, the card's name and power limit as nvidia-smi gives
 them, and last {"ok": true, "device": {...}}.
@@ -138,7 +153,7 @@ from rec_pangu_tpu_torch.serving import make_ranking_scorer, make_retrieval_scor
 from rec_pangu_tpu_torch.serving.scorer import score_items
 from rec_pangu_tpu_torch.convert import jax_variables
 from rec_pangu_tpu_torch.train import RankTrainer, SequenceTrainer, save_checkpoint
-from rec_pangu_tpu_torch.train.fused_update import maybe_enable_fused_update
+from rec_pangu_tpu_torch.train.fused_update import fused_tables, maybe_enable_fused_update
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
@@ -692,18 +707,26 @@ def phase_fused_adam(bandwidth: float) -> dict:
     }
 
 
+@functools.lru_cache(maxsize=2)
+def bench_enc_dict(vocab: int = VOCAB) -> dict:
+    """The bench's enc_dict: 16 fields of ``vocab`` ids, 9 dense columns
+    (one dict, built once: callers do not change it)."""
+    enc_dict = {}
+    for f in range(FIELDS):
+        mapping = {str(i): i for i in range(vocab)}
+        mapping["vocab_size"] = vocab
+        enc_dict[f"C{f + 1}"] = mapping
+    for d in range(DENSE):
+        enc_dict[f"I{d + 1}"] = {"min": 0.0, "max": 1.0}
+    return enc_dict
+
+
 def write_checkpoint(path: str) -> dict:
     """A DeepFM checkpoint in the JAX package's layout, made with numpy from
     the seed: flax-named params plus an enc_dict of 16 x 100,000 vocab and 9
     dense columns."""
     rng = np.random.default_rng(SEED)
-    enc_dict = {}
-    for f in range(FIELDS):
-        mapping = {str(i): i for i in range(VOCAB)}
-        mapping["vocab_size"] = VOCAB
-        enc_dict[f"C{f + 1}"] = mapping
-    for d in range(DENSE):
-        enc_dict[f"I{d + 1}"] = {"min": 0.0, "max": 1.0}
+    enc_dict = bench_enc_dict()
     rows = padded_rows(FIELDS * (VOCAB + 1))
     params = {"FusedEmbedding_0": {
         "table": (rng.standard_normal((rows, DIM)) * math.sqrt(2.0 / DIM)).astype(np.float32)}}
@@ -718,6 +741,49 @@ def write_checkpoint(path: str) -> dict:
     params["MLP_0"] = mlp
     save_checkpoint(path, params, None, enc_dict=enc_dict)
     return enc_dict
+
+
+def rank_config(name: str) -> dict:
+    """The ranking model ``name`` at the bench's width with its JAX class's
+    other defaults (DeepFM's MLP (64, 64, 64) is its default too)."""
+    if name == "LR":
+        return {}
+    return {"embedding_dim": DIM, **({"hidden_units": HIDDEN} if name == "DeepFM" else {})}
+
+
+def write_rank_checkpoint(path: str, name: str, seed: int) -> dict:
+    """A checkpoint of the ranking model ``name`` in the JAX package's layout
+    at the bench's width: the port's init from ``seed`` (the JAX package's
+    distributions), small random biases and LayerNorm terms, and BatchNorm's
+    running statistics (AFN's) those of one request's batch, as training
+    leaves them: at their init (mean 0, variance 1), AFN's exp_bn would
+    scale its inputs, of variance near 1e4, by about 1e2, and the
+    predictions would carry that many roundings."""
+    enc_dict = bench_enc_dict()
+    model = port.get_model(name)(enc_dict=enc_dict, **rank_config(name), seed=seed)
+    gen = torch.Generator().manual_seed(seed + 1)
+    with torch.no_grad():
+        for p in model.parameters():
+            if p.dim() == 1:
+                p.add_(torch.randn(p.shape, generator=gen) * 0.1)
+        norms = [m for m in model.modules() if isinstance(m, torch.nn.BatchNorm1d)]
+        if norms:
+            momenta = [m.momentum for m in norms]
+            for m in norms:
+                m.momentum = 1.0  # the running statistics become the batch's
+            req = make_requests(1, seed + 2)[0]
+            model(model.upload_batch(req, torch.device("cpu")), train=True, seed=0)
+            for m, momentum in zip(norms, momenta):
+                m.momentum = momentum
+    variables = jax_variables(model)  # weights only: load_model reads no enc_dict
+    save_checkpoint(path, variables["params"], variables["batch_stats"])
+    return enc_dict
+
+
+def num_tables(model) -> int:
+    """The model's fused tables: K1 runs once a table a request, K3 (K2 on
+    the standard step) once a table a step."""
+    return len(fused_tables(model))
 
 
 def make_requests(count: int, seed: int):
@@ -738,23 +804,31 @@ class _Arrays:
         return len(self.arrays["sparse"])
 
 
-def load_model(path: str, enc_dict: dict, device: str):
-    """A DeepFM of the bench's width loaded from ``path`` onto ``device``."""
-    model = port.get_model("DeepFM")(enc_dict=enc_dict, embedding_dim=DIM,
-                                     hidden_units=HIDDEN)
+def load_model(path: str, enc_dict: dict, device: str, name: str = "DeepFM"):
+    """The ranking model ``name`` of the bench's width loaded from ``path``
+    onto ``device``."""
+    model = port.get_model(name)(enc_dict=enc_dict, **rank_config(name))
     RankTrainer(device=device).load_model(model, path)
     return model
 
 
-def phase_serving(path: str, enc_dict: dict, device: str = "cuda"):
+def phase_serving(path: str, enc_dict: dict, device: str = "cuda", name: str = "DeepFM",
+                  requests: int = REQUESTS, seed: int = SEED + 1, phase: str = "serving",
+                  cpu_checks: int = 3):
+    """``requests`` timed requests of the ranking model ``name`` (after
+    WARMUP) through load_model and make_ranking_scorer, K1 once a table a
+    request; ``cpu_checks`` of them held against the same model on the CPU;
+    evaluate_model on a labelled set."""
     t0 = time.perf_counter()
-    model = load_model(path, enc_dict, device)
+    model = load_model(path, enc_dict, device, name)
     trainer = RankTrainer(device=device)
     score = make_ranking_scorer(model, device=device)
-    cpu_score = make_ranking_scorer(load_model(path, enc_dict, "cpu"), device="cpu")
+    cpu_score = make_ranking_scorer(load_model(path, enc_dict, "cpu", name), device="cpu")
     setup_s = time.perf_counter() - t0
+    tables = num_tables(model)
 
-    requests = make_requests(WARMUP + REQUESTS, SEED + 1)
+    n_timed = requests
+    requests = make_requests(WARMUP + n_timed, seed)
     # the main path: every count is 0 just before it and read just after
     reset_launches()
     preds, latencies = [], []
@@ -765,11 +839,10 @@ def phase_serving(path: str, enc_dict: dict, device: str = "cuda"):
             latencies.append(time.perf_counter() - t0)
         preds.append(pred)
     launches = read_launches()
-    require_launches(launches, {"embedding_lookup": len(requests), "embedding_grad": 0,
-                                "fused_adam": 0, "fused_encoder": 0}, "serving")
+    require_launches(launches, {"embedding_lookup": len(requests) * tables}, phase)
 
     max_err = 0.0
-    for req, pred in zip(requests[:3], preds[:3]):
+    for req, pred in zip(requests[:cpu_checks], preds[:cpu_checks]):
         want = cpu_score(req)
         if pred.shape != (BATCH,) or not np.all(np.isfinite(pred)):
             raise RuntimeError(f"bad predictions: shape {pred.shape}")
@@ -791,19 +864,20 @@ def phase_serving(path: str, enc_dict: dict, device: str = "cuda"):
 
     p50 = statistics.median(latencies)
     summary = {
-        "phase": "serving", "model": "DeepFM", "batch": BATCH, "fields": FIELDS,
-        "vocab": VOCAB, "dense": DENSE, "dim": DIM, "hidden": list(HIDDEN),
-        "table_rows": int(model.embedding.table.shape[0]),
-        "requests": REQUESTS, "warmup": WARMUP, "launches": launches,
-        "max_abs_err_vs_cpu": max_err, "atol": SERVING_ATOL,
+        "phase": phase, "model": name, "batch": BATCH, "fields": FIELDS,
+        "vocab": VOCAB, "dense": DENSE, "config": rank_config(name),
+        "table_rows": padded_rows(model.spec.total_rows), "tables": tables,
+        "requests": n_timed, "warmup": WARMUP, "launches": launches,
+        "cpu_checked_requests": cpu_checks, "max_abs_err_vs_cpu": max_err,
+        "atol": SERVING_ATOL,
         "p50_ms": p50 * 1e3, "p90_ms": float(np.percentile(latencies, 90)) * 1e3,
-        "examples_per_s": REQUESTS * BATCH / sum(latencies),
+        "examples_per_s": n_timed * BATCH / sum(latencies),
         "eval": metrics, "setup_s": setup_s,
     }
     return summary, model, score, requests[WARMUP:WARMUP + PROFILED]
 
 
-def phase_profile(model, requests) -> dict:
+def phase_profile(model, requests, phase: str = "profile") -> dict:
     """Where a request's time goes.  Host stages, each ended by a
     synchronize: the id check, the check plus upload, the model's forward,
     the copy back.  Then torch.profiler over the scorer: device time by
@@ -812,7 +886,7 @@ def phase_profile(model, requests) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     dev = next(model.parameters()).device
-    rows = model.embedding.table.shape[0]
+    rows = padded_rows(model.spec.total_rows)
     stages = {"check_ids": [], "check_and_upload": [], "forward": [], "download": []}
     for req in requests:
         t0 = time.perf_counter()
@@ -839,7 +913,7 @@ def phase_profile(model, requests) -> dict:
     busy_s, ops = profile_ops(prof, len(requests), "request")
     n = len(requests)
     return {
-        "phase": "profile", "requests": n,
+        "phase": phase, "requests": n,
         "host_stage_p50_ms": {k: statistics.median(v) * 1e3 for k, v in stages.items()},
         "wall_ms_per_request": wall_s * 1e3 / n,
         "device_busy_ms_per_request": busy_s * 1e3 / n,
@@ -864,7 +938,12 @@ COUNTERS = {"embedding_lookup": (lookup, "LAUNCHES"), "embedding_grad": (grad, "
             "fused_adam": (adam, "LAUNCHES"), "fused_encoder": (encoder, "LAUNCHES"),
             "fused_encoder_bwd": (encoder, "BACKWARD_LAUNCHES"),
             "global_attn": (gattn, "LAUNCHES"), "global_attn_bwd": (gattn, "BACKWARD_LAUNCHES"),
-            "multimax_ce": (mmce, "LAUNCHES"), "multimax_ce_bwd": (mmce, "BACKWARD_LAUNCHES")}
+            "multimax_ce": (mmce, "LAUNCHES"), "multimax_ce_bwd": (mmce, "BACKWARD_LAUNCHES"),
+            # calls on the card that took the plain version by their shape (past a
+            # kernel's limits): 0 on every path unless named
+            "fused_encoder_plain": (encoder, "PLAIN_ROUTE"),
+            "global_attn_plain": (gattn, "PLAIN_ROUTE"),
+            "multimax_ce_plain": (mmce, "PLAIN_ROUTE")}
 
 
 def reset_launches() -> None:
@@ -921,76 +1000,94 @@ def step_stats(times, rows: int) -> dict:
             "examples_per_s": len(warm) * rows / sum(warm)}
 
 
-def phase_training(path: str, enc_dict: dict, score, ckpt_dir: str, device: str = "cuda"):
-    """RankTrainer.fit from the serving checkpoint on the fused step, then a
-    few standard steps.  Returns (summary, trained trainer, train batches)."""
+def phase_training(path: str, enc_dict: dict, score, ckpt_dir: str, device: str = "cuda",
+                   name: str = "DeepFM", epochs: int = EPOCHS,
+                   train_batches: int = TRAIN_BATCHES, valid_batches: int = VALID_BATCHES,
+                   std_steps: int = STD_STEPS, seed: int = SEED + 4, phase: str = "training"):
+    """RankTrainer.fit on the ranking model ``name`` from the serving
+    checkpoint on the fused step (K1 once a table a step and eval batch, K3
+    once a table a step), with validation, checkpoints and early stopping
+    when ``valid_batches``; then ``std_steps`` standard steps (K2 for K3).
+    The loss falls: the last epoch's mean below the first's (each batch is
+    seen again), and with a validation set the last three steps' below the
+    first three's.  Returns (summary, trained trainer, train batches)."""
     t0 = time.perf_counter()
-    train_loader = labelled_loader(score, TRAIN_BATCHES, SEED + 4)
-    valid_loader = labelled_loader(score, VALID_BATCHES, SEED + 5)
-    model = load_model(path, enc_dict, device)
+    train_loader = labelled_loader(score, train_batches, seed)
+    valid_loader = labelled_loader(score, valid_batches, seed + 1) if valid_batches else None
+    model = load_model(path, enc_dict, device, name)
     trainer = RankTrainer(device=device, model_ckpt_dir=ckpt_dir)
     setup_s = time.perf_counter() - t0
+    tables = num_tables(model)
 
     # the main path: every count is 0 just before it and read just after
     reset_launches()
     t0 = time.perf_counter()
-    metric, times, losses = timed_fit(trainer, model, train_loader, valid_loader, EPOCHS,
+    metric, times, losses = timed_fit(trainer, model, train_loader, valid_loader, epochs,
                                       device)
     fit_s = time.perf_counter() - t0
     launches = read_launches()
-    steps = EPOCHS * TRAIN_BATCHES
-    require_launches(launches, {"embedding_lookup": steps + EPOCHS * VALID_BATCHES,
-                                "embedding_grad": 0, "fused_adam": steps,
-                                "fused_encoder": 0}, "fused fit")
+    steps = epochs * train_batches
+    require_launches(launches, {"embedding_lookup": (steps + epochs * valid_batches) * tables,
+                                "fused_adam": steps * tables}, f"{name} fused fit")
     if not trainer._train_step.fused:
-        raise RuntimeError("fit did not take the fused step")
+        raise RuntimeError(f"{name}'s fit did not take the fused step")
     first, last = float(np.mean(losses[:3])), float(np.mean(losses[-3:]))
-    if not (np.all(np.isfinite(losses)) and last < first):
-        raise RuntimeError(f"the training loss did not fall: {losses}")
-    files = sorted(os.listdir(ckpt_dir))
-    want = {f"model_e_{i}.ckpt" for i in range(1, EPOCHS + 1)} | {"model_best.ckpt"}
-    if not want <= set(files):
-        raise RuntimeError(f"checkpoints missing: {sorted(want - set(files))} of {files}")
-
-    # the standard step (REC_PANGU_TPU_FUSED_ADAM=0): K1 + K2 + torch.optim.Adam
-    std_loader = DataLoader(_Arrays({k: v[:STD_STEPS * BATCH] for k, v in
-                                     train_loader.dataset.arrays.items()}), batch_size=BATCH)
-    std_model = load_model(path, enc_dict, device)
-    std_trainer = RankTrainer(device=device, model_ckpt_dir=ckpt_dir)
-    os.environ["REC_PANGU_TPU_FUSED_ADAM"] = "0"
-    try:
-        reset_launches()
-        _, std_times, std_losses = timed_fit(std_trainer, std_model, std_loader, None, 1,
-                                             device)
-        std_launches = read_launches()
-    finally:
-        del os.environ["REC_PANGU_TPU_FUSED_ADAM"]
-    require_launches(std_launches, {"embedding_lookup": STD_STEPS,
-                                    "embedding_grad": STD_STEPS, "fused_adam": 0,
-                                    "fused_encoder": 0}, "standard-step fit")
-    if std_trainer._train_step.fused or not np.all(np.isfinite(std_losses)):
-        raise RuntimeError(f"the standard step did not run cleanly: {std_losses}")
+    epoch_means = [float(np.mean(losses[i:i + train_batches]))
+                   for i in range(0, steps, train_batches)]
+    if not (np.all(np.isfinite(losses)) and epoch_means[-1] < epoch_means[0]
+            and (valid_loader is None or last < first)):
+        raise RuntimeError(f"the {name} training loss did not fall: {losses}")
+    files = sorted(os.listdir(ckpt_dir)) if os.path.isdir(ckpt_dir) else []
+    if valid_loader is not None:
+        want = {f"model_e_{i}.ckpt" for i in range(1, epochs + 1)} | {"model_best.ckpt"}
+        if not want <= set(files):
+            raise RuntimeError(f"checkpoints missing: {sorted(want - set(files))} of {files}")
 
     summary = {
-        "phase": "training", "model": "DeepFM", "batch": BATCH, "epochs": EPOCHS,
-        "steps_per_epoch": TRAIN_BATCHES, "valid_batches": VALID_BATCHES, "lr": LR,
-        "table_rows": int(model.embedding.table.shape[0]), "launches": launches,
-        "fused": step_stats(times, BATCH), "fit_s": fit_s, "setup_s": setup_s,
-        "loss_first3": first, "loss_last3": last, "losses": losses,
+        "phase": phase, "model": name, "config": rank_config(name), "batch": BATCH,
+        "epochs": epochs, "steps_per_epoch": train_batches, "valid_batches": valid_batches,
+        "lr": LR, "table_rows": padded_rows(model.spec.total_rows), "tables": tables,
+        "launches": launches, "fused": step_stats(times, BATCH), "fit_s": fit_s,
+        "setup_s": setup_s, "loss_first3": first, "loss_last3": last,
+        "loss_epoch_means": epoch_means, "losses": losses,
         "train_metric": metric, "checkpoints": files,
-        "standard_launches": std_launches, "standard": step_stats(std_times, BATCH),
-        "standard_losses": std_losses,
     }
+    if std_steps:  # the standard step (REC_PANGU_TPU_FUSED_ADAM=0): K1 + K2 + torch Adam
+        std_loader = DataLoader(_Arrays({k: v[:std_steps * BATCH] for k, v in
+                                         train_loader.dataset.arrays.items()}),
+                                batch_size=BATCH)
+        std_model = load_model(path, enc_dict, device, name)
+        std_trainer = RankTrainer(device=device, model_ckpt_dir=ckpt_dir)
+        os.environ["REC_PANGU_TPU_FUSED_ADAM"] = "0"
+        try:
+            reset_launches()
+            _, std_times, std_losses = timed_fit(std_trainer, std_model, std_loader, None, 1,
+                                                 device)
+            std_launches = read_launches()
+        finally:
+            del os.environ["REC_PANGU_TPU_FUSED_ADAM"]
+        require_launches(std_launches, {"embedding_lookup": std_steps * tables,
+                                        "embedding_grad": std_steps * tables},
+                         f"{name} standard-step fit")
+        if std_trainer._train_step.fused or not np.all(np.isfinite(std_losses)):
+            raise RuntimeError(f"the {name} standard step did not run cleanly: {std_losses}")
+        summary.update({"standard_launches": std_launches,
+                        "standard": step_stats(std_times, BATCH),
+                        "standard_losses": std_losses})
     return summary, trainer, train_loader
 
 
-def phase_card_vs_cpu(path: str, enc_dict: dict, batches, devices=("cuda", "cpu")) -> dict:
+def phase_card_vs_cpu(path: str, enc_dict: dict, batches, devices=("cuda", "cpu"),
+                      name: str = "DeepFM", phase: str = "card_vs_cpu") -> dict:
     """The first fused steps from the same weights on the card (kernels) and
-    on the CPU (plain versions)."""
+    on the CPU (plain versions), at the bench's width: losses, the dense
+    parameters and each table after one step."""
     runs = {}
     for dev in devices:
-        model = load_model(path, enc_dict, dev).train()
-        step = maybe_enable_fused_update(model, LR, TRAIN_BATCHES)
+        model = load_model(path, enc_dict, dev, name).train()
+        step = maybe_enable_fused_update(model, LR, TRAIN_BATCHES,
+                                         generator=torch.Generator().manual_seed(SEED))
+        table_keys = [f"{t}.table" for t, _ in step.tables]
         losses = []
         for i, batch in enumerate(batches):
             out = step(model.upload_batch(batch, torch.device(dev), train=True), i)
@@ -1001,18 +1098,18 @@ def phase_card_vs_cpu(path: str, enc_dict: dict, batches, devices=("cuda", "cpu"
     (card_losses, card), (cpu_losses, cpu) = (runs[d] for d in devices)
     loss_rel = max(abs(a - b) / abs(b) for a, b in zip(card_losses, cpu_losses))
     diffs = {k: (card[k] - cpu[k]).abs() for k in cpu}
-    table_key = "embedding.table"
-    dense_err = max(d.max().item() for k, d in diffs.items() if k != table_key)
-    table = diffs[table_key]
-    beyond = int((table > TABLE_ATOL).sum().item())
-    summary = {"phase": "card_vs_cpu", "steps": len(batches), "card_losses": card_losses,
-               "cpu_losses": cpu_losses, "loss_max_rel_diff": loss_rel,
-               "dense_max_abs_diff": dense_err, "table_max_abs_diff": table.max().item(),
-               "table_elements_beyond_atol": beyond, "table_elements": table.numel(),
+    dense_err = max(d.max().item() for k, d in diffs.items() if k not in table_keys)
+    beyond = {k: int((diffs[k] > TABLE_ATOL).sum().item()) for k in table_keys}
+    table_err = {k: diffs[k].max().item() for k in table_keys}
+    summary = {"phase": phase, "model": name, "steps": len(batches),
+               "card_losses": card_losses, "cpu_losses": cpu_losses,
+               "loss_max_rel_diff": loss_rel, "dense_max_abs_diff": dense_err,
+               "table_max_abs_diff": table_err, "table_elements_beyond_atol": beyond,
+               "table_elements": {k: diffs[k].numel() for k in table_keys},
                "loss_rtol": LOSS_RTOL, "dense_atol": DENSE_ATOL, "table_atol": TABLE_ATOL,
                "handful": HANDFUL}
-    if (loss_rel > LOSS_RTOL or dense_err > DENSE_ATOL or beyond > HANDFUL
-            or table.max().item() > 2 * LR):
+    if (loss_rel > LOSS_RTOL or dense_err > DENSE_ATOL or max(beyond.values()) > HANDFUL
+            or max(table_err.values()) > 2 * LR):
         raise RuntimeError(f"the card's training differs from the CPU's: {summary}")
     return summary
 
@@ -1031,7 +1128,7 @@ def profile_ops(prof, calls: int, per: str) -> tuple:
                     for k, us, c in ops[:12]]
 
 
-def phase_train_profile(trainer: RankTrainer, batches) -> dict:
+def phase_train_profile(trainer: RankTrainer, batches, phase: str = "train_profile") -> dict:
     """torch.profiler over fused training steps (the trainer's own step on
     host batches): device time by operation and the card's idle share."""
     from torch.profiler import ProfilerActivity, profile
@@ -1048,7 +1145,7 @@ def phase_train_profile(trainer: RankTrainer, batches) -> dict:
         wall_s = time.perf_counter() - t0
     busy_s, ops = profile_ops(prof, len(batches), "step")
     n = len(batches)
-    return {"phase": "train_profile", "steps": n, "wall_ms_per_step": wall_s * 1e3 / n,
+    return {"phase": phase, "steps": n, "wall_ms_per_step": wall_s * 1e3 / n,
             "device_busy_ms_per_step": busy_s * 1e3 / n,
             "device_idle_share": 1.0 - busy_s / wall_s, "device_ops": ops}
 
@@ -3046,22 +3143,23 @@ def phase_iocrec_card_vs_cpu(devices=("cuda", "cpu")) -> dict:
 
 
 def require_card_like_cpu(leg: dict, later_rtol: float, kink_rel_tol: float,
-                          summary: dict) -> None:
+                          summary: dict, grad_rel_tol: float = IOC_GRAD_REL_TOL,
+                          dense_handful: int = IOC_DENSE_HANDFUL) -> None:
     """A card-against-CPU leg within its bounds: the step-1 loss within
     IOC_LOSS_RTOL and the later ones within ``later_rtol``; the first step's
-    gradients within IOC_GRAD_REL_TOL of each leaf's largest entry
+    gradients within ``grad_rel_tol`` of each leaf's largest entry
     (``kink_rel_tol`` on the relu's path, the exact zeros of their weight's);
     the parameters after one step: dense elements past SEQ_DENSE_ATOL at most
-    IOC_DENSE_HANDFUL, table elements past SEQ_TABLE_ATOL at most
+    ``dense_handful``, table elements past SEQ_TABLE_ATOL at most
     SEQ_HANDFUL, none of either past 2 lr."""
     lr = leg["lr"]
     losses_ok = (leg["loss_rel_diffs"][0] <= IOC_LOSS_RTOL
                  and max(leg["loss_rel_diffs"]) <= later_rtol)
-    grads_ok = (leg["grad_rel_err"] <= IOC_GRAD_REL_TOL
+    grads_ok = (leg["grad_rel_err"] <= grad_rel_tol
                 and leg["kink_path_grad_rel_err"] <= kink_rel_tol
                 and leg["zero_grad_rel_size"] <= IOC_GRAD_REL_TOL)
     if (not losses_ok or not grads_ok
-            or leg["dense_elements_beyond_atol"] > IOC_DENSE_HANDFUL
+            or leg["dense_elements_beyond_atol"] > dense_handful
             or leg["dense_max_abs_diff"] > 2 * lr
             or leg["table_elements_beyond_atol"] > SEQ_HANDFUL
             or leg["table_max_abs_diff"] > 2 * lr):
@@ -3446,6 +3544,363 @@ def phase_gru_share(path: str, enc_dict: dict, batches, config: dict,
             "seconds": time.perf_counter() - t_start}
 
 
+# ------------------------------------------------------ the ranking zoo
+# at bench.py's CTR width (16 fields x 100,000 vocab, 9 dense, D=32,
+# 8192-row requests and batches) with each JAX class's own defaults
+# (rec_pangu_tpu/models/ranking/*.py): WDL first, with DeepFM's full set of
+# phases; the other twelve with serving, a short fit and three fused steps
+# card against CPU with their dropout (0.1 in xDeepFM's, AutoInt's,
+# MaskNet's, AOANet's and AFN's MLPs) on.  K1 once a table a request, step
+# and eval batch; K3 once a table a fused step, K2 once a table a standard
+# step (WDL, and the LR models: 2 tables; AFN 2; LR 1).
+RANK_ZOO = (("WDL", SEED + 300), ("LR", SEED + 310), ("FM", SEED + 320), ("NFM", SEED + 330),
+            ("DCN", SEED + 340), ("xDeepFM", SEED + 350), ("AutoInt", SEED + 360),
+            ("FiBiNet", SEED + 370), ("MaskNet", SEED + 380), ("AFM", SEED + 390),
+            ("CCPM", SEED + 400), ("AOANet", SEED + 410), ("AFN", SEED + 420))
+RANK_REQUESTS = 20         # timed requests of the models after WDL (WDL: REQUESTS)
+RANK_CPU_CHECKS = 3        # ... held against the CPU, as DeepFM's
+RANK_FIT_EPOCHS, RANK_FIT_BATCHES = 2, 4  # the short fits: each batch seen again
+RANK_CPU_VOCAB, RANK_CPU_BATCH = 10_000, 2048  # card against CPU: 16 fields of 10,000 ids
+RANK_GRAD_REL_TOL = 1e-5   # ... the first step's gradient of each leaf, of its largest entry
+RANK_ZERO_GRAD = {"log_bn.bias": "log_bn.weight"}  # AFN: a gradient of 0 (exp_bn undoes
+RANK_ZERO_GRAD_REL = 1e-4  # a shift), rounding noise held as a share of the weight's
+RANK_DENSE_HANDFUL = 16    # dense elements allowed past DENSE_ATOL after one step (2 lr at most)
+RANK_TABLE_HANDFUL = 512   # table elements allowed past TABLE_ATOL (2 lr at most)
+RANK_STATS_RTOL = 1e-4     # BatchNorm running statistics after one step, of their size
+# AFN alone: the exp of its logarithmic neurons magnifies a rounding (on the
+# CPU its float32 first-step gradients lie up to 1.3e-1 of a leaf's largest
+# entry from float64's, its loss 7.5e-4 apart), so its card and CPU
+# gradients agree only to a few 1e-3 and more first Adam steps flip sign
+# (first card run: 4.79e-3 on afn_mlp.dense.0.weight, 21 dense and 3,016 of
+# 10,485,760 table elements past their atol, all within 2 lr)
+RANK_LOOSER = {"AFN": {"grad_rel_tol": 1e-2, "dense_handful": 64, "table_handful": 8192}}
+
+
+def rank_cpu_batches(seed: int):
+    """CPU_STEPS labelled batches of RANK_CPU_BATCH rows over RANK_CPU_VOCAB
+    ids a field (the last id each field's OOV row)."""
+    rng = np.random.default_rng(seed)
+    return [{"sparse": rng.integers(0, RANK_CPU_VOCAB + 1,
+                                    (RANK_CPU_BATCH, FIELDS)).astype(np.int32),
+             "dense": rng.random((RANK_CPU_BATCH, DENSE)).astype(np.float32),
+             "label": (rng.random(RANK_CPU_BATCH) < 0.3).astype(np.float32)}
+            for _ in range(CPU_STEPS)]
+
+
+def phase_rank_card_vs_cpu(name: str, seed: int, devices=("cuda", "cpu")) -> dict:
+    """The first three fused steps of the ranking model ``name`` (16 fields of
+    RANK_CPU_VOCAB ids, weights from ``seed``) on the card and on the CPU,
+    from the same weights, batches and dropout seeds (the MLPs' masks are
+    the same hash on both): the first step's gradient of every leaf before
+    Adam (each table's as its rows summed at their ids, recorded at its K3
+    call), the losses (each within LOSS_RTOL) and the parameters after one
+    step.  Every leaf's gradient within RANK_GRAD_REL_TOL of its largest
+    entry but RANK_ZERO_GRAD's, 0 but for rounding on both sides (held
+    within RANK_ZERO_GRAD_REL of their weight's largest gradient).  Adam's
+    first step moves an entry by about lr whatever its gradient's size, so
+    one with a gradient within rounding of 0 may move 2 lr apart: at most
+    RANK_DENSE_HANDFUL dense and RANK_TABLE_HANDFUL table elements past
+    DENSE_ATOL and TABLE_ATOL, none past 2 lr.  AFN's gates are
+    RANK_LOOSER's."""
+    t_start = time.perf_counter()
+    enc_dict = {**{f"C{f + 1}": {"vocab_size": RANK_CPU_VOCAB} for f in range(FIELDS)},
+                **{f"I{d + 1}": {"min": 0.0, "max": 1.0} for d in range(DENSE)}}
+    batches = rank_cpu_batches(seed + 1)
+    runs = {}
+    for dev in devices:
+        model = port.get_model(name)(enc_dict=enc_dict, **rank_config(name), seed=seed)
+        model = model.to(dev).train()
+        step = maybe_enable_fused_update(model, LR, CPU_STEPS,
+                                         generator=torch.Generator().manual_seed(SEED))
+        table_keys = [f"{t}.table" for t, _ in step.tables]
+        losses, table_grads = [], []
+        with recording_table_grad(table_grads):
+            for i, batch in enumerate(batches):
+                out = step(model.upload_batch(batch, torch.device(dev), train=True), i)
+                losses.append(float(out["loss"].detach()))
+                if i == 0:  # the step leaves each dense leaf's gradient in .grad
+                    grads = {k: p.grad.detach().cpu().clone()
+                             for k, p in model.named_parameters() if p.grad is not None}
+                    grads.update(zip(table_keys, table_grads))
+                    after_one = {k: v.detach().cpu().clone()
+                                 for k, v in model.state_dict().items()}
+        runs[dev] = (losses, grads, after_one)
+    (card_losses, card_grads, card), (cpu_losses, cpu_grads, cpu) = (runs[d] for d in devices)
+    if set(card_grads) != set(cpu_grads):
+        raise RuntimeError(f"{name}: the card and the CPU give gradients to different leaves")
+    errs = {k: rel_err(card_grads[k], w) for k, w in cpu_grads.items() if k not in RANK_ZERO_GRAD}
+    zero = {k: max(card_grads[k].abs().max().item(), cpu_grads[k].abs().max().item())
+            / cpu_grads[w].abs().max().item() for k, w in RANK_ZERO_GRAD.items()
+            if k in cpu_grads}
+    # BatchNorm's running statistics (AFN's), held relative to their size:
+    # the exp's variance is near 1e4
+    stats = [k for k in cpu if ".running_" in k]
+    stats_rel = max((((card[k] - cpu[k]).abs() / cpu[k].abs().clamp(min=1.0)).max().item()
+                     for k in stats), default=0.0)
+    diffs = {k: (card[k] - cpu[k]).abs() for k in cpu
+             if k not in stats and not k.endswith("num_batches_tracked")}
+    dense = torch.cat([torch.zeros(1)] + [d.reshape(-1) for k, d in diffs.items()
+                                          if k not in table_keys])
+    tables = torch.cat([diffs[k].reshape(-1) for k in table_keys])
+    loss_rel = [abs(a - b) / abs(b) for a, b in zip(card_losses, cpu_losses)]
+    worst = max(errs, key=errs.get)
+    gates = {"grad_rel_tol": RANK_GRAD_REL_TOL, "dense_handful": RANK_DENSE_HANDFUL,
+             "table_handful": RANK_TABLE_HANDFUL, **RANK_LOOSER.get(name, {})}
+    summary = {"phase": f"{name.lower()}_card_vs_cpu", "model": name, "steps": CPU_STEPS,
+               "vocab": RANK_CPU_VOCAB, "batch": RANK_CPU_BATCH, "tables": len(table_keys),
+               "card_losses": card_losses, "cpu_losses": cpu_losses,
+               "loss_rel_diffs": loss_rel, "grad_rel_err": errs[worst],
+               "grad_worst_leaf": worst, "grad_leaves": len(errs), "zero_grad_rel_size": zero,
+               "dense_max_abs_diff": dense.max().item(),
+               "dense_elements_beyond_atol": int((dense > DENSE_ATOL).sum().item()),
+               "table_max_abs_diff": tables.max().item(),
+               "table_elements_beyond_atol": int((tables > TABLE_ATOL).sum().item()),
+               "table_elements": tables.numel(), "running_stats_max_rel_diff": stats_rel,
+               "running_stats_rtol": RANK_STATS_RTOL, "loss_rtol": LOSS_RTOL,
+               "zero_grad_rel": RANK_ZERO_GRAD_REL, "dense_atol": DENSE_ATOL,
+               "table_atol": TABLE_ATOL, **gates, "seconds": time.perf_counter() - t_start}
+    if (max(loss_rel) > LOSS_RTOL or errs[worst] > gates["grad_rel_tol"]
+            or max(zero.values(), default=0.0) > RANK_ZERO_GRAD_REL
+            or stats_rel > RANK_STATS_RTOL
+            or summary["dense_elements_beyond_atol"] > gates["dense_handful"]
+            or summary["table_elements_beyond_atol"] > gates["table_handful"]
+            or max(dense.max().item(), tables.max().item()) > 2 * LR):
+        raise RuntimeError(f"the card's {name} training differs from the CPU's: {summary}")
+    return summary
+
+
+def phase_ranking_zoo(tmp: str, devices=("cuda", "cpu")) -> dict:
+    """The ranking zoo at the bench's width, model by model (RANK_ZOO):
+    checkpoint, serving, fit, card against CPU; WDL also its serving and
+    training profiles, the bench's REQUESTS, a fit of EPOCHS x TRAIN_BATCHES
+    with validation, STD_STEPS standard steps and three card-against-CPU
+    fused steps at full width.  Emits each phase; returns the summaries by
+    model."""
+    device = devices[0]
+    zoo = {}
+    for name, seed in RANK_ZOO:
+        full = name == "WDL"
+        label = name.lower()
+        t0 = time.perf_counter()
+        m_path = os.path.join(tmp, f"{label}.ckpt")
+        m_enc_dict = write_rank_checkpoint(m_path, name, seed)
+        emit({"phase": f"{label}_checkpoint", "seconds": time.perf_counter() - t0,
+              "bytes": os.path.getsize(m_path)})
+        serving, model, score, profiled = phase_serving(
+            m_path, m_enc_dict, device, name, REQUESTS if full else RANK_REQUESTS, seed + 2,
+            f"{label}_serving", 3 if full else RANK_CPU_CHECKS)
+        emit(serving)
+        if full and device == "cuda":
+            emit(phase_profile(model, profiled, f"{label}_profile"))
+        del model
+        m_ckpt = os.path.join(tmp, f"{label}_ckpt")
+        training, trainer, loader = phase_training(
+            m_path, m_enc_dict, score, m_ckpt, device, name,
+            EPOCHS if full else RANK_FIT_EPOCHS, TRAIN_BATCHES if full else RANK_FIT_BATCHES,
+            VALID_BATCHES if full else 0, STD_STEPS if full else 0, seed + 4,
+            f"{label}_training")
+        emit(training)
+        zoo[name] = {"serving": serving, "training": training}
+        if full:
+            batches = [b for _, b in zip(range(TRAIN_PROFILED), loader)]
+            zoo[name]["card_vs_cpu"] = phase_card_vs_cpu(
+                m_path, m_enc_dict, batches[:CPU_STEPS], devices, name, f"{label}_card_vs_cpu")
+            emit(zoo[name]["card_vs_cpu"])
+            if device == "cuda":
+                emit(phase_train_profile(trainer, batches, f"{label}_train_profile"))
+            del batches
+        else:
+            zoo[name]["card_vs_cpu"] = phase_rank_card_vs_cpu(name, seed + 6, devices)
+            emit(zoo[name]["card_vs_cpu"])
+        del trainer, loader
+        shutil.rmtree(m_ckpt, ignore_errors=True)
+        os.remove(m_path)
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    return zoo
+
+
+# ------------------------------------------------------ K2 and K3 at D = 1
+def phase_d1_tables(bandwidth: float) -> dict:
+    """K3 and K2 at the LR table's shape: [padded_rows(1,600,016), 1] =
+    [1,605,632, 1], the ids of one 8192-row batch of 16 fields (131,072),
+    against their plain versions (K3 bit-equal on rows hit once, within
+    the rounding bound elsewhere; K2 within its sum bound, run twice for the
+    same bits), each timed beside its plain version and library call."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 430)
+    num_rows = padded_rows(FIELDS * (VOCAB + 1))
+    offsets = torch.arange(FIELDS, device="cuda", dtype=torch.int32) * (VOCAB + 1)
+    id_sets = [lookup.fused_ids(torch.randint(0, VOCAB + 1, (BATCH, FIELDS), generator=gen,
+                                              device="cuda", dtype=torch.int32), offsets)
+               for _ in range(ID_SETS)]
+    cot = torch.randn(BATCH * FIELDS, 1, generator=gen, device="cuda") * 1e-3
+    ids, n = id_sets[0], id_sets[0].numel()
+    long_sets = [x.long() for x in id_sets]
+
+    state = adam_state(num_rows, 1, gen)
+    adam_err = 0.0
+    for t in (1, 2, 3):
+        hyper = adam.adam_hyper(t, LR)
+        adam_err = max(adam_err, check_adam_step(id_sets[t - 1], cot, state, hyper,
+                                                 f"LR table, step {t}"))
+        adam.planned_adam_update(id_sets[t - 1], cot, *state, hyper)
+    p, m, v = state
+    hyper = adam.adam_hyper(4, LR)
+    lib_p = torch.nn.Parameter(p.clone())
+    lib_p.grad = torch.zeros_like(p)
+    lib_opt = torch.optim.Adam([lib_p], lr=LR, betas=(0.9, 0.999), eps=1e-8, fused=True,
+                               capturable=True)
+
+    def library(x):
+        lib_p.grad.zero_().index_add_(0, x, cot)
+        lib_opt.step()
+
+    adam_bytes = 6 * num_rows * 4 + n * 4 + n * 4  # p, m, v read and written; rows, ids read
+    k3 = {"name": "fused_adam", "shape": [num_rows, 1], "ids": n, "max_abs_err": adam_err,
+          "ms": median_ms([lambda x=x: adam.planned_adam_update(x, cot, p, m, v, hyper)
+                           for x in id_sets]),
+          "plain_ms": median_ms([lambda x=x: adam.planned_adam_update_reference(
+              x, cot, p, m, v, hyper) for x in id_sets]),
+          "bound_ms": adam_bytes / bandwidth * 1e3, "bound_by": "bytes", "bytes": adam_bytes,
+          "library_ms": median_ms([lambda x=x: library(x) for x in long_sets]),
+          "library": "index_add_ into a zeroed gradient, then torch.optim.Adam(fused=True)"}
+
+    out = grad.table_grad(ids, cot, num_rows)
+    require_equal(grad.table_grad(ids, cot, num_rows), out, "LR table, run twice")
+    bound, _ = sum_tolerance(ids, cot, num_rows)
+    grad_err = require_within(out, grad.table_grad_reference(ids, cot, num_rows), bound,
+                              f"LR table [{num_rows}, 1] x {n} ids")
+    lib = torch.zeros(num_rows, 1, device="cuda")
+    grad_bytes = num_rows * 4 + n * 4 + n * 4  # grad written; rows, ids read
+    k2 = {"name": "embedding_grad", "shape": [num_rows, 1], "ids": n, "max_abs_err": grad_err,
+          "ms": median_ms([lambda x=x: grad.table_grad(x, cot, num_rows) for x in id_sets]),
+          "plain_ms": median_ms([lambda x=x: grad.table_grad_reference(x, cot, num_rows)
+                                 for x in id_sets]),
+          "bound_ms": grad_bytes / bandwidth * 1e3, "bound_by": "bytes", "bytes": grad_bytes,
+          "library_ms": median_ms([lambda x=x: lib.zero_().index_add_(0, x, cot)
+                                   for x in long_sets]),
+          "library": "torch.zeros(V, 1).index_add_(0, ids, rows)"}
+    return {"phase": "kernel_d1", "fused_adam": k3, "embedding_grad": k2}
+
+
+# ------------------------------------------------------ shapes past the kernels' limits
+# Each runs the plain version on the card (chosen by the shape before any
+# launch), held against the CPU: 256 histories of a 100,000-item corpus.
+PAST_LIMIT_USERS = 256
+# IOCRec past its limits runs plain products on the card (cuBLAS) and on the
+# CPU, which round apart; besides the local encoder's relu, the K-max CE's
+# best interest k* is a kink: where two interests nearly tie, the card and
+# the CPU pick different ones and the gradient flows to another interest.
+# So every leaf's first gradient is held as the relu's path is, and more
+# Adam first steps flip (card runs at 256 and 128 histories: K=8 up to
+# 5.5e-3 of a leaf on disentangle_encoder.W.bias and 26 dense elements 2 lr
+# apart; L=80 19 elements, 2.0e-6 off the relu's path)
+PAST_IOC_GRAD_REL_TOL = IOC_KINK_GRAD_REL_TOL
+PAST_IOC_DENSE_HANDFUL = 64
+PAST_LIMITS = (
+    ("sasrec_len100", "SASRec", {**SEQ_CONFIG, "max_length": 100}, ("fused_encoder",),
+     ("embedding_lookup",), ()),
+    ("sasrec_dim256", "SASRec", {**SEQ_CONFIG, "embedding_dim": 256}, ("fused_encoder",),
+     ("embedding_lookup",), ()),
+    ("iocrec_k8", "IOCRec", {**IOC_CONFIG, "K": 8}, ("multimax_ce",),
+     ("embedding_lookup", "fused_encoder", "global_attn"),
+     ("fused_encoder_bwd", "global_attn_bwd")),
+    ("iocrec_len80", "IOCRec", {**IOC_CONFIG, "max_length": 80},
+     ("fused_encoder", "global_attn"), ("embedding_lookup",),
+     ("multimax_ce", "multimax_ce_bwd")),
+)
+
+
+def past_limit_requests(length: int, seed: int, count: int = 2):
+    """``count`` requests of PAST_LIMIT_USERS histories of ``length``."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(count):
+        lengths = rng.integers(1, length + 1, PAST_LIMIT_USERS)
+        mask = (np.arange(length)[None, :] < lengths[:, None]).astype(np.float32)
+        items = rng.integers(1, SEQ_CPU_VOCAB, (PAST_LIMIT_USERS, length))
+        out.append({"hist_item_list": np.where(mask > 0, items, 0).astype(np.int32),
+                    "hist_mask_list": mask})
+    return out
+
+
+def phase_past_limits(devices=("cuda", "cpu")) -> dict:
+    """SASRec at max_len 100 and at hidden size 256 (past K4f's L <= 64 and
+    D <= 128), IOCRec with K = 8 (past K5's K <= 4) and at max_len 80 (past
+    K4f's and K6's L <= 64): two retrieval requests and two fused steps
+    each, on the card and the CPU from the same weights.  The kernels whose
+    limits a case passes launch 0 times and their calls count on the plain
+    route; the others launch as on their bench paths.  Retrieval: user
+    embeddings within USER_EMB_ATOL, top-k as ``compare_topk``; training as
+    the sequence card-against-CPU legs (``require_card_like_cpu``)."""
+    t_start = time.perf_counter()
+    device = devices[0]
+    enc_dict = {"item_id": {"vocab_size": SEQ_CPU_VOCAB}}
+    out = {"phase": "past_limits", "users": PAST_LIMIT_USERS, "vocab": SEQ_CPU_VOCAB}
+    for label, name, config, past, per_request, per_step in PAST_LIMITS:
+        length = config["max_length"]
+        seed = SEED + 440 + len(out)
+        models = [port.get_model(name)(enc_dict=enc_dict, config=config, seed=seed)
+                  .to(dev).eval() for dev in devices]
+        retrieve = make_retrieval_scorer(models[0], topk=SEQ_TOPK, device=device)
+        cpu_retrieve = make_retrieval_scorer(models[1], topk=SEQ_TOPK + 1, device="cpu")
+        requests = past_limit_requests(length, seed + 1)
+        reset_launches()
+        answers = [retrieve(req) for req in requests]
+        serving = read_launches()
+        # retrieval runs the encoders, not the K-max CE (a training loss)
+        plain = {f"{k}_plain": len(requests) for k in past
+                 if k in ("fused_encoder", "global_attn")}
+        require_launches(serving, {**{k: len(requests) for k in per_request}, **plain},
+                         f"{label} retrieval")
+        emb_err, differing = 0.0, 0
+        for req, (scores, ids) in zip(requests, answers):
+            with torch.inference_mode():
+                embs = [m(m.upload_batch(req, torch.device(d)))["user_emb"].cpu()
+                        for d, m in zip(devices, models)]
+            emb_err = max(emb_err, (embs[0] - embs[1]).abs().max().item())
+            cpu_scores, cpu_ids = cpu_retrieve(req)
+            differing += compare_topk(ids, scores, cpu_ids, cpu_scores)
+        if emb_err > USER_EMB_ATOL:
+            raise RuntimeError(f"{label}: card user_emb differs from the CPU's by {emb_err}")
+        del models, retrieve, cpu_retrieve
+
+        trainer = SequenceTrainer(device="cpu")
+        trainer.model = port.get_model(name)(enc_dict=enc_dict, config=config)
+        loader = seq_train_loader(2, seed + 2, SEQ_CPU_VOCAB, PAST_LIMIT_USERS)
+        batches = []
+        for b in loader:  # histories of the case's length
+            wide = np.resize(b["hist_item_list"], (PAST_LIMIT_USERS, length)).astype(np.int32)
+            mask = np.resize(b["hist_mask_list"], (PAST_LIMIT_USERS, length))
+            batches.append(trainer._attach_host_keys(
+                {**b, "hist_item_list": wide, "hist_mask_list": mask}))
+        reset_launches()
+        kink = ((lambda k: k.startswith(IOC_KINK_PATH)) if name == "IOCRec"
+                else (lambda k: False))
+        leg = card_vs_cpu_leg(name, config, batches, LR, devices, seed, kink)
+        training = read_launches()
+        steps = len(batches)
+        require_launches(training, {"fused_adam": steps,
+                                    **{k: steps for k in per_request + per_step},
+                                    **{f"{k}_plain": steps * (2 if k == "multimax_ce" else 1)
+                                       for k in past if not k.endswith("_bwd")}},
+                         f"{label} fused steps")
+        summary = {"model": name, "config": config, "past": list(past),
+                   "retrieval_launches": serving, "user_emb_max_abs_err_vs_cpu": emb_err,
+                   "topk_positions_differing_at_ties": differing,
+                   "training_launches": training, "training": leg}
+        if name == "IOCRec":  # every leaf behind a kink: see PAST_IOC_GRAD_REL_TOL
+            require_card_like_cpu(leg, IOC_LATER_LOSS_RTOL, IOC_KINK_GRAD_REL_TOL, summary,
+                                  PAST_IOC_GRAD_REL_TOL, PAST_IOC_DENSE_HANDFUL)
+        else:
+            require_card_like_cpu(leg, IOC_LATER_LOSS_RTOL, IOC_GRAD_REL_TOL, summary)
+        out[label] = summary
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_start
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3472,6 +3927,8 @@ def main() -> int:
             *phase_global_attn(bandwidth, fp32), *phase_multimax_ce(bandwidth, fp32, tf32)]
     for row in rows:
         emit({"phase": "kernel", **row})
+    d1 = phase_d1_tables(bandwidth)
+    emit(d1)
     torch.cuda.empty_cache()
 
     with tempfile.TemporaryDirectory(dir=ROOT, prefix=".chip_smoke_") as tmp:
@@ -3489,6 +3946,8 @@ def main() -> int:
         emit(phase_train_profile(trainer, batches))
         del trainer, train_loader, batches
         shutil.rmtree(os.path.join(tmp, "ckpt"))
+        torch.cuda.empty_cache()
+        zoo = phase_ranking_zoo(tmp)
 
         t0 = time.perf_counter()
         seq_path = os.path.join(tmp, "sasrec.ckpt")
@@ -3635,6 +4094,9 @@ def main() -> int:
             os.remove(m_path)
             torch.cuda.empty_cache()
 
+    # shapes past the kernels' limits: the plain versions on the card
+    emit(phase_past_limits())
+
     # launches on each kernel's own main path: the lookup's on serving, the
     # fused Adam's on the fused fit (and on the sequence fused fit), the
     # gradient's on the standard-step fit, the encoder's on SASRec serving,
@@ -3689,6 +4151,19 @@ def main() -> int:
             if line["name"] == "embedding_grad_sorted" and "device_aug" in legs:
                 line[f"launches_{label}_device_aug"] = (
                     legs["device_aug"]["launches"]["embedding_grad"])
+        # the ranking zoo's paths: K1 a table a request, step and eval batch, K3 a
+        # table a fused step, K2 a table a standard step (WDL's)
+        for name, legs in zoo.items():
+            label = name.lower()
+            if line["name"] == "embedding_lookup":
+                line[f"launches_{label}_serving"] = legs["serving"]["launches"][line["name"]]
+            if line["name"] in ("embedding_lookup", "fused_adam"):
+                line[f"launches_{label}_training"] = legs["training"]["launches"][line["name"]]
+            if line["name"] == "embedding_grad" and "standard_launches" in legs["training"]:
+                line[f"launches_{label}_standard"] = (
+                    legs["training"]["standard_launches"]["embedding_grad"])
+        if line["name"] in ("fused_adam", "embedding_grad"):  # at the LR table's shape, D = 1
+            line["d1"] = {k: v for k, v in d1[line["name"]].items() if k != "name"}
     emit({"kernels": lines})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -103,6 +103,12 @@ def jax_tree(model, value_of: Callable[[torch.Tensor], Optional[torch.Tensor]] =
     return tree or None
 
 
+def prefixed(prefix: str, leaves):
+    """``leaves`` (a module's ``jax_leaves()``) under the flax module name
+    ``prefix``."""
+    return [(c, (prefix,) + p, t, tr) for c, p, t, tr in leaves]
+
+
 def jax_path(model, weight: torch.Tensor) -> str:
     """The ``/``-joined flax path of one of the model's weights."""
     for _, path, tensor, _ in model.jax_leaves():

@@ -1,10 +1,11 @@
 """Model base classes and registry.
 
-A ranking model is an ``nn.Module`` whose ``forward(batch, train=False)``
-takes a dict of tensors ``{'sparse': [B, F] i32, 'dense': [B, Nd] f32}``
-and returns ``{'pred': [B, 1]}``, plus ``'loss'`` when ``train`` and a
-label are given.  ``forward(..., capture=list)`` is the fused train step's
-capture mode (``ops/embedding.FusedEmbedding.forward``).
+A ranking model is an ``nn.Module`` whose ``forward(batch, train=False,
+capture=None, seed=None)`` takes a dict of tensors ``{'sparse': [B, F] i32,
+'dense': [B, Nd] f32}`` and returns ``{'pred': [B, 1]}``, plus ``'loss'``
+when ``train`` and a label are given.  ``capture`` (a list) is the fused
+train step's capture mode (``ops/embedding.FusedEmbedding.forward``), passed
+to every ``FusedEmbedding``; ``seed`` is the step's dropout seed.
 
 A sequence-recall model takes ``{'hist_item_list': [B, L] i32,
 'hist_mask_list': [B, L] f32}`` and returns ``{'user_emb': [B, D]}``
@@ -23,7 +24,7 @@ import torch
 from torch import nn
 
 from ..data.encoder import OOV_SENTINEL, FeatureSpec
-from ..ops.embedding import ItemEmbedding, check_ids, check_item_ids
+from ..ops.embedding import ItemEmbedding, check_ids, check_item_ids, padded_rows
 from ..ops.softmax_ce import (_FUSED_MIN_VOCAB, fused_ce_enabled, fused_softmax_ce_captured,
                               fused_softmax_ce_padded, full_softmax_ce)
 
@@ -74,12 +75,22 @@ class RankModelBase(nn.Module):
     def jax_leaves(self) -> List[Tuple[str, tuple, torch.Tensor, bool]]:
         raise NotImplementedError
 
+    def outputs(self, y_pred: torch.Tensor, batch: Dict[str, torch.Tensor],
+                train: bool) -> Dict[str, torch.Tensor]:
+        """``{'pred': y_pred}``, plus the model's ``loss_fn`` of it against the
+        batch's label in training."""
+        out = {"pred": y_pred}
+        if train and "label" in batch:
+            out["loss"] = self.loss_fn(y_pred, batch["label"])
+        return out
+
     def upload_batch(self, batch: Dict[str, np.ndarray], device: torch.device,
                      train: bool = False) -> Dict[str, torch.Tensor]:
-        """Check a host batch's ids against the table (ValueError before any
-        upload) and copy the keys the model reads to ``device``; a training
+        """Check a host batch's ids against the model's tables, each of
+        ``padded_rows(spec.total_rows)`` rows (ValueError before any upload),
+        and copy the keys the model reads to ``device``; a training
         batch (``train``) also uploads its float32 ``label``."""
-        check_ids(self.spec, batch["sparse"], self.embedding.table.shape[0])
+        check_ids(self.spec, batch["sparse"], padded_rows(self.spec.total_rows))
         dtypes = dict(self.input_dtypes, label=np.float32) if train else self.input_dtypes
         return {k: torch.from_numpy(np.ascontiguousarray(batch[k], dtype=dt)).to(device)
                 for k, dt in dtypes.items()}

@@ -27,11 +27,11 @@ class DeepFM(RankModelBase):
                        output_dim=1, hidden_activations="relu", dropout_rates=0.0,
                        generator=gen)
 
-    def forward(self, batch, train: bool = False, capture=None):
+    def forward(self, batch, train: bool = False, capture=None, seed=None):
         emb = self.embedding(batch["sparse"], capture)             # [B, F, D]
         fm_logit = inner_product(emb, "product_sum_pooling")       # [B, 1]
         dnn_input = torch.cat([emb.reshape(emb.shape[0], -1), batch["dense"]], dim=1)
-        y_pred = torch.sigmoid(fm_logit + self.mlp(dnn_input, train))
+        y_pred = torch.sigmoid(fm_logit + self.mlp(dnn_input, train, seed))
         out = {"pred": y_pred}
         if train and "label" in batch:
             out["loss"] = self.loss_fn(y_pred, batch["label"])

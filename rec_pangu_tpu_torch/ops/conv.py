@@ -1,6 +1,7 @@
-"""NextItNet's dilated causal convolutions, the JAX package's
-``ops/conv.py`` (``MaskedConv1d``, ``ResBlockTwoMasked``,
-``ResBlockOneMasked``, ``NextItNetLayer``), weights under its flax names.
+"""NextItNet's dilated causal convolutions and CCPM's convolution stack, the
+JAX package's ``ops/conv.py`` (``MaskedConv1d``, ``ResBlockTwoMasked``,
+``ResBlockOneMasked``, ``NextItNetLayer``, ``CCPMConvLayer``), weights under
+its flax names.
 
 A convolution keeps flax's kernel layout ``[k, in, out]`` and runs as one
 product: the k inputs each output position sees, side by side, times the
@@ -17,6 +18,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .initializers import flax_fan_in_normal_
+from .pooling import kmax_pooling
 from .sequence_enc import NEXTITNET_DROPOUT, _dense, _linear_leaves, feature_dropout
 from .kernels.fused_encoder import check_rate
 
@@ -148,3 +150,52 @@ class NextItNetLayer(nn.Module):
     def jax_leaves(self) -> List[Tuple[str, tuple, torch.Tensor, bool]]:
         return [(c, (f"{self.block_name}_{j}",) + p, t, tr)
                 for j, block in enumerate(self.blocks) for c, p, t, tr in block.jax_leaves()]
+
+
+class CCPMConvLayer(nn.Module):
+    """CCPM's stack over [B, F, D] -> [B, 3, D, channels[-1]], NHWC with the
+    field as H and the embedding as W: per layer, zero-pad the fields by
+    kh - 1 on both sides, a (kh, 1) convolution (``Conv_{i}``, kernel in
+    flax's layout ``[kh, 1, in, out]``, contracted here: ``convert.py``
+    keeps leaves of more than three axes as they are), k-max pooling over
+    the fields (k from the reference's schedule, 3 at the last layer) and
+    tanh."""
+
+    def __init__(self, num_fields: int, channels: Sequence[int] = (3,),
+                 kernel_heights: Sequence[int] = (3,),
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        gen = generator if generator is not None else torch.Generator().manual_seed(0)
+        self.num_fields = int(num_fields)
+        self.kernels = nn.ParameterList()
+        self.biases = nn.ParameterList()
+        c_in = 1
+        for ch, kh in zip(channels, kernel_heights):
+            kernel = nn.Parameter(torch.empty(kh, 1, c_in, ch))
+            flax_fan_in_normal_(kernel, gen)
+            self.kernels.append(kernel)
+            self.biases.append(nn.Parameter(torch.zeros(ch)))
+            c_in = ch
+
+    def pool_sizes(self) -> List[int]:
+        """k of each layer's k-max pooling."""
+        layers = len(self.kernels)
+        return [max(3, int((1 - pow(float(i) / layers, layers - i)) * self.num_fields))
+                if i < layers else 3 for i in range(1, layers + 1)]
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x[..., None]                                          # [B, F, D, 1]
+        for kernel, bias, k in zip(self.kernels, self.biases, self.pool_sizes()):
+            kh = kernel.shape[0]
+            x = F.pad(x, (0, 0, 0, 0, kh - 1, kh - 1))
+            windows = x.unfold(1, kh, 1)                          # [B, H, D, C, kh]
+            x = torch.einsum("bhdck,kco->bhdo", windows, kernel[:, 0]) + bias
+            x = torch.tanh(kmax_pooling(x, k, dim=1))
+        return x
+
+    def jax_leaves(self) -> List[Tuple[str, tuple, torch.Tensor, bool]]:
+        leaves = []
+        for i, (k, b) in enumerate(zip(self.kernels, self.biases)):
+            leaves += [("params", (f"Conv_{i}", "kernel"), k, False),
+                       ("params", (f"Conv_{i}", "bias"), b, False)]
+        return leaves

@@ -1,0 +1,54 @@
+"""Dropout by counter-hash masks: the same elements on the card and the CPU.
+
+A train step draws one seed a step (``draw_seed``, from the trainer's
+generator seeded by ``fit``'s ``seed``) and hands it to the model's forward.
+Each dropout site draws its mask from the fused encoder's hash
+(``kernels/fused_encoder.dropout_scale``) of (seed, sample, stream,
+element), on a stream (layer, site) of its own, so no two sites of a model
+drop the same elements and the masks do not depend on the device.
+
+Streams: the transformer's layers use (layer, 0-2); IOCRec's global
+attention (256, 0-1); the classic sequence models (257, 0-2) and (258, 0)
+(``sequence_enc``); the ranking family from ``MLP_DROPOUT_LAYER`` up: an
+``MLP`` with stream ``s`` draws layer i's mask on (512 + 16 s + i, 0), the
+attention of ``ops/attention.py`` on (``ATTENTION_DROPOUT_LAYER`` + its
+block, 0-1) and AFM's on (``AFM_DROPOUT``).
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from .kernels.fused_encoder import dropout_scale
+
+_SEED_RANGE = 2 ** 31 - 1  # a step's dropout seed lies in [0, 2**31 - 1), as in JAX
+MLP_DROPOUT_LAYER = 512
+MLP_STREAM_LAYERS = 16      # hidden layers an MLP's streams leave room for
+ATTENTION_DROPOUT_LAYER = 1024
+AFM_DROPOUT = (1536, 0)
+
+
+def draw_seed(generator: torch.Generator = None) -> int:
+    """One dropout seed from ``generator`` (torch's default one when None)."""
+    return int(torch.randint(0, _SEED_RANGE, (1,), generator=generator)[0])
+
+
+def feature_dropout(x: torch.Tensor, rate: float, seed: int, stream: Tuple[int, int]
+                    ) -> torch.Tensor:
+    """Inverted dropout of x [n, ...] at ``rate`` with the fused encoder's
+    hash masks of ``stream`` (layer, site) for ``seed``: the same elements
+    on the card and the CPU."""
+    if rate <= 0:
+        return x
+    layer, site = stream
+    return x * dropout_scale(seed, x.shape[0], layer, site, tuple(x.shape[1:]), rate, x.device)
+
+
+def mlp_stream(stream: int, layer: int) -> Tuple[int, int]:
+    """The dropout stream of hidden layer ``layer`` of the MLP with stream
+    ``stream``."""
+    if not 0 <= layer < MLP_STREAM_LAYERS:
+        raise ValueError(f"an MLP's dropout streams hold {MLP_STREAM_LAYERS} layers, "
+                         f"got layer {layer}")
+    return (MLP_DROPOUT_LAYER + MLP_STREAM_LAYERS * int(stream) + layer, 0)

@@ -1,5 +1,6 @@
-"""Embedding tables: ``FusedEmbedding`` (ranking) and ``ItemEmbedding``
-(sequence recall).
+"""Embedding tables: ``FusedEmbedding`` (ranking), ``LRLayer`` (the ranking
+models' wide part, a ``[V, 1]`` table) and ``ItemEmbedding`` (sequence
+recall).
 
 ``FusedEmbedding``: one ``[padded_rows, D]`` table behind all sparse fields.
 
@@ -21,7 +22,7 @@ import torch
 from torch import nn
 
 from ..data.encoder import FeatureSpec
-from .initializers import kaiming_normal_
+from .initializers import kaiming_normal_, torch_linear_bias_
 from .kernels.embedding_lookup import fused_embedding_lookup
 
 # tables at least this big are padded to an 8192-row multiple (the JAX
@@ -74,20 +75,48 @@ class FusedEmbedding(nn.Module):
 
         ``capture`` (a list) is the fused train step's capture mode
         (``train/fused_update.py``): the table is held out of autograd, the
-        gathered rows become a leaf that requires grad, and they are
-        appended to ``capture`` so that the step differentiates the loss by
-        them and hands their gradient to the fused table Adam.  The value is
-        the same either way."""
+        gathered rows become a leaf that requires grad, and ``(self, rows)``
+        is appended to ``capture`` so that the step differentiates the loss
+        by them and hands their gradient to this table's fused Adam.  The
+        value is the same either way."""
         if capture is None:
             return fused_embedding_lookup(self.table, sparse_ids, self.offsets)
         rows = fused_embedding_lookup(self.table.detach(), sparse_ids, self.offsets)
         rows.requires_grad_(True)
-        capture.append(rows)
+        capture.append((self, rows))
         return rows
 
     def jax_leaves(self) -> List[Tuple[str, tuple, torch.Tensor, bool]]:
         """(collection, flax path, tensor, transposed) of each weight."""
         return [("params", ("table",), self.table, False)]
+
+
+class LRLayer(nn.Module):
+    """The wide (linear) part of the ranking models: a ``[padded_rows, 1]``
+    ``FusedEmbedding`` of the sparse fields, its F values beside the dense
+    features, one ``Linear`` to a logit [B, 1].  flax names
+    ``FusedEmbedding_0/table`` and ``Dense_0`` (fan-in normal kernel,
+    torch's uniform bias).  Its lookup is the same kernel at D = 1; in
+    training its table is one of the fused step's tables."""
+
+    def __init__(self, spec: FeatureSpec, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        generator = generator if generator is not None else torch.Generator().manual_seed(0)
+        self.embedding = FusedEmbedding(spec, 1, generator=generator)
+        fan_in = spec.num_sparse + spec.num_dense
+        self.dense = nn.Linear(fan_in, 1)
+        kaiming_normal_(self.dense.weight, generator)
+        torch_linear_bias_(self.dense.bias, fan_in, generator)
+
+    def forward(self, sparse_ids: torch.Tensor, dense: torch.Tensor,
+                capture: Optional[List] = None) -> torch.Tensor:
+        emb = self.embedding(sparse_ids, capture)[..., 0]          # [B, F]
+        return self.dense(torch.cat([emb, dense], dim=1))
+
+    def jax_leaves(self) -> List[Tuple[str, tuple, torch.Tensor, bool]]:
+        return [("params", ("FusedEmbedding_0", "table"), self.embedding.table, False),
+                ("params", ("Dense_0", "kernel"), self.dense.weight, True),
+                ("params", ("Dense_0", "bias"), self.dense.bias, False)]
 
 
 class ItemEmbedding(nn.Module):

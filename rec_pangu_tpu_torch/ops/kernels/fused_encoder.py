@@ -50,10 +50,13 @@ matched.  An element is kept when its 32-bit draw is at least
 ``min(floor(p * 2**32), 2**32 - 1)`` and then scaled by ``1 / (1 - p)``
 (float32).
 
-The wrapper launches the kernels for CUDA tensors and raises if it cannot
-(a shape outside ``MAX_L``/``MAX_D``/``inner <= 4 D`` is a ``ValueError``);
-it uses the plain version below only for tensors on the CPU.  The inference
-call (no gradient, no dropout) is the forward kernel alone, as before.
+The wrapper chooses its route by the shape before it launches anything, as
+the JAX package's gate does (``routes_to_kernel``): CUDA tensors of a shape
+the kernels take (``kernel_takes``: L <= ``MAX_L``, D <= ``MAX_D``, inner <=
+4 D) launch them, and raise if a launch fails; other shapes on the card, and
+tensors on the CPU, run the plain version below (the card's such calls count
+in ``PLAIN_ROUTE``).  The inference call (no gradient, no dropout) is the
+forward kernel alone, as before.
 """
 from __future__ import annotations
 
@@ -71,6 +74,9 @@ from . import _build
 # the kernels
 LAUNCHES = 0
 BACKWARD_LAUNCHES = 0
+# calls on the card that took the plain version because the shape lies past
+# the kernels' limits (``kernel_takes``)
+PLAIN_ROUTE = 0
 
 ACTIVATIONS = {"relu": 0, "gelu": 1, "swish": 2, "silu": 2}
 MAX_L = 64    # eight lanes hold a row of scores, eight keys a lane
@@ -281,9 +287,30 @@ def kernel_launch_plan(L: int, D: int, inner: int, heads: int) -> LaunchPlan:
     return LaunchPlan(*out)
 
 
+def kernel_takes(L: int, D: int, inner: int, layers: int = 1) -> bool:
+    """Whether the kernels (K4f and K4b) take this shape: L <= ``MAX_L``,
+    D <= ``MAX_D``, inner <= 4 D (the JAX package gates its kernel by shape
+    too and runs other shapes on XLA)."""
+    return 1 <= L <= MAX_L and 1 <= D <= MAX_D and 1 <= inner <= 4 * D and layers >= 1
+
+
+def routes_to_kernel(device: torch.device, L: int, D: int, inner: int, layers: int) -> bool:
+    """The route of a call, decided on the shape before any launch: True on
+    the card for a shape the kernels take; False on the CPU, and on the card
+    for a shape past the limits, which runs the plain version and counts in
+    ``PLAIN_ROUTE``.  Not a fallback: a kernel that fails still raises."""
+    global PLAIN_ROUTE
+    if device.type != "cuda":
+        return False
+    if kernel_takes(L, D, inner, layers):
+        return True
+    PLAIN_ROUTE += 1
+    return False
+
+
 def check_supported(L: int, D: int, inner: int, layers: int) -> None:
     """Raise ValueError on a shape the kernel does not take."""
-    if not (1 <= L <= MAX_L and 1 <= D <= MAX_D and 1 <= inner <= 4 * D and layers >= 1):
+    if not kernel_takes(L, D, inner, layers):
         raise ValueError(f"the fused encoder kernel takes 1 <= L <= {MAX_L}, "
                          f"1 <= D <= {MAX_D}, 1 <= inner <= 4 D and >= 1 layer; got "
                          f"L={L}, D={D}, inner={inner}, layers={layers}")
@@ -460,20 +487,22 @@ def fused_encoder(x: torch.Tensor, key_valid: torch.Tensor, packed: Sequence[tor
                   eps: float = 1e-12, train: bool = False, hidden_dropout: float = 0.0,
                   attn_dropout: float = 0.0, seed: int = 0) -> torch.Tensor:
     """x [N, L, D] f32, key_valid [N, L] (nonzero = valid key), the 8 packed
-    weight arrays -> y [N, L, D]: the kernels on the card, the plain version
-    on the CPU.  ``train`` applies dropout at the given rates with the masks
-    of ``seed``; on the card, a call autograd may differentiate runs the
-    training kernel, whose backward is K4b."""
+    weight arrays -> y [N, L, D]: the kernels on the card for a shape they
+    take (``kernel_takes``), else the plain version.  ``train`` applies
+    dropout at the given rates with the masks of ``seed``; on the card, a
+    call autograd may differentiate runs the training kernel, whose backward
+    is K4b."""
     check_inputs(x, key_valid, packed, n_heads, act)
     check_rate(hidden_dropout)
     check_rate(attn_dropout)
     if not train:
         hidden_dropout = attn_dropout = 0.0
-    if x.device.type == "cpu":
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no fused encoder kernel for device {x.device}")
+    layers, _, inner = packed[2].shape
+    if not routes_to_kernel(x.device, x.shape[1], x.shape[2], inner, layers):
         return fused_encoder_reference(x, key_valid, packed, n_heads, causal, act, eps, train,
                                        hidden_dropout, attn_dropout, seed)
-    if x.device.type != "cuda":
-        raise ValueError(f"no fused encoder kernel for device {x.device}")
     wants_grad = torch.is_grad_enabled() and (x.requires_grad
                                               or any(t.requires_grad for t in packed))
     if not wants_grad and hidden_dropout == 0.0 and attn_dropout == 0.0:

@@ -26,9 +26,10 @@ atomics: the same bits every run).  Shapes whose buffers do not fit stream
 wk and wv from zero-padded copies in a workspace instead.  Bound:
 operations, 1,459,200 FLOP a sample forward and 4,057,600 backward at L=50,
 D=64; what holds each kernel back is in PERF.md.  The wrapper launches them
-for CUDA tensors and raises if it cannot (a shape outside
-``MAX_L``/``MAX_D`` is a ``ValueError``); the plain version below serves
-tensors on the CPU.
+for CUDA tensors of a shape they take (``kernel_takes``: L <= ``MAX_L``, D
+<= ``MAX_D``) and raises if a launch fails; other shapes on the card (counted
+in ``PLAIN_ROUTE``) and tensors on the CPU run the plain version below, a
+route chosen by the shape before any launch (``routes_to_kernel``).
 
 Dropout (training) multiplies the output by the fused encoder's hash masks
 (``fused_encoder.dropout_scale``) at layer ``DROPOUT_LAYER``, site
@@ -47,6 +48,7 @@ from .fused_encoder import _MASK32, check_rate, drop_scale, drop_threshold, drop
 
 LAUNCHES = 0
 BACKWARD_LAUNCHES = 0
+PLAIN_ROUTE = 0  # calls on the card past the kernels' limits: the plain version ran
 
 MAX_L = 64    # a quarter-warp holds one row of scores, eight keys a lane
 MAX_D = 128   # the streamed variants' buffers stay within a block's shared memory
@@ -95,9 +97,26 @@ def check_inputs(x: torch.Tensor, params: Sequence[torch.Tensor]) -> None:
             raise ValueError(f"{name} lies on {t.device}, x on {x.device}")
 
 
+def kernel_takes(L: int, D: int) -> bool:
+    """Whether the kernels (K6f and K6b) take this shape."""
+    return 1 <= L <= MAX_L and 1 <= D <= MAX_D
+
+
+def routes_to_kernel(device: torch.device, L: int, D: int) -> bool:
+    """True on the card for a shape the kernels take; False on the CPU, and
+    on the card for a shape past the limits (counted in ``PLAIN_ROUTE``)."""
+    global PLAIN_ROUTE
+    if device.type != "cuda":
+        return False
+    if kernel_takes(L, D):
+        return True
+    PLAIN_ROUTE += 1
+    return False
+
+
 def check_supported(L: int, D: int) -> None:
     """Raise ValueError on a shape the kernels do not take."""
-    if not (1 <= L <= MAX_L and 1 <= D <= MAX_D):
+    if not kernel_takes(L, D):
         raise ValueError(f"the global attention kernels take 1 <= L <= {MAX_L} and "
                          f"1 <= D <= {MAX_D}; got L={L}, D={D}")
 
@@ -242,16 +261,16 @@ class _GlobalAttn(torch.autograd.Function):
 def global_attn(x: torch.Tensor, params: Sequence[torch.Tensor], seed: int = 0,
                 rate: float = 0.0, train: bool = False) -> torch.Tensor:
     """x [N, L, D] f32 and (wk, bk, wv, bv, q_s) -> y [N, L, D]: the kernels
-    on the card, the plain version on the CPU.  ``train`` applies dropout at
+    on the card for a shape they take, else the plain version.  ``train`` applies dropout at
     ``rate`` with the masks of ``seed``."""
     check_inputs(x, params)
     check_rate(rate)
     if not train:
         rate = 0.0
-    if x.device.type == "cpu":
-        return global_attn_reference(x, params, train, rate, seed)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no global attention kernel for device {x.device}")
+    if not routes_to_kernel(x.device, x.shape[1], x.shape[2]):
+        return global_attn_reference(x, params, train, rate, seed)
     if torch.is_grad_enabled() and (x.requires_grad or any(t.requires_grad for t in params)):
         return _GlobalAttn.apply(x, rate, seed, *params)
     return launch_forward(x, params, rate, seed)

@@ -29,9 +29,11 @@ U sums the masked du product of each range of items from them; S adds the
 ranges' du in order; D reads p and k* for the chunk's ``d_items`` rows.  No
 atomics.  Bound: operations, ``2 B K D V`` FLOP forward and
 ``2 B V D (K + 2)`` backward.  The wrappers launch them for CUDA tensors and
-raise if they cannot (``K`` past ``MAX_K`` or ``D`` past ``MAX_D`` is a
-``ValueError``); the plain versions below, the chunked form of the JAX
-package's scan, serve tensors on the CPU.  ``pairs_reference`` and
+raise if a launch fails; a shape past their limits (``kernel_takes``: K <=
+``MAX_K``, D <= ``MAX_D``) runs the plain versions below on the card too
+(counted in ``PLAIN_ROUTE``), as it does on the CPU: the chunked form of the
+JAX package's scan.  K5b takes the route K5f took, since both see one
+(K, D).  ``pairs_reference`` and
 ``items_reference`` are the backward's stages in plain PyTorch, for checks.
 """
 from __future__ import annotations
@@ -43,6 +45,7 @@ import torch
 
 LAUNCHES = 0           # forward launches (K5f)
 BACKWARD_LAUNCHES = 0  # backward launches (K5b)
+PLAIN_ROUTE = 0        # calls on the card past the kernels' limits: the plain version ran
 
 MAX_K = 4     # interests: a thread holds 2 users x K x 8 items of logits
 MAX_D = 128
@@ -188,9 +191,26 @@ def check_inputs(u: torch.Tensor, items: torch.Tensor, valid_v: int) -> None:
         raise ValueError(f"valid_v must lie in [1, {items.shape[0]}], got {valid_v}")
 
 
+def kernel_takes(K: int, D: int) -> bool:
+    """Whether the kernels (K5f and K5b) take this shape."""
+    return 1 <= K <= MAX_K and 1 <= D <= MAX_D
+
+
+def routes_to_kernel(device: torch.device, K: int, D: int) -> bool:
+    """True on the card for a shape the kernels take; False on the CPU, and
+    on the card for a shape past the limits (counted in ``PLAIN_ROUTE``)."""
+    global PLAIN_ROUTE
+    if device.type != "cuda":
+        return False
+    if kernel_takes(K, D):
+        return True
+    PLAIN_ROUTE += 1
+    return False
+
+
 def check_supported(K: int, D: int) -> None:
     """Raise ValueError on a shape the kernels do not take."""
-    if not (1 <= K <= MAX_K and 1 <= D <= MAX_D):
+    if not kernel_takes(K, D):
         raise ValueError(f"the K-max CE kernels take 1 <= K <= {MAX_K} and 1 <= D <= {MAX_D}; "
                          f"got K={K}, D={D}")
 
@@ -320,22 +340,23 @@ def launch_grads_stage(u: torch.Tensor, items: torch.Tensor, lse: torch.Tensor, 
 def multimax_lse(u: torch.Tensor, items: torch.Tensor, valid_v: int,
                  zero_row0: bool = False) -> torch.Tensor:
     """lse [B] of ``max_k u[b, k] . items[v]`` over ``v < valid_v``: K5f on
-    the card, the plain version on the CPU."""
+    the card for a shape it takes, else the plain version."""
     check_inputs(u, items, valid_v)
-    if u.device.type == "cpu":
-        return multimax_lse_reference(u, items, valid_v, zero_row0)
-    if u.device.type != "cuda":
+    if u.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no K-max CE kernel for device {u.device}")
+    if not routes_to_kernel(u.device, u.shape[1], u.shape[2]):
+        return multimax_lse_reference(u, items, valid_v, zero_row0)
     return launch_lse(u, items, valid_v, zero_row0)
 
 
 def multimax_grads(u: torch.Tensor, items: torch.Tensor, lse: torch.Tensor, valid_v: int,
                    zero_row0: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """(du [B, K, D], d_items [rows, D]): the softmax term of the K-max CE's
-    gradient, unscaled; K5b on the card, the plain version on the CPU."""
+    gradient, unscaled; K5b on the card for a shape it takes (K5f's route),
+    else the plain version."""
     check_inputs(u, items, valid_v)
-    if u.device.type == "cpu":
-        return multimax_grads_reference(u, items, lse, valid_v, zero_row0)
-    if u.device.type != "cuda":
+    if u.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no K-max CE kernel for device {u.device}")
+    if not routes_to_kernel(u.device, u.shape[1], u.shape[2]):
+        return multimax_grads_reference(u, items, lse, valid_v, zero_row0)
     return launch_grads(u, items, lse, valid_v, zero_row0)

@@ -3,23 +3,55 @@
 Per hidden layer: Linear -> [BatchNorm] -> activation -> [Dropout]; then an
 optional output Linear and output activation.  ``dense[i]`` is flax's
 ``Dense_i`` (the output layer is the last), ``bn[i]`` is ``BatchNorm_i``.
-BatchNorm matches flax's ``momentum=0.9`` (torch ``momentum=0.1``) and
-``epsilon=1e-5``.  ``train`` is an argument, as in the JAX package: it picks
-batch statistics and active dropout.
+``train`` is an argument, as in the JAX package: it picks batch statistics
+and active dropout.
+
+BatchNorm is flax's (``flax_batch_norm``): ``momentum=0.9`` for the running
+averages (torch ``momentum=0.1``), ``epsilon=1e-5``, the batch variance
+E[x^2] - E[x]^2 clipped at 0, and the running variance updated with that
+**biased** batch variance (torch's own update uses the unbiased one).
+
+Dropout draws the port's hash masks (``ops/dropout.py``) for the step's
+``seed``, on stream ``mlp_stream(dropout_stream, i)`` for hidden layer i: the
+same elements on the card and the CPU.  Two MLPs of one model take other
+``dropout_stream`` values.
 """
 from __future__ import annotations
 
 from typing import List, Optional, Sequence, Tuple, Union
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from .activations import get_activation
+from .dropout import draw_seed, feature_dropout, mlp_stream
 from .initializers import kaiming_normal_, torch_linear_bias_
 
 BN_MOMENTUM = 0.1
 BN_EPS = 1e-5
+
+
+def flax_batch_norm(x: torch.Tensor, bn: nn.BatchNorm1d, train: bool,
+                    dims: Sequence[int] = (0,)) -> torch.Tensor:
+    """flax ``BatchNorm`` over ``x`` with the features on the axis not in
+    ``dims`` (the statistics' axes): in training, the batch's mean and
+    biased variance normalize ``x`` and move ``bn``'s running averages by
+    ``bn.momentum`` (``BN_MOMENTUM``, torch's convention); in eval, the
+    running averages normalize it."""
+    dims = tuple(dims)
+    shape = [1] * x.dim()
+    feat = next(i for i in range(x.dim()) if i not in dims)
+    shape[feat] = x.shape[feat]
+    if train:
+        mean = x.mean(dim=dims)
+        var = ((x * x).mean(dim=dims) - mean * mean).clamp_min(0.0)
+        with torch.no_grad():
+            bn.running_mean.mul_(1.0 - bn.momentum).add_(mean.detach(), alpha=bn.momentum)
+            bn.running_var.mul_(1.0 - bn.momentum).add_(var.detach(), alpha=bn.momentum)
+    else:
+        mean, var = bn.running_mean, bn.running_var
+    scale = bn.weight * torch.rsqrt(var + bn.eps)
+    return (x - mean.view(shape)) * scale.view(shape) + bn.bias.view(shape)
 
 
 class MLP(nn.Module):
@@ -29,8 +61,9 @@ class MLP(nn.Module):
                  output_activation: Optional[str] = None,
                  dropout_rates: Union[float, Sequence[float]] = 0.1,
                  batch_norm: bool = False, use_bias: bool = True,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, dropout_stream: int = 0):
         super().__init__()
+        self.dropout_stream = int(dropout_stream)
         n = len(hidden_units)
         acts = ([hidden_activations] * n if isinstance(hidden_activations, str)
                 else list(hidden_activations))
@@ -55,18 +88,21 @@ class MLP(nn.Module):
             [nn.BatchNorm1d(u, eps=BN_EPS, momentum=BN_MOMENTUM) for u in hidden_units]
             if batch_norm else [])
 
-    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False,
+                seed: Optional[int] = None) -> torch.Tensor:
+        """``train`` applies dropout with the masks of ``seed`` (drawn from
+        torch's default generator when None)."""
+        if train and seed is None and any(d > 0 for d in self.drops):
+            seed = draw_seed()
         for i in range(len(self.acts)):
             x = self.dense[i](x)
             if len(self.bn):
-                bn = self.bn[i]
-                x = F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight,
-                                 bn.bias, training=train, momentum=BN_MOMENTUM,
-                                 eps=BN_EPS)
+                x = flax_batch_norm(x, self.bn[i], train)
             if self.acts[i] is not None:
                 x = self.acts[i](x)
-            if self.drops[i] > 0:
-                x = F.dropout(x, self.drops[i], training=train)
+            if train and self.drops[i] > 0:
+                x = feature_dropout(x, self.drops[i], seed,
+                                    mlp_stream(self.dropout_stream, i))
         if len(self.dense) > len(self.acts):
             x = self.dense[-1](x)
         if self.output_act is not None:

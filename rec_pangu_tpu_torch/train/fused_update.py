@@ -4,14 +4,17 @@ The standard step (``steps.StandardStep``) writes a dense ``[rows, D]``
 table gradient and then runs Adam over the whole table: eight table passes
 per step.  This step, the JAX package's ``train/fused_update.py``:
 
-1. runs the model with the table held out of autograd (``FusedEmbedding``'s
-   capture mode): the gathered rows are a leaf, and their gradient is
-   d(loss)/d(rows) ``[N, D]``, so no dense table gradient ever exists;
+1. runs the model with its tables held out of autograd (``FusedEmbedding``'s
+   capture mode): each table's gathered rows are a leaf, and their gradient
+   is d(loss)/d(rows) ``[N, D]``, so no dense table gradient ever exists;
 2. updates every other parameter with ``torch.optim.Adam`` (optax's
    ``masked`` Adam, the same schedule and betas);
-3. updates the table and its two moments in place with one fused Adam pass
-   (``ops/kernels/fused_adam.planned_adam_update``: K3 on the card), which
-   applies Adam over the dense gradient, absent rows included.
+3. updates each table and its two moments in place with one fused Adam pass
+   (``ops/kernels/fused_adam.planned_adam_update``: K3 on the card, one
+   launch a table), which applies Adam over the dense gradient, absent rows
+   included.  A model may have several tables (WDL's and the other LR
+   models' ``[V, 1]`` ``LRLayer`` table beside the ``[V, D]`` one, AFN's
+   two), each with its own moments, as the JAX step has.
 
 The JAX package also gates the step on TPU performance (a table and a batch
 large enough for its planned kernels); those gates do not carry over: the
@@ -37,7 +40,7 @@ bfloat16 (``_moment_dtype``), as in the JAX package.
 from __future__ import annotations
 
 import os
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
@@ -45,7 +48,7 @@ from ..convert import jax_path
 from ..ops.embedding import FusedEmbedding, ItemEmbedding
 from ..ops.kernels.embedding_lookup import fused_ids
 from ..ops.kernels.fused_adam import adam_hyper, planned_adam_update
-from ..ops.sequence_enc import draw_seed
+from ..ops.dropout import draw_seed
 from ..ops.softmax_ce import fused_ce_enabled
 from .ckpt import moment_arrays
 from .optim import ADAM_B1, ADAM_B2, ADAM_EPS, make_lr_schedule, make_optimizer, set_lr
@@ -65,62 +68,102 @@ def _fused_adam_on() -> bool:
     return os.environ.get("REC_PANGU_TPU_FUSED_ADAM", "1") in ("1", "on", "true")
 
 
+def fused_tables(model) -> List[Tuple[str, FusedEmbedding]]:
+    """Every ``FusedEmbedding`` of ``model`` in registration order, with its
+    module name (WDL's ``lr_layer.embedding`` and ``embedding``, AFN's
+    ``embedding`` and ``embedding2``).  ``FusedStep.opt_state`` keys them
+    by their tables' flax paths, as the JAX ``find_fused_tables`` does."""
+    return [(name, m) for name, m in model.named_modules() if isinstance(m, FusedEmbedding)]
+
+
 class FusedStep:
-    """Autograd for the dense parameters and the captured rows, Adam on the
-    dense parameters, the fused Adam kernel on the table."""
+    """Autograd for the dense parameters and each table's captured rows,
+    Adam on the dense parameters, one fused Adam launch on each table.
+
+    Every table is looked up once a forward on the batch's sparse ids, so
+    every table's launch takes the same fused ids; a forward that looks a
+    table up other than exactly once raises ``ValueError`` before any
+    weight, moment or running statistic changes.  A step given a
+    ``generator`` (``fit``'s, seeded by its ``seed``) draws the step's
+    dropout seed from it; otherwise from torch's default generator."""
 
     fused = True
 
     def __init__(self, model, lr: float, steps_per_epoch: int, lr_scheduler_type: str = "",
-                 scheduler_params=None):
+                 scheduler_params=None, generator: Optional[torch.Generator] = None):
         self.model = model
-        self.embedding: FusedEmbedding = model.embedding
-        table = self.embedding.table
+        self.tables = fused_tables(model)
+        if not self.tables:
+            raise ValueError(f"{type(model).__name__} has no FusedEmbedding")
         self.schedule = make_lr_schedule(lr, steps_per_epoch, lr_scheduler_type,
                                          scheduler_params)
-        self.dense = [p for p in model.parameters() if p is not table]
-        self.optimizer = make_optimizer(self.dense, lr)
-        self.mu = torch.zeros_like(table, dtype=_moment_dtype())
-        self.nu = torch.zeros_like(table, dtype=_moment_dtype())
+        held = {id(m.table) for _, m in self.tables}
+        self.dense = [p for p in model.parameters() if id(p) not in held]
+        # None for a model whose only weights are tables (FM)
+        self.optimizer = make_optimizer(self.dense, lr) if self.dense else None
+        self.generator = generator
+        self.moments = [(torch.zeros_like(m.table, dtype=_moment_dtype()),
+                         torch.zeros_like(m.table, dtype=_moment_dtype()))
+                        for _, m in self.tables]
+        # running statistics the forward moves in place, restored on a refusal
+        self.stats = [b for m in model.modules() if isinstance(m, torch.nn.BatchNorm1d)
+                      for b in (m.running_mean, m.running_var)]
+
+    def _forward(self, inputs: Dict[str, torch.Tensor]):
+        """The forward in capture mode and each table's captured rows, in
+        the order of ``self.tables``; a table looked up other than once
+        raises with every running statistic as it was."""
+        saved = [b.clone() for b in self.stats]
+        captured: List[Tuple[FusedEmbedding, torch.Tensor]] = []
+        out = self.model(inputs, train=True, capture=captured, seed=draw_seed(self.generator))
+        counts = [sum(owner is m for owner, _ in captured) for _, m in self.tables]
+        if any(c != 1 for c in counts):
+            with torch.no_grad():
+                for b, old in zip(self.stats, saved):
+                    b.copy_(old)
+            raise ValueError(f"the fused step needs exactly one lookup of each table in the "
+                             f"forward, got {dict(zip((p for p, _ in self.tables), counts))}")
+        rows = [next(r for owner, r in captured if owner is m) for _, m in self.tables]
+        return out, rows
 
     def __call__(self, inputs: Dict[str, torch.Tensor], step: int) -> Dict[str, torch.Tensor]:
         lr = self.schedule(step)
-        set_lr(self.optimizer, lr)
-        captured = []
-        out = self.model(inputs, train=True, capture=captured)
-        if len(captured) != 1:  # each lookup would need its own ids here
-            raise ValueError(f"the fused step needs exactly one lookup of the table in "
-                             f"the forward, got {len(captured)}")
-        grads = torch.autograd.grad(out["loss"], self.dense + captured)
-        for p, g in zip(self.dense, grads):
-            p.grad = g
-        self.optimizer.step()
-        rows = grads[-1]
-        table = self.embedding.table
+        out, rows = self._forward(inputs)
+        grads = torch.autograd.grad(out["loss"], self.dense + rows, allow_unused=True)
+        if self.optimizer is not None:
+            set_lr(self.optimizer, lr)
+            for p, g in zip(self.dense, grads):
+                p.grad = g  # None for a weight the loss does not reach: Adam skips it
+            self.optimizer.step()
+        hyper = adam_hyper(step + 1, lr, ADAM_B1, ADAM_B2, ADAM_EPS)
+        ids = fused_ids(inputs["sparse"], self.tables[0][1].offsets)
         with torch.no_grad():
-            planned_adam_update(fused_ids(inputs["sparse"], self.embedding.offsets),
-                                rows.reshape(-1, rows.shape[-1]), table, self.mu, self.nu,
-                                adam_hyper(step + 1, lr, ADAM_B1, ADAM_B2, ADAM_EPS))
+            for (_, emb), (mu, nu), r, g in zip(self.tables, self.moments, rows,
+                                                grads[len(self.dense):]):
+                g = torch.zeros_like(r) if g is None else g
+                planned_adam_update(ids, g.reshape(-1, g.shape[-1]), emb.table, mu, nu, hyper)
         return out
 
     def opt_state(self, step: int) -> Dict[str, Any]:
-        key = jax_path(self.model, self.embedding.table)
         return {"layout": OPT_STATE_LAYOUT, "step": int(step),
                 "params": adam_moments(self.model, self.optimizer),
-                "tables": {key: moment_arrays(self.mu, self.nu)}}
+                "tables": {jax_path(self.model, m.table): moment_arrays(mu, nu)
+                           for (_, m), (mu, nu) in zip(self.tables, self.moments)}}
 
 
 def maybe_enable_fused_update(model, lr: float, steps_per_epoch: int,
-                              lr_scheduler_type: str = "",
-                              scheduler_params=None) -> Optional[FusedStep]:
+                              lr_scheduler_type: str = "", scheduler_params=None,
+                              generator: Optional[torch.Generator] = None
+                              ) -> Optional[FusedStep]:
     """The fused Adam step for ``model`` from a fresh state, or None when it
     does not apply: the model has no ``FusedEmbedding``, or
     ``REC_PANGU_TPU_FUSED_ADAM`` is set to something other than 1/on/true."""
     if not _fused_adam_on():
         return None
-    if not isinstance(getattr(model, "embedding", None), FusedEmbedding):
+    if not any(isinstance(m, FusedEmbedding) for m in model.modules()):
         return None
-    return FusedStep(model, lr, steps_per_epoch, lr_scheduler_type, scheduler_params)
+    return FusedStep(model, lr, steps_per_epoch, lr_scheduler_type, scheduler_params,
+                     generator)
 
 
 class SeqFusedStep:

@@ -23,7 +23,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 
 from ..convert import jax_tree
-from ..ops.sequence_enc import draw_seed
+from ..ops.dropout import draw_seed
 from .optim import make_lr_schedule, make_optimizer, set_lr
 
 OPT_STATE_LAYOUT = "rec_pangu_tpu_torch/adam-1"

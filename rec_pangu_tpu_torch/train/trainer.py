@@ -13,8 +13,10 @@ update in one kernel pass) from a fresh state with Adam, as the JAX package
 does, and the standard step (``steps.py``) when ``REC_PANGU_TPU_FUSED_ADAM=0``.
 Two differences from the JAX ``fit``: it trains the module's weights as they
 are (the JAX ``fit`` initializes new ones from ``seed``; here ``seed`` seeds
-torch's generator, which dropout draws from), and ``resume_from``, ``mesh``,
-``profile_dir`` and ``steps_per_call > 1`` raise ``NotImplementedError``.
+the generator the steps draw each step's dropout seed from, and the model's
+constructor takes a ``seed`` for its weights), and ``resume_from``,
+``mesh``, ``profile_dir`` and ``steps_per_call > 1`` raise
+``NotImplementedError``.
 
 SequenceTrainer drives sequence-recall models: ``load_model``, the
 ``save_*`` methods, ``evaluate_model`` (top-200 retrieval over the whole
@@ -133,18 +135,18 @@ class RankTrainer(_BaseTrainer):
                                           f"{_NOT_PORTED[name]}")
         dev = self._device(device)
         os.makedirs(self.model_ckpt_dir, exist_ok=True)
-        torch.manual_seed(seed)
         self.model = model.to(dev)
         self._fit_device = dev
         self.step = 0
+        generator = torch.Generator().manual_seed(seed)
         steps_per_epoch = len(train_loader)
         self._train_step = maybe_enable_fused_update(
-            model, lr, steps_per_epoch, lr_scheduler_type, scheduler_params)
+            model, lr, steps_per_epoch, lr_scheduler_type, scheduler_params, generator)
         if self._train_step is not None:
             logger.info("Embedding Adam update fused into the table kernel")
         else:
             self._train_step = StandardStep(model, lr, steps_per_epoch, lr_scheduler_type,
-                                            scheduler_params)
+                                            scheduler_params, generator)
         n_params = sum(p.numel() for p in model.parameters())
         logger.info(f"Model initialized: {n_params:,} parameters")
 

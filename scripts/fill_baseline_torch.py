@@ -1,0 +1,94 @@
+"""The ranking zoo's quality legs for the PyTorch port: the ``ratings3/``
+protocol of ``scripts/fill_baseline.py`` (MovieLens ratings.csv as CTR,
+click = rating >= 4, the fixed shuffled 80/10/10 split of
+``parity_common.load_ratings_ctr``, 5 epochs, batch 512, Adam 1e-3, test AUC
+of the final model over seeds 1029-1031), run by ``rec_pangu_tpu_torch`` on
+the CPU (the kernels' plain versions).  Each seed seeds the model's weights
+(its constructor), the train loader's shuffle and ``fit``'s dropout seeds.
+
+Writes ``baseline_results_torch.json`` at the repo root, one
+``ratings3/<model>`` key per model with the seeds' metrics, the AUC mean,
+min and max, and the JAX package's range for the same leg (read from
+``baseline_results.json``) with whether the two overlap.  Keys already in
+the file are skipped, so an interrupted run resumes.
+
+    python scripts/fill_baseline_torch.py [--models WDL,AFN] [--threads 4]
+
+Imports nothing of the JAX package and no JAX.
+"""
+import argparse
+import json
+import os
+import sys
+import tempfile
+import time
+
+import torch
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+from parity_common import (RANKING_MODELS, RANKING_MODELS_EXTRA, RATINGS_BATCH,  # noqa: E402
+                           RATINGS_EPOCHS, RATINGS_SCHEMA, load_ratings_ctr, repo_path)
+
+from rec_pangu_tpu_torch.data import DataLoader, get_dataloader  # noqa: E402
+from rec_pangu_tpu_torch.models import get_model  # noqa: E402
+from rec_pangu_tpu_torch.train import RankTrainer  # noqa: E402
+
+OUT = repo_path("baseline_results_torch.json")
+JAX_RESULTS = repo_path("baseline_results.json")
+SEEDS3 = [1029, 1030, 1031]
+
+
+def jax_range(key: str):
+    """(min, mean, max) of the JAX package's leg ``key``, or None."""
+    with open(JAX_RESULTS) as f:
+        leg = json.load(f).get(key)
+    return None if leg is None else (leg["auc_min"], leg["auc_mean"], leg["auc_max"])
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--models", default=",".join(RANKING_MODELS + RANKING_MODELS_EXTRA))
+    ap.add_argument("--threads", type=int, default=4)
+    args = ap.parse_args()
+    torch.set_num_threads(args.threads)
+    results = {}
+    if os.path.exists(OUT):
+        with open(OUT) as f:
+            results = json.load(f)
+
+    train_df, valid_df, test_df = load_ratings_ctr()
+    train_loader, valid_loader, test_loader, enc_dict = get_dataloader(
+        train_df, valid_df, test_df, RATINGS_SCHEMA, batch_size=RATINGS_BATCH)
+    for name in args.models.split(","):
+        key = f"ratings3/{name}"
+        if key in results:
+            continue
+        runs, t0 = [], time.time()
+        for seed in SEEDS3:
+            loader = DataLoader(train_loader.dataset, batch_size=RATINGS_BATCH, shuffle=True,
+                                seed=seed)
+            model = get_model(name)(enc_dict=enc_dict, seed=seed)
+            with tempfile.TemporaryDirectory() as ckpt_dir:
+                trainer = RankTrainer(num_task=1, model_ckpt_dir=ckpt_dir, device="cpu")
+                trainer.fit(model, loader, valid_loader, epoch=RATINGS_EPOCHS, lr=1e-3,
+                            seed=seed, log_rounds=10 ** 9)
+                runs.append(trainer.evaluate_model(model, test_loader))
+        aucs = [r["roc_auc_score"] for r in runs]
+        leg = {"seeds": dict(zip(map(str, SEEDS3), runs)),
+               "auc_mean": round(sum(aucs) / len(aucs), 4), "auc_min": min(aucs),
+               "auc_max": max(aucs), "train_s": round(time.time() - t0, 1),
+               "device": "cpu", "threads": args.threads}
+        jax_leg = jax_range(key)
+        if jax_leg is not None:
+            leg["jax_auc_min_mean_max"] = list(jax_leg)
+            leg["overlaps_jax"] = leg["auc_min"] <= jax_leg[2] and jax_leg[0] <= leg["auc_max"]
+        results[key] = leg
+        with open(OUT, "w") as f:
+            json.dump(results, f, indent=2)
+        print(key, json.dumps(leg), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -247,7 +247,10 @@ def test_mlp_with_batchnorm_matches_jax(train):
     load_jax_variables(mlp, _numpy(variables))
     got = mlp(torch.from_numpy(x), train).detach().numpy()
     np.testing.assert_allclose(got, np.asarray(want), rtol=0, atol=ATOL)
-    if train:  # torch keeps the unbiased batch variance in its running one
-        np.testing.assert_allclose(mlp.bn[0].running_mean.numpy(),
-                                   np.asarray(mutated["batch_stats"]["BatchNorm_0"]["mean"]),
-                                   rtol=0, atol=ATOL)
+    if train:  # the running variance moves by the biased batch variance, as flax's does
+        for i, bn in enumerate(mlp.bn):
+            want_stats = mutated["batch_stats"][f"BatchNorm_{i}"]
+            np.testing.assert_allclose(bn.running_mean.numpy(), np.asarray(want_stats["mean"]),
+                                       rtol=0, atol=ATOL)
+            np.testing.assert_allclose(bn.running_var.numpy(), np.asarray(want_stats["var"]),
+                                       rtol=0, atol=ATOL)

@@ -173,9 +173,9 @@ class _TwoLookups(torch.nn.Module):
         self.inner = inner
         self.embedding = inner.embedding
 
-    def forward(self, batch, train=False, capture=None):
+    def forward(self, batch, train=False, capture=None, seed=None):
         self.embedding(batch["sparse"], capture)
-        return self.inner(batch, train, capture)
+        return self.inner(batch, train, capture, seed)
 
 
 def test_gate(monkeypatch):
