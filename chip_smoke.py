@@ -33,8 +33,10 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                (``encoder_bwd_parts``), and the masks' seed and keep share;
                the K-max CE (K5f, K5b) and each of K5b's launches against
                its stage's plain version (``check_multimax_stages``).
-3b. kernel_d1 -- K3 and K2 at the LR table's shape ([1,605,632, 1], the
-               131,072 ids of a batch) against their plain versions, timed.
+3b. kernel_d1, kernel_d40 -- K3 and K2 at the LR table's shape ([1,605,632,
+               1], the 131,072 ids of a batch), and K1, K2 and K3 at the
+               multi-task family's width ([1,605,632, 40]), against their
+               plain versions, timed.
 4. serving  -- DeepFM at the bench's full width (16 sparse fields x 100,000
                vocab, 9 dense, D=32, MLP (64, 64, 64)) from a checkpoint in
                the JAX package's layout, random weights from a seed: requests
@@ -58,6 +60,15 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                fused steps card against CPU with the MLPs' dropout on; WDL
                also its profiles, validation, standard steps (K2 a table a
                step) and the full-width card_vs_cpu.
+8c. mmoe_*, sharebottom_*, essm_*, omoe_*, mlmmoe_*, aitm_* -- the
+               multi-task zoo at the same width with each JAX class's
+               defaults (D = 40, AITM 32; two tasks): checkpoint, serving
+               through RankTrainer(num_task=2)._predict (K1 a request),
+               evaluate_model's per-task metrics, a fit on the fused step
+               (asserted) and three fused steps card against CPU with the
+               towers' dropout on; MMOE (bench.py's leg) also its profiles,
+               validation, standard steps (K2) and the card_vs_cpu at full
+               width.
 9. seq_checkpoint -- a SASRec checkpoint in the JAX layout at bench.py's
                sequence width (1,000,000 items, D=64, L=50, 2 blocks of 4
                heads, inner 32, gelu), random weights from a seed.
@@ -105,6 +116,13 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                and Caser encoders: checkpoint, serving, training (fit on
                the host views) and device_aug (standard steps on device
                views: K7's path).
+20b. srgnn_*, gcsan_*, niser_* -- the session-graph family at the same
+               width (SRGNN is bench.py's leg): checkpoint, retrieval
+               serving (the graph built on the card; K1 of the nodes a
+               request, GCSAN's K4f too), eval, a fit on the sequence fused
+               step (asserted; the trainer's host graph: K3's ids are the
+               nodes; GCSAN's K4b too), card_vs_cpu; SRGNN also whole
+               requests against the CPU, profiles and standard steps (K2).
 21. past_limits -- SASRec at max_len 100 and at hidden size 256, IOCRec with
                K = 8 and at max_len 80: retrieval and two fused steps each,
                card against CPU, on the plain versions of the kernels whose
@@ -152,6 +170,8 @@ from rec_pangu_tpu_torch.ops.sequence_enc import TransformerEncoder
 from rec_pangu_tpu_torch.serving import make_ranking_scorer, make_retrieval_scorer
 from rec_pangu_tpu_torch.serving.scorer import score_items
 from rec_pangu_tpu_torch.convert import jax_variables
+from rec_pangu_tpu_torch.models.multi_task import OMOE
+from rec_pangu_tpu_torch.models.multi_task.common import TaskTower
 from rec_pangu_tpu_torch.train import RankTrainer, SequenceTrainer, save_checkpoint
 from rec_pangu_tpu_torch.train.fused_update import fused_tables, maybe_enable_fused_update
 
@@ -745,8 +765,10 @@ def write_checkpoint(path: str) -> dict:
 
 def rank_config(name: str) -> dict:
     """The ranking model ``name`` at the bench's width with its JAX class's
-    other defaults (DeepFM's MLP (64, 64, 64) is its default too)."""
-    if name == "LR":
+    other defaults (DeepFM's MLP (64, 64, 64) is its default too); a
+    multi-task model takes every default, its width too (bench.py sets no
+    embedding_dim for MMOE: D = 40; AITM's is 32)."""
+    if name == "LR" or name in MTL_NAMES:
         return {}
     return {"embedding_dim": DIM, **({"hidden_units": HIDDEN} if name == "DeepFM" else {})}
 
@@ -877,12 +899,13 @@ def phase_serving(path: str, enc_dict: dict, device: str = "cuda", name: str = "
     return summary, model, score, requests[WARMUP:WARMUP + PROFILED]
 
 
-def phase_profile(model, requests, phase: str = "profile") -> dict:
+def phase_profile(model, requests, phase: str = "profile", score=None) -> dict:
     """Where a request's time goes.  Host stages, each ended by a
     synchronize: the id check, the check plus upload, the model's forward,
-    the copy back.  Then torch.profiler over the scorer: device time by
-    operation and the card's idle share of the wall time (both under the
-    profiler's own overhead)."""
+    the copy back (of every prediction: a multi-task model's ``task{i}_pred``
+    too).  Then torch.profiler over ``score`` (the ranking scorer by
+    default): device time by operation and the card's idle share of the
+    wall time (both under the profiler's own overhead)."""
     from torch.profiler import ProfilerActivity, profile
 
     dev = next(model.parameters()).device
@@ -896,15 +919,15 @@ def phase_profile(model, requests, phase: str = "profile") -> dict:
         torch.cuda.synchronize()
         t2 = time.perf_counter()
         with torch.inference_mode():
-            pred = model(inputs, train=False)["pred"]
+            preds = [v for k, v in model(inputs, train=False).items() if k.endswith("pred")]
         torch.cuda.synchronize()
         t3 = time.perf_counter()
-        pred.reshape(-1).cpu().numpy()
+        torch.stack([p.reshape(-1) for p in preds], dim=1).cpu().numpy()
         t4 = time.perf_counter()
         for key, dt in zip(stages, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
             stages[key].append(dt)
 
-    score = make_ranking_scorer(model, device=dev)
+    score = score or make_ranking_scorer(model, device=dev)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for req in requests:
@@ -923,12 +946,18 @@ def phase_profile(model, requests, phase: str = "profile") -> dict:
 
 
 def labelled_loader(score, batches: int, seed: int) -> DataLoader:
-    """``batches`` seeded batches whose labels are drawn from ``score``."""
+    """``batches`` seeded batches whose labels are drawn from ``score`` ([B]
+    probabilities, or [B, T] for a multi-task model: task t + 1's label is
+    drawn from its probability where task t's is 1, and is 0 elsewhere,
+    the click-then-conversion funnel the multi-task models assume)."""
     reqs = make_requests(batches, seed)
     rng = np.random.default_rng(seed + 100)
     arrays = {k: np.concatenate([r[k] for r in reqs]) for k in ("sparse", "dense")}
-    arrays["label"] = (rng.random(len(arrays["sparse"]))
-                       < np.concatenate([score(r) for r in reqs])).astype(np.float32)
+    probs = np.concatenate([score(r) for r in reqs])
+    labels = (rng.random(probs.shape) < probs).astype(np.float32)
+    if labels.ndim == 2:
+        labels = np.cumprod(labels, axis=1)
+    arrays["label"] = labels
     return DataLoader(_Arrays(arrays), batch_size=BATCH)
 
 
@@ -965,7 +994,7 @@ def require_launches(got: dict, want: dict, what: str) -> None:
 
 
 def timed_fit(trainer: RankTrainer, model, train_loader, valid_loader, epochs: int,
-              device: str):
+              device: str, monitor_metric: str = "roc_auc_score"):
     """trainer.fit, each step timed from the host batch to the end of its
     device work (a synchronize after each step: the times exclude the overlap
     of one step's host work with the previous step's device work).  Returns
@@ -985,7 +1014,7 @@ def timed_fit(trainer: RankTrainer, model, train_loader, valid_loader, epochs: i
     trainer._step = step
     metric = trainer.fit(model, train_loader, valid_loader, epoch=epochs, lr=LR,
                          use_earlystopping=valid_loader is not None,
-                         monitor_metric="roc_auc_score", log_rounds=10 ** 9)
+                         monitor_metric=monitor_metric, log_rounds=10 ** 9)
     del trainer._step  # the trainer's own step again
     return metric, times, [float(x) for x in losses]
 
@@ -1003,19 +1032,23 @@ def step_stats(times, rows: int) -> dict:
 def phase_training(path: str, enc_dict: dict, score, ckpt_dir: str, device: str = "cuda",
                    name: str = "DeepFM", epochs: int = EPOCHS,
                    train_batches: int = TRAIN_BATCHES, valid_batches: int = VALID_BATCHES,
-                   std_steps: int = STD_STEPS, seed: int = SEED + 4, phase: str = "training"):
-    """RankTrainer.fit on the ranking model ``name`` from the serving
-    checkpoint on the fused step (K1 once a table a step and eval batch, K3
-    once a table a step), with validation, checkpoints and early stopping
-    when ``valid_batches``; then ``std_steps`` standard steps (K2 for K3).
-    The loss falls: the last epoch's mean below the first's (each batch is
-    seen again), and with a validation set the last three steps' below the
-    first three's.  Returns (summary, trained trainer, train batches)."""
+                   std_steps: int = STD_STEPS, seed: int = SEED + 4, phase: str = "training",
+                   num_task: int = 1):
+    """RankTrainer(num_task).fit on the ranking or multi-task model ``name``
+    from the serving checkpoint on the fused step (K1 once a table a step
+    and eval batch, K3 once a table a step), with validation, checkpoints
+    and early stopping (on task 1's AUC for a multi-task model, whose
+    per-task validation metrics the summary then holds) when
+    ``valid_batches``; then ``std_steps`` standard steps (K2 for K3).  The
+    loss falls: the last epoch's mean below the first's (each batch is seen
+    again), and with a validation set the last three steps' below the first
+    three's.  Returns (summary, trained trainer, train batches)."""
     t0 = time.perf_counter()
     train_loader = labelled_loader(score, train_batches, seed)
     valid_loader = labelled_loader(score, valid_batches, seed + 1) if valid_batches else None
     model = load_model(path, enc_dict, device, name)
-    trainer = RankTrainer(device=device, model_ckpt_dir=ckpt_dir)
+    trainer = RankTrainer(num_task=num_task, device=device, model_ckpt_dir=ckpt_dir)
+    monitor = "roc_auc_score" if num_task == 1 else "test_task1_roc_auc_score"
     setup_s = time.perf_counter() - t0
     tables = num_tables(model)
 
@@ -1023,7 +1056,7 @@ def phase_training(path: str, enc_dict: dict, score, ckpt_dir: str, device: str 
     reset_launches()
     t0 = time.perf_counter()
     metric, times, losses = timed_fit(trainer, model, train_loader, valid_loader, epochs,
-                                      device)
+                                      device, monitor)
     fit_s = time.perf_counter() - t0
     launches = read_launches()
     steps = epochs * train_batches
@@ -1052,12 +1085,14 @@ def phase_training(path: str, enc_dict: dict, score, ckpt_dir: str, device: str 
         "loss_epoch_means": epoch_means, "losses": losses,
         "train_metric": metric, "checkpoints": files,
     }
+    if num_task > 1 and valid_loader is not None:  # each task's validation AUC
+        summary["valid_metric"] = trainer.evaluate_model(model, valid_loader)
     if std_steps:  # the standard step (REC_PANGU_TPU_FUSED_ADAM=0): K1 + K2 + torch Adam
         std_loader = DataLoader(_Arrays({k: v[:std_steps * BATCH] for k, v in
                                          train_loader.dataset.arrays.items()}),
                                 batch_size=BATCH)
         std_model = load_model(path, enc_dict, device, name)
-        std_trainer = RankTrainer(device=device, model_ckpt_dir=ckpt_dir)
+        std_trainer = RankTrainer(num_task=num_task, device=device, model_ckpt_dir=ckpt_dir)
         os.environ["REC_PANGU_TPU_FUSED_ADAM"] = "0"
         try:
             reset_launches()
@@ -2953,15 +2988,15 @@ def write_model_checkpoint(path: str, name: str, config: dict, seed: int) -> dic
 
 def phase_model_serving(path: str, enc_dict: dict, name: str, config: dict, kernels,
                         seed: int, device: str = "cuda", requests: int = 0,
-                        label: str = ""):
+                        label: str = "", cpu_users: int = IOC_CPU_USERS):
     """Retrieval by the sequence model ``name`` at full width from a
     JAX-layout checkpoint: SequenceTrainer.load_model, make_retrieval_scorer,
     1024 histories a request, top-200 of the whole L2-normalized corpus (a
     multi-interest model scores each item by its best interest), each of
     ``kernels`` once a request (IOCRec: K1 + K4f + K6f); two requests held
-    against the CPU on their first IOC_CPU_USERS histories.  ``requests``
-    (SEQ_REQUESTS when 0) timed after SEQ_WARMUP; ``label`` names the phase
-    (the model's name)."""
+    against the CPU on their first ``cpu_users`` histories (IOC_CPU_USERS;
+    SEQ_BATCH: whole requests).  ``requests`` (SEQ_REQUESTS when 0) timed
+    after SEQ_WARMUP; ``label`` names the phase (the model's name)."""
     t_start = time.perf_counter()
     model = load_seq_model(path, enc_dict, device, name, config)
     retrieve = make_retrieval_scorer(model, topk=SEQ_TOPK, device=device)
@@ -2990,7 +3025,7 @@ def phase_model_serving(path: str, enc_dict: dict, name: str, config: dict, kern
     cpu_retrieve = make_retrieval_scorer(cpu_model, topk=SEQ_TOPK + 1, device="cpu")
     emb_err, differing = 0.0, 0
     for req in requests[:IOC_CPU_CHECKS]:
-        part = {k: v[:IOC_CPU_USERS] for k, v in req.items()}
+        part = {k: v[:cpu_users] for k, v in req.items()}
         scores, ids = retrieve(part)
         with torch.inference_mode():
             card_emb = model(model.upload_batch(part, torch.device(device)))["user_emb"]
@@ -3010,10 +3045,10 @@ def phase_model_serving(path: str, enc_dict: dict, name: str, config: dict, kern
         "p50_ms": statistics.median(latencies) * 1e3,
         "p90_ms": float(np.percentile(latencies, 90)) * 1e3,
         "users_per_s": n_timed * SEQ_BATCH / sum(latencies),
-        "cpu_checked_requests": IOC_CPU_CHECKS, "cpu_checked_users": IOC_CPU_USERS,
+        "cpu_checked_requests": IOC_CPU_CHECKS, "cpu_checked_users": cpu_users,
         "user_emb_max_abs_err_vs_cpu": emb_err, "user_emb_atol": USER_EMB_ATOL,
         "score_atol": SCORE_ATOL,
-        "topk_positions_compared": IOC_CPU_CHECKS * IOC_CPU_USERS * SEQ_TOPK,
+        "topk_positions_compared": IOC_CPU_CHECKS * cpu_users * SEQ_TOPK,
         "topk_positions_differing_at_ties": differing,
         "setup_s": setup_s, "seconds": time.perf_counter() - t_start,
     }
@@ -3022,18 +3057,20 @@ def phase_model_serving(path: str, enc_dict: dict, name: str, config: dict, kern
 
 def phase_model_training(path: str, enc_dict: dict, ckpt_dir: str, name: str, config: dict,
                          per_step, per_batch, seed: int, std_steps: int = 0,
-                         epochs: int = FIT_EPOCHS, device: str = "cuda", label: str = ""):
+                         epochs: int = FIT_EPOCHS, device: str = "cuda", label: str = "",
+                         train_batches: int = FIT_TRAIN_BATCHES):
     """SequenceTrainer.fit on the sequence model ``name`` at full width from
-    the JAX-layout checkpoint: ``epochs`` of FIT_TRAIN_BATCHES bench-shape
+    the JAX-layout checkpoint: ``epochs`` of ``train_batches`` bench-shape
     batches with the host keys the trainer attaches (IOCRec's and
-    ContraRec's views, CLRec's lookup_all), FIT_VALID_BATCHES of
+    ContraRec's views, CLRec's lookup_all, the SRGNN family's session
+    graph), FIT_VALID_BATCHES of
     validation, log.csv, checkpoints and early stopping, on the sequence
     fused step: each of ``per_step`` once a step, each of ``per_batch`` once
     a step and an eval batch (IOCRec: K1, K4f, K4b, K6f, K6b, K5f, K5b, K3).
     Then ``std_steps`` standard steps (K2 for K3).  ``label`` names the
     phase (the model's name)."""
     t_start = time.perf_counter()
-    train_loader = seq_train_loader(FIT_TRAIN_BATCHES, seed)
+    train_loader = seq_train_loader(train_batches, seed)
     valid_loader = seq_valid_loader(FIT_VALID_BATCHES, seed + 1)
     model = load_seq_model(path, enc_dict, device, name, config)
     trainer = SequenceTrainer(device=device, model_ckpt_dir=ckpt_dir)
@@ -3048,7 +3085,7 @@ def phase_model_training(path: str, enc_dict: dict, ckpt_dir: str, name: str, co
     fit_s = time.perf_counter() - t0
     launches = read_launches()
     peak = torch.cuda.max_memory_allocated() if device == "cuda" else None
-    steps, evals = epochs * FIT_TRAIN_BATCHES, epochs * FIT_VALID_BATCHES
+    steps, evals = epochs * train_batches, epochs * FIT_VALID_BATCHES
     require_launches(launches, {**{k: steps for k in per_step},
                                 **{k: steps + evals for k in per_batch}}, f"{name} fused fit")
     if not trainer._train_step.fused:
@@ -3065,7 +3102,7 @@ def phase_model_training(path: str, enc_dict: dict, ckpt_dir: str, name: str, co
     summary = {
         "phase": f"{label or name.lower()}_training", "model": name, "config": config,
         "vocab": SEQ_VOCAB, "batch": SEQ_BATCH, "epochs": epochs,
-        "steps_per_epoch": FIT_TRAIN_BATCHES, "valid_batches": FIT_VALID_BATCHES, "lr": LR,
+        "steps_per_epoch": train_batches, "valid_batches": FIT_VALID_BATCHES, "lr": LR,
         "launches": launches, "fused": step_stats(times, SEQ_BATCH), "fit_s": fit_s,
         "setup_s": setup_s, "loss_first3": first, "loss_last3": last, "losses": losses,
         "files": files, "peak_allocated_bytes": peak,
@@ -3576,40 +3613,66 @@ RANK_STATS_RTOL = 1e-4     # BatchNorm running statistics after one step, of the
 RANK_LOOSER = {"AFN": {"grad_rel_tol": 1e-2, "dense_handful": 64, "table_handful": 8192}}
 
 
-def rank_cpu_batches(seed: int):
-    """CPU_STEPS labelled batches of RANK_CPU_BATCH rows over RANK_CPU_VOCAB
-    ids a field (the last id each field's OOV row)."""
+def rank_cpu_batches(seed: int, vocab: int = RANK_CPU_VOCAB, batch: int = RANK_CPU_BATCH,
+                     num_task: int = 1):
+    """CPU_STEPS labelled batches of ``batch`` rows over ``vocab`` ids a
+    field (the last id each field's OOV row); a multi-task batch has a
+    label a task, [batch, num_task]."""
     rng = np.random.default_rng(seed)
-    return [{"sparse": rng.integers(0, RANK_CPU_VOCAB + 1,
-                                    (RANK_CPU_BATCH, FIELDS)).astype(np.int32),
-             "dense": rng.random((RANK_CPU_BATCH, DENSE)).astype(np.float32),
-             "label": (rng.random(RANK_CPU_BATCH) < 0.3).astype(np.float32)}
+    shape = (batch,) if num_task == 1 else (batch, num_task)
+    return [{"sparse": rng.integers(0, vocab + 1, (batch, FIELDS)).astype(np.int32),
+             "dense": rng.random((batch, DENSE)).astype(np.float32),
+             "label": (rng.random(shape) < 0.3).astype(np.float32)}
             for _ in range(CPU_STEPS)]
 
 
-def phase_rank_card_vs_cpu(name: str, seed: int, devices=("cuda", "cpu")) -> dict:
-    """The first three fused steps of the ranking model ``name`` (16 fields of
-    RANK_CPU_VOCAB ids, weights from ``seed``) on the card and on the CPU,
-    from the same weights, batches and dropout seeds (the MLPs' masks are
-    the same hash on both): the first step's gradient of every leaf before
-    Adam (each table's as its rows summed at their ids, recorded at its K3
-    call), the losses (each within LOSS_RTOL) and the parameters after one
-    step.  Every leaf's gradient within RANK_GRAD_REL_TOL of its largest
-    entry but RANK_ZERO_GRAD's, 0 but for rounding on both sides (held
-    within RANK_ZERO_GRAD_REL of their weight's largest gradient).  Adam's
-    first step moves an entry by about lr whatever its gradient's size, so
-    one with a gradient within rounding of 0 may move 2 lr apart: at most
-    RANK_DENSE_HANDFUL dense and RANK_TABLE_HANDFUL table elements past
-    DENSE_ATOL and TABLE_ATOL, none past 2 lr.  AFN's gates are
-    RANK_LOOSER's."""
+def bn_undone_leaves(model) -> dict:
+    """The multi-task leaves whose gradient is 0 analytically, each with the
+    weight whose largest gradient scales its rounding noise: a bias that a
+    BatchNorm right after undoes (each ``TaskTower``'s Linear i before its
+    BatchNorm i; its later BatchNorms' biases reach the next one through a
+    dropout mask, so they count) and OMOE's expert bias (its gate does not
+    depend on the input, so the bias is a shift before the towers' first
+    BatchNorm)."""
+    out = {}
+    for prefix, m in model.named_modules():
+        if isinstance(m, TaskTower):
+            for i in range(len(m.bn)):
+                out[f"{prefix}.dense.{i}.bias"] = f"{prefix}.dense.{i}.weight"
+    if isinstance(model, OMOE):
+        out["experts.experts_bias"] = "experts.experts"
+    return out
+
+
+def phase_rank_card_vs_cpu(name: str, seed: int, devices=("cuda", "cpu"),
+                           vocab: int = RANK_CPU_VOCAB, rows: int = RANK_CPU_BATCH,
+                           label: str = "", looser=None) -> dict:
+    """The first three fused steps of the ranking or multi-task model
+    ``name`` (16 fields of ``vocab`` ids, ``rows`` rows a step, weights
+    from ``seed``) on the card and on the CPU, from the same weights,
+    batches and dropout seeds (the MLPs' and towers' masks are the same
+    hash on both): the first step's gradient of every leaf before Adam (each
+    table's as its rows summed at their ids, recorded at its K3 call), the
+    losses (each within LOSS_RTOL) and the parameters after one step.  Every
+    leaf's gradient within RANK_GRAD_REL_TOL of its largest entry but
+    RANK_ZERO_GRAD's and ``bn_undone_leaves``', 0 but for rounding on both
+    sides (held within RANK_ZERO_GRAD_REL of their weight's largest
+    gradient).  Adam's first step moves an entry by about lr whatever its
+    gradient's size, so one with a gradient within rounding of 0 may move
+    2 lr apart: at most RANK_DENSE_HANDFUL dense and RANK_TABLE_HANDFUL
+    table elements past DENSE_ATOL and TABLE_ATOL, none past 2 lr
+    (``bn_undone_leaves``, all noise, within 2 lr only).  AFN's gates are
+    RANK_LOOSER's; ``looser`` overrides gates for this leg alone."""
     t_start = time.perf_counter()
-    enc_dict = {**{f"C{f + 1}": {"vocab_size": RANK_CPU_VOCAB} for f in range(FIELDS)},
+    enc_dict = {**{f"C{f + 1}": {"vocab_size": vocab} for f in range(FIELDS)},
                 **{f"I{d + 1}": {"min": 0.0, "max": 1.0} for d in range(DENSE)}}
-    batches = rank_cpu_batches(seed + 1)
+    num_task = MTL_TASKS if name in MTL_NAMES else 1
+    batches = rank_cpu_batches(seed + 1, vocab, rows, num_task)
     runs = {}
     for dev in devices:
         model = port.get_model(name)(enc_dict=enc_dict, **rank_config(name), seed=seed)
         model = model.to(dev).train()
+        undone = bn_undone_leaves(model)
         step = maybe_enable_fused_update(model, LR, CPU_STEPS,
                                          generator=torch.Generator().manual_seed(SEED))
         table_keys = [f"{t}.table" for t, _ in step.tables]
@@ -3628,9 +3691,10 @@ def phase_rank_card_vs_cpu(name: str, seed: int, devices=("cuda", "cpu")) -> dic
     (card_losses, card_grads, card), (cpu_losses, cpu_grads, cpu) = (runs[d] for d in devices)
     if set(card_grads) != set(cpu_grads):
         raise RuntimeError(f"{name}: the card and the CPU give gradients to different leaves")
-    errs = {k: rel_err(card_grads[k], w) for k, w in cpu_grads.items() if k not in RANK_ZERO_GRAD}
+    zero_grad = {**RANK_ZERO_GRAD, **undone}
+    errs = {k: rel_err(card_grads[k], w) for k, w in cpu_grads.items() if k not in zero_grad}
     zero = {k: max(card_grads[k].abs().max().item(), cpu_grads[k].abs().max().item())
-            / cpu_grads[w].abs().max().item() for k, w in RANK_ZERO_GRAD.items()
+            / cpu_grads[w].abs().max().item() for k, w in zero_grad.items()
             if k in cpu_grads}
     # BatchNorm's running statistics (AFN's), held relative to their size:
     # the exp's variance is near 1e4
@@ -3640,14 +3704,17 @@ def phase_rank_card_vs_cpu(name: str, seed: int, devices=("cuda", "cpu")) -> dic
     diffs = {k: (card[k] - cpu[k]).abs() for k in cpu
              if k not in stats and not k.endswith("num_batches_tracked")}
     dense = torch.cat([torch.zeros(1)] + [d.reshape(-1) for k, d in diffs.items()
-                                          if k not in table_keys])
+                                          if k not in table_keys and k not in undone])
+    undone_diff = max((diffs[k].max().item() for k in undone), default=0.0)
     tables = torch.cat([diffs[k].reshape(-1) for k in table_keys])
     loss_rel = [abs(a - b) / abs(b) for a, b in zip(card_losses, cpu_losses)]
     worst = max(errs, key=errs.get)
     gates = {"grad_rel_tol": RANK_GRAD_REL_TOL, "dense_handful": RANK_DENSE_HANDFUL,
-             "table_handful": RANK_TABLE_HANDFUL, **RANK_LOOSER.get(name, {})}
-    summary = {"phase": f"{name.lower()}_card_vs_cpu", "model": name, "steps": CPU_STEPS,
-               "vocab": RANK_CPU_VOCAB, "batch": RANK_CPU_BATCH, "tables": len(table_keys),
+             "table_handful": RANK_TABLE_HANDFUL, **RANK_LOOSER.get(name, {}), **(looser or {})}
+    summary = {"phase": label or f"{name.lower()}_card_vs_cpu", "model": name,
+               "steps": CPU_STEPS, "vocab": vocab, "batch": rows, "tables": len(table_keys),
+               "tasks": num_task, "bn_undone_leaves": sorted(undone),
+               "bn_undone_max_abs_diff": undone_diff,
                "card_losses": card_losses, "cpu_losses": cpu_losses,
                "loss_rel_diffs": loss_rel, "grad_rel_err": errs[worst],
                "grad_worst_leaf": worst, "grad_leaves": len(errs), "zero_grad_rel_size": zero,
@@ -3664,7 +3731,7 @@ def phase_rank_card_vs_cpu(name: str, seed: int, devices=("cuda", "cpu")) -> dic
             or stats_rel > RANK_STATS_RTOL
             or summary["dense_elements_beyond_atol"] > gates["dense_handful"]
             or summary["table_elements_beyond_atol"] > gates["table_handful"]
-            or max(dense.max().item(), tables.max().item()) > 2 * LR):
+            or max(dense.max().item(), tables.max().item(), undone_diff) > 2 * LR):
         raise RuntimeError(f"the card's {name} training differs from the CPU's: {summary}")
     return summary
 
@@ -3720,29 +3787,246 @@ def phase_ranking_zoo(tmp: str, devices=("cuda", "cpu")) -> dict:
     return zoo
 
 
-# ------------------------------------------------------ K2 and K3 at D = 1
-def phase_d1_tables(bandwidth: float) -> dict:
-    """K3 and K2 at the LR table's shape: [padded_rows(1,600,016), 1] =
-    [1,605,632, 1], the ids of one 8192-row batch of 16 fields (131,072),
-    against their plain versions (K3 bit-equal on rows hit once, within
-    the rounding bound elsewhere; K2 within its sum bound, run twice for the
-    same bits), each timed beside its plain version and library call."""
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 430)
+# ------------------------------------------------------ the session-graph family
+# at bench.py's sequence width (bench.py:36: 1,000,000 items, L = 50, D = 64,
+# batch 1024) with each JAX class's defaults
+# (rec_pangu_tpu/models/sequence/srgnn.py): one SR-GNN step; GCSAN's causal
+# encoder of SASRec's shape (2 blocks of 4 heads, inner 32, gelu, eps 1e-3,
+# dropout 0.1) and weight 0.1; NISER's item dropout 0.1 and learned
+# positions.  A training batch carries the trainer's host session graph, so
+# the fused step's ids are its nodes; serving and eval build the graph on
+# the card.  K1 a request, step and eval batch (of the nodes), K3 a fused
+# step, K2 a standard step; GCSAN also K4f a request, step and eval batch
+# and K4b a fused step.  SRGNN in full (the bench's leg), the others short.
+GRAPH_BASE = {"embedding_dim": SEQ_DIM, "max_length": SEQ_L, "item_col": "item_id"}
+GRAPH_ZOO = (("SRGNN", SEED + 600), ("GCSAN", SEED + 610), ("NISER", SEED + 620))
+GRAPH_KERNELS = {"SRGNN": (("embedding_lookup",), ("fused_adam",)),
+                 "GCSAN": (("embedding_lookup", "fused_encoder"),
+                           ("fused_adam", "fused_encoder_bwd")),
+                 "NISER": (("embedding_lookup",), ("fused_adam",))}
+GRAPH_EPOCHS, GRAPH_SHORT_BATCHES = 2, 4  # the short fits: 2 x 4, each batch seen again
+
+
+def phase_graph_zoo(tmp: str, devices=("cuda", "cpu")) -> dict:
+    """The session-graph family at bench.py's sequence width, model by
+    model (GRAPH_ZOO): checkpoint, retrieval serving (K1 of the nodes a
+    request; GCSAN's K4f too), eval on the bundled data card against CPU,
+    the fused fit (asserted, on the trainer's host graph), card against CPU
+    (three fused steps at a cut corpus).  SRGNN in full: SEQ_REQUESTS
+    requests, SEQ_CPU_CHECKS whole requests against the CPU, profiles,
+    GRAPH_EPOCHS x FIT_TRAIN_BATCHES and IOC_STD_STEPS standard steps; the
+    others CLASSIC_REQUESTS requests (their first IOC_CPU_USERS histories
+    against the CPU) and GRAPH_EPOCHS x GRAPH_SHORT_BATCHES.  Emits each
+    phase; returns the summaries by model."""
+    device = devices[0]
+    zoo = {}
+    for name, seed in GRAPH_ZOO:
+        full = name == "SRGNN"
+        label = name.lower()
+        per_batch, per_step = GRAPH_KERNELS[name]
+        t0 = time.perf_counter()
+        m_path = os.path.join(tmp, f"{label}.ckpt")
+        m_enc_dict = write_model_checkpoint(m_path, name, GRAPH_BASE, seed)
+        emit({"phase": f"{label}_checkpoint", "seconds": time.perf_counter() - t0,
+              "bytes": os.path.getsize(m_path)})
+        m_serving, m_model, m_profiled = phase_model_serving(
+            m_path, m_enc_dict, name, GRAPH_BASE, per_batch, seed + 2, device,
+            requests=SEQ_REQUESTS if full else CLASSIC_REQUESTS, label=label,
+            cpu_users=SEQ_BATCH if full else IOC_CPU_USERS)
+        emit(m_serving)
+        if full and device == "cuda":
+            emit(phase_seq_profile(m_model, m_profiled, f"{label}_profile"))
+        del m_model
+        torch.cuda.empty_cache()
+        emit(phase_seq_eval(device, name, GRAPH_BASE, per_batch, label))
+        m_ckpt = os.path.join(tmp, f"{label}_ckpt")
+        m_training, m_loader = phase_model_training(
+            m_path, m_enc_dict, m_ckpt, name, GRAPH_BASE, per_step, per_batch, seed + 3,
+            IOC_STD_STEPS if full else 0, GRAPH_EPOCHS, device, label,
+            FIT_TRAIN_BATCHES if full else GRAPH_SHORT_BATCHES)
+        emit(m_training)
+        zoo[name] = {"serving": m_serving, "training": m_training}
+        torch.cuda.empty_cache()
+        emit(phase_model_card_vs_cpu(name, GRAPH_BASE, devices, SEQ_LOSS_RTOL, label))
+        if full and device == "cuda":
+            m_batches = [b for _, b in zip(range(CLASSIC_PROFILED), m_loader)]
+            emit(phase_seq_train_profile(
+                m_path, m_enc_dict, m_batches, m_ckpt,
+                functools.partial(load_seq_model, name=name, config=GRAPH_BASE),
+                f"{label}_train_profile"))
+            del m_batches
+        del m_loader
+        shutil.rmtree(m_ckpt, ignore_errors=True)
+        os.remove(m_path)
+        torch.cuda.empty_cache()
+    return zoo
+
+
+# ------------------------------------------------------ the multi-task zoo
+# at the bench's width (bench.py:107-110: MMOE with num_task=2 and the class's
+# other defaults) with each JAX class's defaults
+# (rec_pangu_tpu/models/multi_task/*.py): D = 40 (AITM 32), two tasks, towers
+# (128, 64) with dropout 0.2 and no activation, 3 experts of 128 (MMOE,
+# OMOE, MLMMOE), ESSM's sparse-only towers, AITM's (400, 400, 400) towers
+# with dropout 0.1.  One xavier-initialized table each: K1 a request, step
+# and eval batch, K3 a fused step, K2 a standard step.  MMOE in full (the
+# bench's leg), the others as the ranking zoo's short legs.
+MTL_ZOO = (("MMOE", SEED + 500), ("ShareBottom", SEED + 510), ("ESSM", SEED + 520),
+           ("OMOE", SEED + 530), ("MLMMOE", SEED + 540), ("AITM", SEED + 550))
+MTL_NAMES = tuple(name for name, _ in MTL_ZOO)
+MTL_TASKS, MTL_DIM = 2, 40
+# MMOE's card against CPU at full width: the xavier table (std
+# sqrt(2 / (100,001 + 40)) = 0.0045) takes gradients of 1e-9 to 1e-7 a row
+# through the BatchNorms, of the size of Adam's eps (1e-8), where its first
+# step lr g / (|g| + eps) turns a rounding of g into a move of up to a few
+# 1e-5: past TABLE_ATOL on more elements than RANK_TABLE_HANDFUL allows
+# (first card run: 1,489 of 64,225,280, the largest 6.07e-5, while the
+# table's gradient agreed within 8.0e-6 of its largest entry), none near 2 lr
+MTL_FULL_LOOSER = {"table_handful": 4096}
+
+
+def phase_mtl_serving(path: str, enc_dict: dict, name: str, requests: int, seed: int,
+                      cpu_checks: int, device: str = "cuda"):
+    """``requests`` timed requests of 8192 rows of the multi-task model
+    ``name`` (after WARMUP) through RankTrainer(num_task=2).load_model and
+    its ``_predict`` (the multi-task serving path: neither package's
+    ranking scorer serves a multi-task model), K1 once a request; the first
+    ``cpu_checks`` held against the same model on the CPU within
+    SERVING_ATOL; evaluate_model (``test_task{i}_*``) on a labelled set
+    drawn from the model's own predictions."""
+    t0 = time.perf_counter()
+    dev = torch.device(device)
+    model = load_model(path, enc_dict, device, name)
+    trainer = RankTrainer(num_task=MTL_TASKS, device=device)
+    cpu_model = load_model(path, enc_dict, "cpu", name)
+    cpu_trainer = RankTrainer(num_task=MTL_TASKS, device="cpu")
+
+    def score(req):
+        return trainer._predict(model, req, dev)
+
+    setup_s = time.perf_counter() - t0
+    reqs = make_requests(WARMUP + requests, seed)
+    phase = f"{name.lower()}_serving"
+    # the main path: every count is 0 just before it and read just after
+    reset_launches()
+    preds, latencies = [], []
+    for i, req in enumerate(reqs):
+        t0 = time.perf_counter()
+        preds.append(score(req))
+        if i >= WARMUP:
+            latencies.append(time.perf_counter() - t0)
+    launches = read_launches()
+    require_launches(launches, {"embedding_lookup": len(reqs)}, phase)
+    max_err = 0.0
+    for req, pred in zip(reqs[:cpu_checks], preds[:cpu_checks]):
+        if (pred.shape != (BATCH, MTL_TASKS) or not np.all(np.isfinite(pred))
+                or pred.min() < 0 or pred.max() > 1):
+            raise RuntimeError(f"bad {name} predictions: shape {pred.shape}")
+        want = cpu_trainer._predict(cpu_model, req, torch.device("cpu"))
+        max_err = max(max_err, float(np.abs(pred - want).max()))
+    if max_err > SERVING_ATOL:
+        raise RuntimeError(f"card {name} predictions differ from the CPU's by {max_err} "
+                           f"> {SERVING_ATOL}")
+    del cpu_model
+    metrics = trainer.evaluate_model(model, labelled_loader(score, 4, seed + 3))
+    if not all(0.0 <= metrics[f"test_task{t}_roc_auc_score"] <= 1.0
+               and math.isfinite(metrics[f"test_task{t}_log_loss"])
+               for t in range(1, MTL_TASKS + 1)):
+        raise RuntimeError(f"bad {name} metrics {metrics}")
+    summary = {
+        "phase": phase, "model": name, "batch": BATCH, "fields": FIELDS, "vocab": VOCAB,
+        "dense": DENSE, "tasks": MTL_TASKS, "embedding_dim": model.embedding_dim,
+        "table_rows": padded_rows(model.spec.total_rows), "tables": num_tables(model),
+        "requests": requests, "warmup": WARMUP, "launches": launches,
+        "cpu_checked_requests": cpu_checks, "max_abs_err_vs_cpu": max_err,
+        "atol": SERVING_ATOL, "p50_ms": statistics.median(latencies) * 1e3,
+        "p90_ms": float(np.percentile(latencies, 90)) * 1e3,
+        "examples_per_s": requests * BATCH / sum(latencies), "eval": metrics,
+        "setup_s": setup_s,
+    }
+    return summary, model, score, reqs[WARMUP:WARMUP + PROFILED]
+
+
+def phase_mtl_zoo(tmp: str, devices=("cuda", "cpu")) -> dict:
+    """The multi-task zoo at the bench's width, model by model (MTL_ZOO):
+    checkpoint, serving, fit, card against CPU.  MMOE also its serving and
+    training profiles, the bench's REQUESTS, a fit of EPOCHS x
+    TRAIN_BATCHES with validation (each task's AUC), STD_STEPS standard
+    steps and three card-against-CPU fused steps at full width, dropout on;
+    the others RANK_REQUESTS, a fit of RANK_FIT_EPOCHS x RANK_FIT_BATCHES
+    and three steps at 16 x RANK_CPU_VOCAB ids.  Every fit asserts the fused
+    step (``phase_training``).  Emits each phase; returns the summaries by
+    model."""
+    device = devices[0]
+    zoo = {}
+    for name, seed in MTL_ZOO:
+        full = name == "MMOE"
+        label = name.lower()
+        t0 = time.perf_counter()
+        m_path = os.path.join(tmp, f"{label}.ckpt")
+        m_enc_dict = write_rank_checkpoint(m_path, name, seed)
+        emit({"phase": f"{label}_checkpoint", "seconds": time.perf_counter() - t0,
+              "bytes": os.path.getsize(m_path)})
+        serving, model, score, profiled = phase_mtl_serving(
+            m_path, m_enc_dict, name, REQUESTS if full else RANK_REQUESTS, seed + 2,
+            3 if full else RANK_CPU_CHECKS, device)
+        emit(serving)
+        if full and device == "cuda":
+            emit(phase_profile(model, profiled, f"{label}_profile", score))
+        m_ckpt = os.path.join(tmp, f"{label}_ckpt")
+        training, trainer, loader = phase_training(
+            m_path, m_enc_dict, score, m_ckpt, device, name,
+            EPOCHS if full else RANK_FIT_EPOCHS, TRAIN_BATCHES if full else RANK_FIT_BATCHES,
+            VALID_BATCHES if full else 0, STD_STEPS if full else 0, seed + 4,
+            f"{label}_training", MTL_TASKS)
+        emit(training)
+        del model, score
+        zoo[name] = {"serving": serving, "training": training}
+        if full:
+            zoo[name]["card_vs_cpu"] = phase_rank_card_vs_cpu(
+                name, seed + 6, devices, VOCAB, BATCH, f"{label}_card_vs_cpu", MTL_FULL_LOOSER)
+            emit(zoo[name]["card_vs_cpu"])
+            if device == "cuda":
+                batches = [b for _, b in zip(range(TRAIN_PROFILED), loader)]
+                emit(phase_train_profile(trainer, batches, f"{label}_train_profile"))
+                del batches
+        else:
+            zoo[name]["card_vs_cpu"] = phase_rank_card_vs_cpu(name, seed + 6, devices)
+            emit(zoo[name]["card_vs_cpu"])
+        del trainer, loader
+        shutil.rmtree(m_ckpt, ignore_errors=True)
+        os.remove(m_path)
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    return zoo
+
+
+# ------------------------------------------------------ K1, K2 and K3 at other widths
+def phase_width_tables(bandwidth: float, dim: int, seed: int, with_lookup: bool) -> dict:
+    """K3 and K2 (and K1 with ``with_lookup``) at the bench table's rows and
+    width ``dim``: [padded_rows(1,600,016), dim] = [1,605,632, dim] (the
+    LR tables' D = 1, the multi-task family's D = 40), the ids of one
+    8192-row batch of 16 fields (131,072), against their plain versions (K3
+    bit-equal on rows hit once, within the rounding bound elsewhere; K2
+    within its sum bound, run twice for the same bits; K1 bit-equal), each
+    timed beside its plain version and library call."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     num_rows = padded_rows(FIELDS * (VOCAB + 1))
     offsets = torch.arange(FIELDS, device="cuda", dtype=torch.int32) * (VOCAB + 1)
-    id_sets = [lookup.fused_ids(torch.randint(0, VOCAB + 1, (BATCH, FIELDS), generator=gen,
-                                              device="cuda", dtype=torch.int32), offsets)
-               for _ in range(ID_SETS)]
-    cot = torch.randn(BATCH * FIELDS, 1, generator=gen, device="cuda") * 1e-3
+    sparse_sets = [torch.randint(0, VOCAB + 1, (BATCH, FIELDS), generator=gen, device="cuda",
+                                 dtype=torch.int32) for _ in range(ID_SETS)]
+    id_sets = [lookup.fused_ids(x, offsets) for x in sparse_sets]
+    cot = torch.randn(BATCH * FIELDS, dim, generator=gen, device="cuda") * 1e-3
     ids, n = id_sets[0], id_sets[0].numel()
     long_sets = [x.long() for x in id_sets]
+    what = f"[{num_rows}, {dim}] table"
 
-    state = adam_state(num_rows, 1, gen)
+    state = adam_state(num_rows, dim, gen)
     adam_err = 0.0
     for t in (1, 2, 3):
         hyper = adam.adam_hyper(t, LR)
         adam_err = max(adam_err, check_adam_step(id_sets[t - 1], cot, state, hyper,
-                                                 f"LR table, step {t}"))
+                                                 f"{what}, step {t}"))
         adam.planned_adam_update(id_sets[t - 1], cot, *state, hyper)
     p, m, v = state
     hyper = adam.adam_hyper(4, LR)
@@ -3755,8 +4039,9 @@ def phase_d1_tables(bandwidth: float) -> dict:
         lib_p.grad.zero_().index_add_(0, x, cot)
         lib_opt.step()
 
-    adam_bytes = 6 * num_rows * 4 + n * 4 + n * 4  # p, m, v read and written; rows, ids read
-    k3 = {"name": "fused_adam", "shape": [num_rows, 1], "ids": n, "max_abs_err": adam_err,
+    # p, m, v read and written; rows and ids read
+    adam_bytes = 6 * num_rows * dim * 4 + n * dim * 4 + n * 4
+    k3 = {"name": "fused_adam", "shape": [num_rows, dim], "ids": n, "max_abs_err": adam_err,
           "ms": median_ms([lambda x=x: adam.planned_adam_update(x, cot, p, m, v, hyper)
                            for x in id_sets]),
           "plain_ms": median_ms([lambda x=x: adam.planned_adam_update_reference(
@@ -3766,21 +4051,40 @@ def phase_d1_tables(bandwidth: float) -> dict:
           "library": "index_add_ into a zeroed gradient, then torch.optim.Adam(fused=True)"}
 
     out = grad.table_grad(ids, cot, num_rows)
-    require_equal(grad.table_grad(ids, cot, num_rows), out, "LR table, run twice")
+    require_equal(grad.table_grad(ids, cot, num_rows), out, f"{what}, run twice")
     bound, _ = sum_tolerance(ids, cot, num_rows)
     grad_err = require_within(out, grad.table_grad_reference(ids, cot, num_rows), bound,
-                              f"LR table [{num_rows}, 1] x {n} ids")
-    lib = torch.zeros(num_rows, 1, device="cuda")
-    grad_bytes = num_rows * 4 + n * 4 + n * 4  # grad written; rows, ids read
-    k2 = {"name": "embedding_grad", "shape": [num_rows, 1], "ids": n, "max_abs_err": grad_err,
+                              f"{what} x {n} ids")
+    lib = torch.zeros(num_rows, dim, device="cuda")
+    grad_bytes = num_rows * dim * 4 + n * dim * 4 + n * 4  # grad written; rows, ids read
+    k2 = {"name": "embedding_grad", "shape": [num_rows, dim], "ids": n,
+          "max_abs_err": grad_err,
           "ms": median_ms([lambda x=x: grad.table_grad(x, cot, num_rows) for x in id_sets]),
           "plain_ms": median_ms([lambda x=x: grad.table_grad_reference(x, cot, num_rows)
                                  for x in id_sets]),
           "bound_ms": grad_bytes / bandwidth * 1e3, "bound_by": "bytes", "bytes": grad_bytes,
           "library_ms": median_ms([lambda x=x: lib.zero_().index_add_(0, x, cot)
                                    for x in long_sets]),
-          "library": "torch.zeros(V, 1).index_add_(0, ids, rows)"}
-    return {"phase": "kernel_d1", "fused_adam": k3, "embedding_grad": k2}
+          "library": f"torch.zeros(V, {dim}).index_add_(0, ids, rows)"}
+    row = {"phase": f"kernel_d{dim}", "fused_adam": k3, "embedding_grad": k2}
+    if with_lookup:
+        table = p  # the table the Adam steps left
+        got = lookup.fused_embedding_lookup(table, sparse_sets[0], offsets)
+        require_equal(got, lookup.fused_embedding_lookup_reference(table, sparse_sets[0],
+                                                                   offsets), f"{what} lookup")
+        moved = 2 * n * dim * 4 + n * 4 + FIELDS * 4  # rows read + written, ids, offsets
+        row["embedding_lookup"] = {
+            "name": "embedding_lookup", "shape": [num_rows, dim], "ids": n,
+            "max_abs_err": 0.0,
+            "ms": median_ms([lambda x=x: lookup.fused_embedding_lookup(table, x, offsets)
+                             for x in sparse_sets]),
+            "plain_ms": median_ms([lambda x=x: lookup.fused_embedding_lookup_reference(
+                table, x, offsets) for x in sparse_sets]),
+            "bound_ms": moved / bandwidth * 1e3, "bound_by": "bytes", "bytes": moved,
+            "library_ms": median_ms([lambda x=x: torch.nn.functional.embedding(x, table)
+                                     for x in long_sets]),
+            "library": "F.embedding over the fused ids"}
+    return row
 
 
 # ------------------------------------------------------ shapes past the kernels' limits
@@ -3927,8 +4231,10 @@ def main() -> int:
             *phase_global_attn(bandwidth, fp32), *phase_multimax_ce(bandwidth, fp32, tf32)]
     for row in rows:
         emit({"phase": "kernel", **row})
-    d1 = phase_d1_tables(bandwidth)
+    d1 = phase_width_tables(bandwidth, 1, SEED + 430, with_lookup=False)
     emit(d1)
+    d40 = phase_width_tables(bandwidth, MTL_DIM, SEED + 435, with_lookup=True)
+    emit(d40)
     torch.cuda.empty_cache()
 
     with tempfile.TemporaryDirectory(dir=ROOT, prefix=".chip_smoke_") as tmp:
@@ -3948,6 +4254,7 @@ def main() -> int:
         shutil.rmtree(os.path.join(tmp, "ckpt"))
         torch.cuda.empty_cache()
         zoo = phase_ranking_zoo(tmp)
+        mtl_zoo = phase_mtl_zoo(tmp)
 
         t0 = time.perf_counter()
         seq_path = os.path.join(tmp, "sasrec.ckpt")
@@ -4094,6 +4401,8 @@ def main() -> int:
             os.remove(m_path)
             torch.cuda.empty_cache()
 
+        graph_zoo = phase_graph_zoo(tmp)
+
     # shapes past the kernels' limits: the plain versions on the card
     emit(phase_past_limits())
 
@@ -4151,9 +4460,10 @@ def main() -> int:
             if line["name"] == "embedding_grad_sorted" and "device_aug" in legs:
                 line[f"launches_{label}_device_aug"] = (
                     legs["device_aug"]["launches"]["embedding_grad"])
-        # the ranking zoo's paths: K1 a table a request, step and eval batch, K3 a
-        # table a fused step, K2 a table a standard step (WDL's)
-        for name, legs in zoo.items():
+        # the ranking and multi-task zoos' paths: K1 a table a request, step and
+        # eval batch, K3 a table a fused step, K2 a table a standard step (WDL's,
+        # MMOE's)
+        for name, legs in list(zoo.items()) + list(mtl_zoo.items()):
             label = name.lower()
             if line["name"] == "embedding_lookup":
                 line[f"launches_{label}_serving"] = legs["serving"]["launches"][line["name"]]
@@ -4162,8 +4472,20 @@ def main() -> int:
             if line["name"] == "embedding_grad" and "standard_launches" in legs["training"]:
                 line[f"launches_{label}_standard"] = (
                     legs["training"]["standard_launches"]["embedding_grad"])
+        # the session-graph family's paths: K1 of the nodes a request, step and
+        # eval batch, K3 a fused step, K2 a standard step (SRGNN's); GCSAN's
+        # K4f a request, step and eval batch and K4b a fused step
+        for name, legs in graph_zoo.items():
+            label = name.lower()
+            for leg, counts in (("serving", legs["serving"]["launches"]),
+                                ("training", legs["training"]["launches"]),
+                                ("standard", legs["training"].get("standard_launches", {}))):
+                if counts.get(line["name"]):
+                    line[f"launches_{label}_{leg}"] = counts[line["name"]]
         if line["name"] in ("fused_adam", "embedding_grad"):  # at the LR table's shape, D = 1
             line["d1"] = {k: v for k, v in d1[line["name"]].items() if k != "name"}
+        if line["name"] in d40:  # at the multi-task family's width, D = 40
+            line["d40"] = {k: v for k, v in d40[line["name"]].items() if k != "name"}
     emit({"kernels": lines})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

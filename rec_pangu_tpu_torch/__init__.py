@@ -12,7 +12,10 @@ SASRec retrieval served and evaluated (sequence datasets, the fused
 transformer encoder, ``SequenceTrainer.evaluate_model``,
 ``make_retrieval_scorer``) and trained (the encoder's dropout forward and
 backward kernels, the streamed full-softmax loss, the sequence fused step,
-``SequenceTrainer.fit``).
+``SequenceTrainer.fit``); then IOCRec, ContraRec and CLRec, the classic
+sequence models, the ranking zoo, the multi-task zoo
+(``RankTrainer(num_task=2)``) and the session-graph family (SRGNN, GCSAN,
+NISER).
 Entry points run on the CUDA card unless the caller passes
 ``device="cpu"``.
 """

@@ -1,0 +1,48 @@
+"""MMOE: a shared expert bank, one softmax gate per task over the experts
+(``gate_i`` [H, E] and ``gate_bias_i`` [E], registered and trained, as in
+the JAX package), and a ``TaskTower`` per task over its mix."""
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import torch
+
+from ...convert import prefixed
+from ...ops.embedding import FusedEmbedding
+from ..base import register_model
+from .common import (ExpertBank, MultiTaskBase, TaskGates, mix, tower_leaves, towers,
+                     uniform_init)
+
+
+@register_model("MMOE")
+class MMOE(MultiTaskBase):
+    def __init__(self, enc_dict: dict, num_task: int = 2, n_expert: int = 3,
+                 embedding_dim: int = 40, mmoe_hidden_dim: int = 128,
+                 expert_activation: Optional[str] = None,
+                 hidden_dim: Sequence[int] = (128, 64), dropouts: Sequence[float] = (0.2, 0.2),
+                 seed: int = 1029):
+        super().__init__(enc_dict)
+        gen = torch.Generator().manual_seed(seed)
+        self.num_task = int(num_task)
+        self.embedding_dim = int(embedding_dim)
+        H = self.dnn_input_dim(self.embedding_dim)
+        self.embedding = FusedEmbedding(self.spec, self.embedding_dim, init_mode="xavier",
+                                        generator=gen)
+        # the JAX package's MMOE draws its experts uniform, OMOE's and MLMMOE's normal
+        self.experts = ExpertBank(H, mmoe_hidden_dim, n_expert, uniform_init, gen,
+                                  expert_activation)
+        self.gates = TaskGates(H, n_expert, self.num_task, gen)
+        self.towers = towers(mmoe_hidden_dim, self.num_task, hidden_dim, dropouts, gen)
+
+    def forward(self, batch, train: bool = False, capture=None, seed=None):
+        emb = self.embedding(batch["sparse"], capture)
+        hidden = torch.cat([emb.reshape(emb.shape[0], -1), batch["dense"]], dim=1)
+        experts_out = self.experts(hidden)                           # [B, M, E]
+        preds = [tower(mix(experts_out, self.gates(hidden, i)), train, seed)
+                 for i, tower in enumerate(self.towers)]
+        return self.outputs(preds, batch, train)
+
+    def jax_leaves(self):
+        return (prefixed("FusedEmbedding_0", self.embedding.jax_leaves())
+                + self.experts.jax_leaves() + self.gates.jax_leaves()
+                + tower_leaves(self.towers))

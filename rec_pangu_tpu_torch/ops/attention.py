@@ -1,7 +1,8 @@
 """Multi-head attention of the ranking family, the JAX package's
 ``ops/attention.py`` (AutoInt's self-attention), weights under its flax
 names: ``W_q``, ``W_k``, ``W_v`` and, when the heads' width differs from
-the input's, ``W_res``, each a Dense without bias.
+the input's, ``W_res``, each a Dense without bias (kaiming normal, or
+xavier normal with ``init="xavier"``: AITM's).
 
 Heads are split as ``[B, L, H, dh]``; the output is the attention over the
 values, projected residual added (``align_to="output"``: the residual is
@@ -50,7 +51,7 @@ class MultiHeadAttention(nn.Module):
                  dropout_rate: float = 0.0, use_residual: bool = True,
                  use_scale: bool = False, layer_norm: bool = False, align_to: str = "input",
                  final_relu: bool = True, block: int = 0,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, init: str = "kaiming"):
         super().__init__()
         gen = generator if generator is not None else torch.Generator().manual_seed(0)
         self.num_heads = int(num_heads)
@@ -61,13 +62,14 @@ class MultiHeadAttention(nn.Module):
         self.scale = self.dh ** 0.5 if use_scale else None
         self.align_to = align_to
         self.stream = ATTENTION_DROPOUT_LAYER + int(block)
-        self.W_q = _dense(input_dim, output_dim, gen, bias=False)
-        self.W_k = _dense(input_dim, output_dim, gen, bias=False)
-        self.W_v = _dense(input_dim, output_dim, gen, bias=False)
+        self.W_q = _dense(input_dim, output_dim, gen, bias=False, init=init)
+        self.W_k = _dense(input_dim, output_dim, gen, bias=False, init=init)
+        self.W_v = _dense(input_dim, output_dim, gen, bias=False, init=init)
         self.W_res = None
         if input_dim != output_dim:
-            self.W_res = (_dense(input_dim, output_dim, gen, bias=False) if align_to == "output"
-                          else _dense(output_dim, input_dim, gen, bias=False))
+            self.W_res = (_dense(input_dim, output_dim, gen, bias=False, init=init)
+                          if align_to == "output"
+                          else _dense(output_dim, input_dim, gen, bias=False, init=init))
         self.layer_norm = (nn.LayerNorm(output_dim if align_to == "output" else input_dim,
                                         eps=1e-5) if layer_norm else None)
 

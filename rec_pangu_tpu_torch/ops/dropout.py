@@ -8,11 +8,13 @@ element), on a stream (layer, site) of its own, so no two sites of a model
 drop the same elements and the masks do not depend on the device.
 
 Streams: the transformer's layers use (layer, 0-2); IOCRec's global
-attention (256, 0-1); the classic sequence models (257, 0-2) and (258, 0)
-(``sequence_enc``); the ranking family from ``MLP_DROPOUT_LAYER`` up: an
-``MLP`` with stream ``s`` draws layer i's mask on (512 + 16 s + i, 0), the
-attention of ``ops/attention.py`` on (``ATTENTION_DROPOUT_LAYER`` + its
-block, 0-1) and AFM's on (``AFM_DROPOUT``).
+attention (256, 0-1); the classic sequence models (257, 0-2) and (258, 0),
+NISER's item dropout (258, 1) (``sequence_enc``); the ranking and
+multi-task families from ``MLP_DROPOUT_LAYER`` up: an ``MLP`` (a multi-task
+``TaskTower`` too) with stream ``s`` draws layer i's mask on (512 + 16 s +
+i, 0), the attention of ``ops/attention.py`` on (``ATTENTION_DROPOUT_LAYER``
++ its block, 0-1), AFM's on (``AFM_DROPOUT``) and AITM's info dropout on
+(``AITM_INFO_DROPOUT``).
 """
 from __future__ import annotations
 
@@ -27,6 +29,7 @@ MLP_DROPOUT_LAYER = 512
 MLP_STREAM_LAYERS = 16      # hidden layers an MLP's streams leave room for
 ATTENTION_DROPOUT_LAYER = 1024
 AFM_DROPOUT = (1536, 0)
+AITM_INFO_DROPOUT = (1537, 0)
 
 
 def draw_seed(generator: torch.Generator = None) -> int:

@@ -10,6 +10,8 @@ explicit ``torch.Generator``.
 * Kernels kept in flax's layout ``[..., in, out]`` (the GRU's input
   kernels, the conv kernels): the same fan-in normal with flax's fan-in
   ``prod(shape[:-1])`` (:func:`flax_fan_in_normal_`).
+* The multi-task family's Linears: xavier normal, std
+  ``sqrt(2 / (in + out))``, and zero biases (:func:`xavier_normal_`).
 
 The same seed gives other numbers than the JAX package's ``jax.random``:
 parity tests carry weights across with :mod:`rec_pangu_tpu_torch.convert`.
@@ -44,3 +46,12 @@ def flax_fan_in_normal_(t: torch.Tensor, generator: torch.Generator) -> torch.Te
     if t.dim() < 2:
         raise ValueError("flax_fan_in_normal_ is for >=2-D kernels")
     return t.normal_(0.0, math.sqrt(2.0 / math.prod(t.shape[:-1])), generator=generator)
+
+
+@torch.no_grad()
+def xavier_normal_(t: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    """std = sqrt(2 / (fan_in + fan_out)) of a torch ``Linear.weight`` [out,
+    in] (flax's ``xavier_normal`` of the same kernel as [in, out])."""
+    if t.dim() != 2:
+        raise ValueError("xavier_normal_ is for 2-D Linear weights")
+    return t.normal_(0.0, math.sqrt(2.0 / (t.shape[0] + t.shape[1])), generator=generator)

@@ -11,6 +11,10 @@ averages (torch ``momentum=0.1``), ``epsilon=1e-5``, the batch variance
 E[x^2] - E[x]^2 clipped at 0, and the running variance updated with that
 **biased** batch variance (torch's own update uses the unbiased one).
 
+Weights: kaiming normal kernels and torch's uniform biases (the ranking
+family), or with ``init="xavier"`` xavier normal kernels and zero biases
+(the multi-task family, the JAX package's ``kernel_init=XAVIER``).
+
 Dropout draws the port's hash masks (``ops/dropout.py``) for the step's
 ``seed``, on stream ``mlp_stream(dropout_stream, i)`` for hidden layer i: the
 same elements on the card and the CPU.  Two MLPs of one model take other
@@ -25,7 +29,7 @@ from torch import nn
 
 from .activations import get_activation
 from .dropout import draw_seed, feature_dropout, mlp_stream
-from .initializers import kaiming_normal_, torch_linear_bias_
+from .initializers import kaiming_normal_, torch_linear_bias_, xavier_normal_
 
 BN_MOMENTUM = 0.1
 BN_EPS = 1e-5
@@ -61,8 +65,11 @@ class MLP(nn.Module):
                  output_activation: Optional[str] = None,
                  dropout_rates: Union[float, Sequence[float]] = 0.1,
                  batch_norm: bool = False, use_bias: bool = True,
-                 generator: Optional[torch.Generator] = None, dropout_stream: int = 0):
+                 generator: Optional[torch.Generator] = None, dropout_stream: int = 0,
+                 init: str = "kaiming"):
         super().__init__()
+        if init not in ("kaiming", "xavier"):
+            raise ValueError(f"init must be 'kaiming' or 'xavier', got {init!r}")
         self.dropout_stream = int(dropout_stream)
         n = len(hidden_units)
         acts = ([hidden_activations] * n if isinstance(hidden_activations, str)
@@ -79,9 +86,14 @@ class MLP(nn.Module):
         fan_in = input_dim
         for units in widths:
             layer = nn.Linear(fan_in, units, bias=use_bias)
-            kaiming_normal_(layer.weight, generator)
-            if use_bias:
-                torch_linear_bias_(layer.bias, fan_in, generator)
+            if init == "xavier":
+                xavier_normal_(layer.weight, generator)
+                if use_bias:
+                    nn.init.zeros_(layer.bias)
+            else:
+                kaiming_normal_(layer.weight, generator)
+                if use_bias:
+                    torch_linear_bias_(layer.bias, fan_in, generator)
             self.dense.append(layer)
             fan_in = units
         self.bn = nn.ModuleList(

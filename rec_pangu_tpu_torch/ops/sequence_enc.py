@@ -44,23 +44,26 @@ from torch import nn
 
 from .activations import get_activation
 from .dropout import draw_seed, feature_dropout  # noqa: F401 (the sequence models' import)
-from .initializers import flax_fan_in_normal_, kaiming_normal_
+from .initializers import flax_fan_in_normal_, kaiming_normal_, xavier_normal_
 from .kernels.fused_encoder import (ATTN_OUT_SITE, ATTN_SITE, FFN_OUT_SITE, additive_mask,
                                     attention_scores, check_rate, fused_encoder, layer_masks,
                                     routes_to_kernel)
 
 # dropout streams (``dropout_scale``'s layer and site) of the classic models'
-# sites, on layers above every transformer layer's and IOCRec's
+# and NISER's sites, on layers above every transformer layer's and IOCRec's
 # (``global_attn.DROPOUT_LAYER`` 256): no two sites draw the same masks
 NARM_EMB_DROPOUT, NARM_CT_DROPOUT = (257, 0), (257, 1)
 STAMP_DROPOUT, NEXTITNET_DROPOUT = (257, 2), (258, 0)
+NISER_ITEM_DROPOUT = (258, 1)
 
 
-def _dense(n_in: int, n_out: int, generator: torch.Generator, bias: bool = True) -> nn.Linear:
+def _dense(n_in: int, n_out: int, generator: torch.Generator, bias: bool = True,
+           init: str = "kaiming") -> nn.Linear:
     """flax ``Dense`` with the JAX package's init: fan-in normal kernel
-    (std sqrt(2/in)), zero bias."""
+    (std sqrt(2/in)), or with ``init="xavier"`` the multi-task family's
+    xavier normal; zero bias."""
     layer = nn.Linear(n_in, n_out, bias=bias)
-    kaiming_normal_(layer.weight, generator)
+    (xavier_normal_ if init == "xavier" else kaiming_normal_)(layer.weight, generator)
     if bias:
         nn.init.zeros_(layer.bias)
     return layer

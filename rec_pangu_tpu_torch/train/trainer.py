@@ -47,6 +47,7 @@ from ..data.loader import DataLoader
 from ..eval.metrics import RollingMetricBuffer, compute_ranking_metrics
 from ..eval.retrieval import evaluate_recall, get_recall_predict
 from ..models.sequence.augment import host_augment_sequences
+from ..ops.graph import attach_session_graph
 from ..utils.device import DeviceLike, resolve_device
 from .ckpt import load_checkpoint, save_checkpoint
 from .fused_update import maybe_enable_fused_update, maybe_enable_seq_fused_update
@@ -340,8 +341,8 @@ class SequenceTrainer(_BaseTrainer):
 
     def _step(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         """One train step on a host batch: the views of a ``host_aug`` model,
-        the joint lookup ids of a ``lookup_extra`` model, id check, upload,
-        the step."""
+        the joint lookup ids of a ``lookup_extra`` model, the host session
+        graph of a ``session_graph`` model, id check, upload, the step."""
         inputs = self.model.upload_batch(self._attach_host_keys(batch), self._fit_device,
                                          train=True)
         out = self._train_step(inputs, self.step)
@@ -357,7 +358,10 @@ class SequenceTrainer(_BaseTrainer):
           ``np.random.default_rng(10_301)``;
         * a model with ``lookup_extra`` (CLRec: the target item), when the
           batch holds every extra: ``lookup_all`` = [hist | extras]
-          [B, L + extras] int32.
+          [B, L + extras] int32;
+        * a ``session_graph`` model (the SRGNN family): the host session
+          graph's ``graph_nodes`` and ``graph_alias`` [B, L] int32
+          (``ops/graph.attach_session_graph``).
 
         Keys the batch already holds are kept."""
         model = self.model
@@ -373,6 +377,8 @@ class SequenceTrainer(_BaseTrainer):
             parts = [hist.reshape(hist.shape[0], -1)]
             parts += [np.asarray(batch[k]).reshape(hist.shape[0], -1) for k in extras]
             batch = {**batch, "lookup_all": np.concatenate(parts, axis=1).astype(np.int32)}
+        if getattr(model, "session_graph", False):
+            batch = attach_session_graph(batch)
         return batch
 
     def evaluate_model(self, model, test_loader: DataLoader, device: DeviceLike = None,

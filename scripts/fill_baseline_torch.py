@@ -1,18 +1,28 @@
-"""The ranking zoo's quality legs for the PyTorch port: the ``ratings3/``
-protocol of ``scripts/fill_baseline.py`` (MovieLens ratings.csv as CTR,
-click = rating >= 4, the fixed shuffled 80/10/10 split of
-``parity_common.load_ratings_ctr``, 5 epochs, batch 512, Adam 1e-3, test AUC
-of the final model over seeds 1029-1031), run by ``rec_pangu_tpu_torch`` on
-the CPU (the kernels' plain versions).  Each seed seeds the model's weights
-(its constructor), the train loader's shuffle and ``fit``'s dropout seeds.
+"""The ranking and multi-task zoos' quality legs for the PyTorch port, by
+the protocols of ``scripts/fill_baseline.py``, run by
+``rec_pangu_tpu_torch`` on the CPU (the kernels' plain versions):
 
-Writes ``baseline_results_torch.json`` at the repo root, one
-``ratings3/<model>`` key per model with the seeds' metrics, the AUC mean,
-min and max, and the JAX package's range for the same leg (read from
-``baseline_results.json``) with whether the two overlap.  Keys already in
+* ``ratings3/<model>``: MovieLens ratings.csv as CTR (click = rating >= 4,
+  the fixed shuffled 80/10/10 split of ``parity_common.load_ratings_ctr``),
+  5 epochs, batch 512, Adam 1e-3, test AUC of the final model over seeds
+  1029-1031;
+* ``mtl3/<model>`` (MMOE, ESSM, AITM): ratings.csv as two nested tasks
+  (``load_ratings_mtl``: like = rating >= 3, click = rating >= 4), the same
+  split, budget and seeds, validation each epoch, test AUC of each task;
+* ``ratings_mtl/<model>`` (ShareBottom, OMOE, MLMMOE): the same at seed
+  1029 alone.
+
+Each seed seeds the model's weights (its constructor), the train loader's
+shuffle and ``fit``'s dropout seeds.
+
+Writes ``baseline_results_torch.json`` at the repo root, one key per leg
+with the seeds' metrics, the AUC mean, min and max (each task's for the
+multi-task legs), and the JAX package's range for the same leg (read from
+``baseline_results.json``) with whether the two overlap (a one-seed leg:
+the port's AUC minus the JAX package's).  Keys already in
 the file are skipped, so an interrupted run resumes.
 
-    python scripts/fill_baseline_torch.py [--models WDL,AFN] [--threads 4]
+    python scripts/fill_baseline_torch.py [--models WDL,AFN] [--mtl MMOE,OMOE] [--threads 4]
 
 Imports nothing of the JAX package and no JAX.
 """
@@ -27,8 +37,10 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-from parity_common import (RANKING_MODELS, RANKING_MODELS_EXTRA, RATINGS_BATCH,  # noqa: E402
-                           RATINGS_EPOCHS, RATINGS_SCHEMA, load_ratings_ctr, repo_path)
+from parity_common import (MTL_RATINGS_MODELS, MTL_RATINGS_MODELS_EXTRA,  # noqa: E402
+                           RANKING_MODELS, RANKING_MODELS_EXTRA, RATINGS_BATCH,
+                           RATINGS_EPOCHS, RATINGS_MTL_SCHEMA, RATINGS_SCHEMA,
+                           load_ratings_ctr, load_ratings_mtl, repo_path)
 
 from rec_pangu_tpu_torch.data import DataLoader, get_dataloader  # noqa: E402
 from rec_pangu_tpu_torch.models import get_model  # noqa: E402
@@ -46,9 +58,53 @@ def jax_range(key: str):
     return None if leg is None else (leg["auc_min"], leg["auc_mean"], leg["auc_max"])
 
 
+def auc_range(aucs):
+    return {"auc_mean": round(sum(aucs) / len(aucs), 4), "auc_min": min(aucs),
+            "auc_max": max(aucs)}
+
+
+def jax_mtl_ranges(key: str):
+    """{task: (min, mean, max)} of the JAX package's multi-task leg ``key``
+    (its seeds' test AUCs, or its one run's), or None."""
+    with open(JAX_RESULTS) as f:
+        leg = json.load(f).get(key)
+    if leg is None:
+        return None
+    runs = list(leg["seeds"].values()) if "seeds" in leg else [leg["test"]]
+    out = {}
+    for t in (1, 2):
+        aucs = [r[f"test_task{t}_roc_auc_score"] for r in runs]
+        out[f"task{t}"] = (min(aucs), round(sum(aucs) / len(aucs), 4), max(aucs))
+    return out
+
+
+def run_mtl(name: str, seeds, loaders, threads: int) -> dict:
+    """One multi-task leg: ``fit`` RATINGS_EPOCHS with validation, then the
+    test metrics, for each seed."""
+    train_loader, valid_loader, test_loader, enc_dict = loaders
+    runs, t0 = [], time.time()
+    for seed in seeds:
+        loader = DataLoader(train_loader.dataset, batch_size=RATINGS_BATCH, shuffle=True,
+                            seed=seed)
+        model = get_model(name)(enc_dict=enc_dict, seed=seed)
+        with tempfile.TemporaryDirectory() as ckpt_dir:
+            trainer = RankTrainer(num_task=2, model_ckpt_dir=ckpt_dir, device="cpu")
+            trainer.fit(model, loader, valid_loader, epoch=RATINGS_EPOCHS, lr=1e-3, seed=seed,
+                        log_rounds=10 ** 9)
+            runs.append(trainer.evaluate_model(model, test_loader))
+    leg = {"seeds": dict(zip(map(str, seeds), runs))}
+    for t in (1, 2):
+        leg[f"task{t}"] = auc_range([r[f"test_task{t}_roc_auc_score"] for r in runs])
+    leg.update({"train_s": round(time.time() - t0, 1), "device": "cpu", "threads": threads})
+    return leg
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--models", default=",".join(RANKING_MODELS + RANKING_MODELS_EXTRA))
+    ap.add_argument("--mtl", default=",".join(MTL_RATINGS_MODELS + MTL_RATINGS_MODELS_EXTRA),
+                    help="multi-task models: mtl3/ legs for MMOE, ESSM, AITM, "
+                         "ratings_mtl/ (seed 1029) for the others")
     ap.add_argument("--threads", type=int, default=4)
     args = ap.parse_args()
     torch.set_num_threads(args.threads)
@@ -60,7 +116,7 @@ def main() -> int:
     train_df, valid_df, test_df = load_ratings_ctr()
     train_loader, valid_loader, test_loader, enc_dict = get_dataloader(
         train_df, valid_df, test_df, RATINGS_SCHEMA, batch_size=RATINGS_BATCH)
-    for name in args.models.split(","):
+    for name in [m for m in args.models.split(",") if m]:
         key = f"ratings3/{name}"
         if key in results:
             continue
@@ -83,6 +139,29 @@ def main() -> int:
         if jax_leg is not None:
             leg["jax_auc_min_mean_max"] = list(jax_leg)
             leg["overlaps_jax"] = leg["auc_min"] <= jax_leg[2] and jax_leg[0] <= leg["auc_max"]
+        results[key] = leg
+        with open(OUT, "w") as f:
+            json.dump(results, f, indent=2)
+        print(key, json.dumps(leg), flush=True)
+
+    mtl = [m for m in args.mtl.split(",") if m]
+    loaders = get_dataloader(*load_ratings_mtl(), RATINGS_MTL_SCHEMA,
+                             batch_size=RATINGS_BATCH) if mtl else None
+    for name in mtl:
+        three = name in MTL_RATINGS_MODELS
+        key = f"{'mtl3' if three else 'ratings_mtl'}/{name}"
+        if key in results:
+            continue
+        leg = run_mtl(name, SEEDS3 if three else SEEDS3[:1], loaders, args.threads)
+        jax_legs = jax_mtl_ranges(key)
+        if jax_legs is not None:
+            for task, (lo, mean, hi) in jax_legs.items():
+                leg[task]["jax_auc_min_mean_max"] = [lo, mean, hi]
+                if three:  # two ranges of three seeds
+                    leg[task]["overlaps_jax"] = (leg[task]["auc_min"] <= hi
+                                                 and lo <= leg[task]["auc_max"])
+                else:  # one draw on each side: their difference
+                    leg[task]["minus_jax"] = round(leg[task]["auc_mean"] - mean, 4)
         results[key] = leg
         with open(OUT, "w") as f:
             json.dump(results, f, indent=2)
