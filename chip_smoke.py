@@ -36,7 +36,10 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 3b. kernel_d1, kernel_d40 -- K3 and K2 at the LR table's shape ([1,605,632,
                1], the 131,072 ids of a batch), and K1, K2 and K3 at the
                multi-task family's width ([1,605,632, 40]), against their
-               plain versions, timed.
+               plain versions, timed; K3 also alone on presorted ids and,
+               at D = 1, WDL's two tables on one sort against one sort a
+               table (``wdl_shared_sort``).  Every K3 row has its tile
+               plan, its time alone and its share of the bound.
 4. serving  -- DeepFM at the bench's full width (16 sparse fields x 100,000
                vocab, 9 dense, D=32, MLP (64, 64, 64)) from a checkpoint in
                the JAX package's layout, random weights from a seed: requests
@@ -194,6 +197,7 @@ DENSE_ATOL = 1e-5          # card against CPU: dense parameters after one step
 TABLE_ATOL = 1e-6          # ... the table, on all but HANDFUL elements
 HANDFUL = 64
 EDGE_ROWS = 3001           # edge tables: not a multiple of any tile
+ADAM_EDGE_DIMS = (1, 3, 8, 40, 64, 128)  # K3's edge widths (1, 3, 40: float4s across rows)
 
 # SASRec retrieval at bench.py's sequence shape with SASRec's own defaults
 SEQ_VOCAB, SEQ_L, SEQ_DIM, SEQ_BATCH, SEQ_TOPK = 1_000_000, 50, 64, 1024, 200
@@ -240,6 +244,10 @@ def peak_fp32(name: str) -> float:
 
 def peak_tf32(name: str) -> float:
     return _lookup_rate(_TF32_PEAK, name, "TF32 tensor-core rate")
+
+
+def sms() -> int:
+    return torch.cuda.get_device_properties(0).multi_processor_count
 
 
 def median_ms(fns, launches: int = 100, reps: int = TIMING_REPS) -> float:
@@ -645,9 +653,12 @@ def phase_fused_adam_seq(bandwidth: float) -> dict:
                 x, cot, state, hyper, f"sequence shape, dense, {key}, {kind}", dense))
         elem = 4 + 4 + 2 * 2 * m.element_size()  # p read and written, m and v too
         moved = num_rows * SEQ_DIM * (elem + 4) + n * SEQ_DIM * 4 + n * 4  # + dense, rows, ids
+        sorted_sets = [adam.sort_for(x, num_rows) for x in hist]
         out[key] = {
             "ms": median_ms([lambda x=x: adam.planned_adam_update(x, cot, p, m, v, hyper, dense)
                              for x in hist]),
+            "kernel_only_ms": median_ms([lambda s=s: adam.launch(s, cot, p, m, v, hyper, dense)
+                                         for s in sorted_sets]),
             "sort_ms": median_ms([lambda x=x: grad.sort_ids(x, num_rows) for x in hist]),
             "plain_ms": median_ms([lambda x=x: adam.planned_adam_update_reference(
                 x, cot, p, m, v, hyper, dense) for x in hist]),
@@ -655,7 +666,8 @@ def phase_fused_adam_seq(bandwidth: float) -> dict:
             "skewed_ms": {kind: median_ms([lambda x=x: adam.planned_adam_update(
                 x, cot, p, m, v, hyper, dense)], SKEW_LAUNCHES) for kind, x in skewed.items()},
         }
-        del p, m, v, state
+        out[key]["bound_share"] = out[key]["bound_ms"] / out[key]["ms"]
+        del p, m, v, state, sorted_sets
     return {"table_rows": num_rows, "ids": n, "dim": SEQ_DIM, "max_abs_err": max_abs_err, **out}
 
 
@@ -672,7 +684,7 @@ def phase_fused_adam(bandwidth: float) -> dict:
             id_sets[t - 1], cot, state, hyper, f"bench shape, step {t}"))
         adam.planned_adam_update(id_sets[t - 1], cot, *state, hyper)
     edges = []
-    for dim in (1, 8, 64, 128):
+    for dim in ADAM_EDGE_DIMS:
         e_state = adam_state(EDGE_ROWS, dim, gen)
         rows = torch.randn(5000, dim, generator=gen, device="cuda") * 1e-3
         for kind in EDGE_KINDS:
@@ -680,6 +692,28 @@ def phase_fused_adam(bandwidth: float) -> dict:
             check_adam_step(e_ids, rows[:e_ids.numel()], e_state, adam.adam_hyper(2, LR),
                             f"edge D={dim} {kind}")
             edges.append(f"D={dim},{kind}")
+    # a table, moments and dense gradient 4 bytes past a 16-byte boundary:
+    # the kernel's float-at-a-time path, the same bits as the float4 one
+    e_ids = edge_ids("random_out_of_range", 5000, EDGE_ROWS, gen)
+    rows = torch.randn(5000, 8, generator=gen, device="cuda") * 1e-3
+    dense = torch.randn(EDGE_ROWS, 8, generator=gen, device="cuda") * 1e-3
+    e_state = adam_state(EDGE_ROWS, 8, gen)
+    shifted = [torch.empty(EDGE_ROWS * 8 + 1, device="cuda")[1:].view(EDGE_ROWS, 8)
+               for _ in range(4)]
+    for dst, t in zip(shifted, (*e_state, dense)):
+        dst.copy_(t)
+    check_adam_step(e_ids, rows, e_state, adam.adam_hyper(2, LR), "edge D=8 dense", dense)
+    aligned = [t.clone() for t in e_state]
+    adam.planned_adam_update(e_ids, rows, *aligned, adam.adam_hyper(2, LR), dense)
+    adam.planned_adam_update(e_ids, rows, *shifted[:3], adam.adam_hyper(2, LR), shifted[3])
+    for a, b in zip(aligned, shifted):
+        require_equal(b, a, "edge D=8 unaligned against aligned")
+    edges.append("D=8,unaligned")
+    for dim in (2049, 4096):  # a row a tile: single floats, then float4s
+        w_ids = torch.randint(-2, 39, (300,), generator=gen, device="cuda", dtype=torch.int32)
+        check_adam_step(w_ids, torch.randn(300, dim, generator=gen, device="cuda") * 1e-3,
+                        adam_state(37, dim, gen), adam.adam_hyper(2, LR), f"wide D={dim}")
+        edges.append(f"D={dim},wide")
 
     ids = id_sets[0]
     n = ids.numel()
@@ -692,7 +726,7 @@ def phase_fused_adam(bandwidth: float) -> dict:
         skewed[kind] = {"ms": median_ms(
             [lambda: adam.planned_adam_update(x, cot, p, m, v, hyper)], SKEW_LAUNCHES)}
     moved = 6 * num_rows * DIM * 4 + n * DIM * 4 + n * 4  # p, m, v read and written; rows, ids read
-    sorted_sets = [grad.sort_ids(x, num_rows) for x in id_sets]
+    sorted_sets = [adam.sort_for(x, num_rows) for x in id_sets]
     long_sets = [x.long() for x in id_sets]
     lib_p = torch.nn.Parameter(p.clone())
     lib_p.grad = torch.zeros_like(p)
@@ -704,7 +738,7 @@ def phase_fused_adam(bandwidth: float) -> dict:
         lib_opt.step()
 
     seq = phase_fused_adam_seq(bandwidth)
-    return {
+    row = {
         "name": "fused_adam", "route": "cuda",
         "source": "rec_pangu_tpu_torch/csrc/fused_adam.cu",
         "replaces": "rec_pangu_tpu/ops/kernels/fused_adam.py:54",
@@ -713,7 +747,7 @@ def phase_fused_adam(bandwidth: float) -> dict:
                      "bound, p within 2*lr",
         "ms": median_ms([lambda x=x: adam.planned_adam_update(x, cot, p, m, v, hyper)
                          for x in id_sets]),
-        "kernel_only_ms": median_ms([lambda s=s: adam.launch(*s, cot, p, m, v, hyper)
+        "kernel_only_ms": median_ms([lambda s=s: adam.launch(s, cot, p, m, v, hyper)
                                      for s in sorted_sets]),
         "sort_ms": median_ms([lambda x=x: grad.sort_ids(x, num_rows) for x in id_sets]),
         "plain_ms": median_ms([lambda x=x: adam.planned_adam_update_reference(
@@ -723,8 +757,10 @@ def phase_fused_adam(bandwidth: float) -> dict:
         "library": "index_add_ into a zeroed gradient, then torch.optim.Adam(fused=True).step",
         "call_ms": call_ms(lambda: adam.planned_adam_update(ids, cot, p, m, v, hyper)),
         "bytes": moved, "edge_cases": edges, "skewed": skewed,
-        "sequence_shape": seq,
+        "sequence_shape": seq, "tile_plan": adam.tile_plan(num_rows, DIM, sms())._asdict(),
     }
+    row["bound_share"] = row["bound_ms"] / row["ms"]
+    return row
 
 
 @functools.lru_cache(maxsize=2)
@@ -806,6 +842,12 @@ def num_tables(model) -> int:
     """The model's fused tables: K1 runs once a table a request, K3 (K2 on
     the standard step) once a table a step."""
     return len(fused_tables(model))
+
+
+def num_heights(model) -> int:
+    """The fused tables' distinct heights: the fused step sorts its ids
+    once for each."""
+    return len({m.table.shape[0] for _, m in fused_tables(model)})
 
 
 def make_requests(count: int, seed: int):
@@ -987,7 +1029,8 @@ def read_launches() -> dict:
 def require_launches(got: dict, want: dict, what: str) -> None:
     """Every count as ``want`` gives it, 0 where it gives none; the radix
     sort, unless named, once for each table gradient and fused Adam launch
-    (both sort their ids first)."""
+    (both sort their ids first; a fused step of several tables names its
+    sorts: one for each table height)."""
     want = {"radix_sort": want.get("embedding_grad", 0) + want.get("fused_adam", 0), **want}
     if any(got[k] != want.get(k, 0) for k in got):
         raise RuntimeError(f"{what}: kernel launches {got}, expected {want} (0 elsewhere)")
@@ -1061,7 +1104,8 @@ def phase_training(path: str, enc_dict: dict, score, ckpt_dir: str, device: str 
     launches = read_launches()
     steps = epochs * train_batches
     require_launches(launches, {"embedding_lookup": (steps + epochs * valid_batches) * tables,
-                                "fused_adam": steps * tables}, f"{name} fused fit")
+                                "fused_adam": steps * tables,
+                                "radix_sort": steps * num_heights(model)}, f"{name} fused fit")
     if not trainer._train_step.fused:
         raise RuntimeError(f"{name}'s fit did not take the fused step")
     first, last = float(np.mean(losses[:3])), float(np.mean(losses[-3:]))
@@ -3205,23 +3249,33 @@ def require_card_like_cpu(leg: dict, later_rtol: float, kink_rel_tol: float,
 
 @contextlib.contextmanager
 def recording_table_grad(out: list):
-    """Within it, the sequence fused step appends each step's table
-    gradient (the captured rows summed at their ids plus the CE's dense
-    stream), on the CPU, to ``out`` before its table update."""
+    """Within it, the fused steps append each step's table gradients (the
+    captured rows summed at their ids plus the CE's dense stream), on the
+    CPU, to ``out`` before each table update: ``SeqFusedStep``'s through
+    ``planned_adam_update``, ``FusedStep``'s through ``update_sorted``."""
     from rec_pangu_tpu_torch.train import fused_update
 
-    update = fused_update.planned_adam_update
+    update, update_sorted = fused_update.planned_adam_update, fused_update.update_sorted
 
-    def record(ids, rows, table, mu, nu, hyper, dense=None):
+    def record(ids, rows, table, dense):
         grad = torch.zeros_like(table) if dense is None else dense.clone()
         out.append(grad.index_add_(0, ids.long(), rows).cpu())
+
+    def recorded(ids, rows, table, mu, nu, hyper, dense=None):
+        record(ids, rows, table, dense)
         return update(ids, rows, table, mu, nu, hyper, dense)
 
-    fused_update.planned_adam_update = record
+    def recorded_sorted(plan, rows, table, mu, nu, hyper, dense=None):
+        record(plan.ids, rows, table, dense)
+        return update_sorted(plan, rows, table, mu, nu, hyper, dense)
+
+    fused_update.planned_adam_update = recorded
+    fused_update.update_sorted = recorded_sorted
     try:
         yield
     finally:
         fused_update.planned_adam_update = update
+        fused_update.update_sorted = update_sorted
 
 
 def grad_comparison(card: dict, cpu: dict, on_kink_path) -> dict:
@@ -3682,6 +3736,9 @@ def phase_rank_card_vs_cpu(name: str, seed: int, devices=("cuda", "cpu"),
                 out = step(model.upload_batch(batch, torch.device(dev), train=True), i)
                 losses.append(float(out["loss"].detach()))
                 if i == 0:  # the step leaves each dense leaf's gradient in .grad
+                    if len(table_grads) != len(table_keys):
+                        raise RuntimeError(f"{name}: {len(table_grads)} table gradients "
+                                           f"recorded for {len(table_keys)} tables")
                     grads = {k: p.grad.detach().cpu().clone()
                              for k, p in model.named_parameters() if p.grad is not None}
                     grads.update(zip(table_keys, table_grads))
@@ -4002,6 +4059,37 @@ def phase_mtl_zoo(tmp: str, devices=("cuda", "cpu")) -> dict:
 
 
 # ------------------------------------------------------ K1, K2 and K3 at other widths
+def wdl_shared_sort(id_sets, lr_rows, lr_state, hyper, gen) -> dict:
+    """WDL's fused step updates its LR table ``lr_state`` ([V, 1]) and its
+    [V, DIM] embedding on one sort of the ids (``sort_for``, then
+    ``update_sorted`` a table): the same bits as one ``planned_adam_update``
+    a table, and its time beside theirs."""
+    num_rows = lr_state[0].shape[0]
+    emb_rows = torch.randn(lr_rows.shape[0], DIM, generator=gen, device="cuda") * 1e-3
+    emb_state = adam_state(num_rows, DIM, gen)
+    states = [(lr_rows, lr_state), (emb_rows, emb_state)]
+
+    def shared(ids, tables):
+        plan = adam.sort_for(ids, num_rows)
+        for rows, state in tables:
+            adam.update_sorted(plan, rows, *state, hyper)
+
+    def separate(ids, tables):
+        for rows, state in tables:
+            adam.planned_adam_update(ids, rows, *state, hyper)
+
+    copies = [[(rows, [t.clone() for t in state]) for rows, state in states] for _ in range(2)]
+    shared(id_sets[0], copies[0])
+    separate(id_sets[0], copies[1])
+    for (_, a), (_, b) in zip(*copies):
+        for x, y in zip(a, b):
+            require_equal(x, y, "WDL's tables on one sort against one sort a table")
+    del copies
+    return {"wdl_shared_sort_ms": median_ms([lambda x=x: shared(x, states) for x in id_sets]),
+            "wdl_sort_a_table_ms": median_ms([lambda x=x: separate(x, states)
+                                              for x in id_sets])}
+
+
 def phase_width_tables(bandwidth: float, dim: int, seed: int, with_lookup: bool) -> dict:
     """K3 and K2 (and K1 with ``with_lookup``) at the bench table's rows and
     width ``dim``: [padded_rows(1,600,016), dim] = [1,605,632, dim] (the
@@ -4041,14 +4129,22 @@ def phase_width_tables(bandwidth: float, dim: int, seed: int, with_lookup: bool)
 
     # p, m, v read and written; rows and ids read
     adam_bytes = 6 * num_rows * dim * 4 + n * dim * 4 + n * 4
+    sorted_sets = [adam.sort_for(x, num_rows) for x in id_sets]
     k3 = {"name": "fused_adam", "shape": [num_rows, dim], "ids": n, "max_abs_err": adam_err,
           "ms": median_ms([lambda x=x: adam.planned_adam_update(x, cot, p, m, v, hyper)
                            for x in id_sets]),
+          "kernel_only_ms": median_ms([lambda s=s: adam.launch(s, cot, p, m, v, hyper)
+                                       for s in sorted_sets]),
+          "sort_ms": median_ms([lambda x=x: grad.sort_ids(x, num_rows) for x in id_sets]),
           "plain_ms": median_ms([lambda x=x: adam.planned_adam_update_reference(
               x, cot, p, m, v, hyper) for x in id_sets]),
           "bound_ms": adam_bytes / bandwidth * 1e3, "bound_by": "bytes", "bytes": adam_bytes,
           "library_ms": median_ms([lambda x=x: library(x) for x in long_sets]),
-          "library": "index_add_ into a zeroed gradient, then torch.optim.Adam(fused=True)"}
+          "library": "index_add_ into a zeroed gradient, then torch.optim.Adam(fused=True)",
+          "tile_plan": adam.tile_plan(num_rows, dim, sms())._asdict()}
+    k3["bound_share"] = k3["bound_ms"] / k3["ms"]
+    if dim == 1:
+        k3.update(wdl_shared_sort(id_sets, cot, state, hyper, gen))
 
     out = grad.table_grad(ids, cot, num_rows)
     require_equal(grad.table_grad(ids, cot, num_rows), out, f"{what}, run twice")
@@ -4469,6 +4565,9 @@ def main() -> int:
                 line[f"launches_{label}_serving"] = legs["serving"]["launches"][line["name"]]
             if line["name"] in ("embedding_lookup", "fused_adam"):
                 line[f"launches_{label}_training"] = legs["training"]["launches"][line["name"]]
+            if line["name"] == "fused_adam":  # one sort a step for each table height
+                line[f"sort_launches_{label}_training"] = (
+                    legs["training"]["launches"]["radix_sort"])
             if line["name"] == "embedding_grad" and "standard_launches" in legs["training"]:
                 line[f"launches_{label}_standard"] = (
                     legs["training"]["standard_launches"]["embedding_grad"])

@@ -20,21 +20,26 @@
 //    the run's first sorted position, and mark the positions where runs
 //    start (one 32-bit word per 32 sorted entries);
 // 2. a small launch finds where each tile's entries start in the sorted ids;
-// 3. a block owns a tile of table rows: it copies its runs' sums into a
-//    shared-memory gradient tile (reading one start word per 32 entries, so
-//    a tile with one huge run costs little), then streams its slice of p, m
-//    and v once and updates them in place.  No block reads another block's
-//    rows, so in place is safe; the JAX kernel's fresh output buffers were a
-//    Mosaic write-back workaround, not part of the value.
+// 3. a block owns a tile of table rows (tile_plan in ops/kernels/fused_adam.py:
+//    at most 2048 floats, whole 128-byte lines, and enough tiles to give
+//    every SM several blocks at every width).  Its threads list the tile's run starts
+//    from the start words (so a tile with one huge run costs a word per 32
+//    entries), then copy each run's sum, one thread a (run, column) pair,
+//    into a zeroed shared-memory gradient tile.  Then the block streams its
+//    slice of p, m and v once, as 16-byte vectors over the slice's flat
+//    extent whatever the row width, and updates them in place.  No block
+//    reads another block's rows, so in place is safe; the JAX kernel's fresh
+//    output buffers were a Mosaic write-back workaround, not part of the
+//    value.
 //
 // Bound: bytes.  p, m and v are each read and written once (6 x 205.5 MB at
 // the bench shape), the cotangent rows and the ids read once: 1.250 GB,
 // 0.373 ms at 3.35 TB/s.  The compact buffer adds up to twice the rows' bytes
-// (written, then read).  The tile stream is float4 and coalesced.  Every
-// operation is rounded on its own (__fmul_rn and friends: no fused
-// multiply-add), in the order above, so a row whose gradient sums the same
-// terms in the same order gets the same bits as the plain PyTorch version.
-// No atomics: the result is the same bits on every run.
+// (written, then read).  Every operation is rounded on its own (__fmul_rn
+// and friends: no fused multiply-add), in the order above, so a row whose
+// gradient sums the same terms in the same order gets the same bits as the
+// plain PyTorch version; how the sums reach the tile changes no bit.  No
+// float atomics: the result is the same bits on every run.
 //
 // Two options, each a template flag, so the kernel without them is the one
 // above: a dense gradient [num_rows, dim] f32 added to each tile's run sums
@@ -42,10 +47,10 @@
 // the streaming softmax-CE's item gradient, fused_adam.py:153-155), and m
 // and v stored as bfloat16 (REC_PANGU_TPU_MOMENT_DTYPE=bf16): loaded exactly
 // into f32, all arithmetic f32, stored rounded to nearest even, as
-// jnp.astype does (fused_adam.py:162-168).  At the sequence bench shape
-// (1,007,616 x 64, 51,200 history rows) the dense stream makes the bound
-// 1,818,959,872 B (0.543 ms) with f32 moments and 1,303,060,480 B (0.389 ms)
-// with bf16 ones.
+// jnp.astype does (fused_adam.py:162-168), four values (8 bytes) an access.
+// At the sequence bench shape (1,007,616 x 64, 51,200 history rows) the
+// dense stream makes the bound 1,818,959,872 B (0.543 ms) with f32 moments
+// and 1,303,060,480 B (0.389 ms) with bf16 ones.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -94,48 +99,6 @@ __global__ void tile_starts_kernel(const int32_t* __restrict__ sorted_ids, int64
   for (int64_t t = prev + 1; t <= last; ++t) starts[t] = (int32_t)i;
 }
 
-// Copies the run sums that start at the set bits of `bits` (sorted positions
-// chunk + b) into acc, 8 rows in flight (few registers: the block's Adam
-// stream that follows wants many warps).  Every lane of the warp calls it
-// with the same arguments.
-template <int kCols>
-__device__ __forceinline__ void copy_runs(unsigned bits, int64_t chunk,
-                                          const int32_t* __restrict__ sorted_ids,
-                                          const float* __restrict__ sums, int dim,
-                                          int64_t base, float* acc) {
-  const int lane = threadIdx.x & 31;
-  const bool mine = (bits >> lane) & 1u;
-  const int rank = __popc(bits & ((1u << lane) - 1u));
-  const int count = __popc(bits);
-  constexpr int kGroup = 8;
-  for (int c0 = 0; c0 < dim; c0 += 32 * kCols) {
-    for (int r0 = 0; r0 < count; r0 += kGroup) {
-      float buf[kGroup][kCols];
-      int row[kGroup];  // in the tile, -1 for none
-#pragma unroll
-      for (int g = 0; g < kGroup; ++g) {
-        const unsigned sel = __ballot_sync(rp::kFull, mine && rank == r0 + g);
-        const int64_t j = chunk + (sel ? __ffs(sel) - 1 : 0);
-        row[g] = sel ? (int)(__ldg(sorted_ids + j) - base) : -1;
-#pragma unroll
-        for (int k = 0; k < kCols; ++k) {
-          const int c = c0 + lane + 32 * k;
-          buf[g][k] = sel && c < dim ? __ldg(sums + j * dim + c) : 0.0f;
-        }
-      }
-#pragma unroll
-      for (int g = 0; g < kGroup; ++g) {
-        if (row[g] < 0) continue;  // the same for every lane
-#pragma unroll
-        for (int k = 0; k < kCols; ++k) {
-          const int c = c0 + lane + 32 * k;
-          if (c < dim) acc[row[g] * dim + c] = buf[g][k];  // < 48 KB: no overflow
-        }
-      }
-    }
-  }
-}
-
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ float from_f32(float x, float*) { return x; }
@@ -143,80 +106,115 @@ __device__ __forceinline__ __nv_bfloat16 from_f32(float x, __nv_bfloat16*) {
   return __float2bfloat16_rn(x);
 }
 
-// kW moment values of type MT, loaded and stored as one access
-template <typename MT, int kW>
-struct alignas(sizeof(MT) * kW) Pack {
-  MT v[kW];
+// Adam on one element whose moments are stored as MT.
+template <typename MT>
+__device__ __forceinline__ void adam_stored(float g, float& p, MT& m, MT& v, const Hyper& h) {
+  float mf = to_f32(m), vf = to_f32(v);
+  adam(g, p, mf, vf, h);
+  m = from_f32(mf, (MT*)nullptr);
+  v = from_f32(vf, (MT*)nullptr);
+}
+
+// kW values of type T, loaded and stored as one access
+template <typename T, int kW>
+struct alignas(sizeof(T) * kW) Pack {
+  T v[kW];
 };
 
-template <typename V, int kCols, typename MT = float, bool kDense = false>
-__global__ void __launch_bounds__(256)
-    fused_adam_kernel(const int32_t* __restrict__ sorted_ids, const float* __restrict__ sums,
-                      const uint32_t* __restrict__ run_starts,
-                      const int32_t* __restrict__ tile_starts, float* __restrict__ p,
-                      MT* __restrict__ m, MT* __restrict__ v, int64_t num_rows, int dim,
-                      int tile_rows, Hyper h, const float* __restrict__ dense) {
-  extern __shared__ float4 smem[];
-  float* acc = reinterpret_cast<float*>(smem);
-  const int64_t base = (int64_t)blockIdx.x * tile_rows;
-  const int64_t tile = num_rows - base < tile_rows ? num_rows - base : tile_rows;
-  for (int64_t i = threadIdx.x; i < tile * dim; i += blockDim.x) acc[i] = 0.0f;
-  __syncthreads();
+constexpr int kThreads = 256;  // a tile block's threads
 
-  // the tile's entries are [lo, hi); warp w reads the start words of chunks
-  // first + 32w + lane, ... (the loop bound is the same for every lane)
-  const int lane = threadIdx.x & 31;
+// Block b owns table rows [b * tile_rows, ...): its gradient tile in shared
+// memory (tile_rows * dim floats), then the list of its run starts
+// (tile_rows sorted positions: an in-range id starts one run at most).  The
+// tile's slices of p, m, v (and dense) are streamed as groups of kW floats
+// over their flat extent, the last tile's ragged end one float at a time.
+template <typename MT, bool kDense, int kW>
+__global__ void __launch_bounds__(kThreads)
+    adam_tile_kernel(const int32_t* __restrict__ sorted_ids, const float* __restrict__ sums,
+                     const uint32_t* __restrict__ run_starts,
+                     const int32_t* __restrict__ tile_starts, float* __restrict__ p,
+                     MT* __restrict__ m, MT* __restrict__ v, const float* __restrict__ dense,
+                     int64_t num_rows, int dim, int tile_rows, Hyper h) {
+  extern __shared__ float4 smem[];
+  __shared__ int listed;
+  float* acc = reinterpret_cast<float*>(smem);
+  int32_t* runs = reinterpret_cast<int32_t*>(acc + tile_rows * dim);
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int64_t base = (int64_t)blockIdx.x * tile_rows;
+  const int rows = num_rows - base < tile_rows ? (int)(num_rows - base) : tile_rows;
+  const int floats = rows * dim;
   const int64_t lo = __ldg(tile_starts + blockIdx.x);
   const int64_t hi = __ldg(tile_starts + blockIdx.x + 1);
+  for (int i = tid; i < floats; i += kThreads) acc[i] = 0.0f;
+  if (tid == 0) listed = 0;
+  __syncthreads();
+
+  // list the run starts of the tile's entries [lo, hi): thread t reads the
+  // start word of chunk first + t, + kThreads, ... (a warp-uniform loop)
   const int64_t first = lo / rp::kChunk, end = (hi + rp::kChunk - 1) / rp::kChunk;
-  for (int64_t c = first + (threadIdx.x >> 5) * 32; c < end; c += (blockDim.x >> 5) * 32) {
+  for (int64_t c0 = first; c0 < end; c0 += kThreads) {
+    const int64_t c = c0 + tid;
     unsigned word = 0;
-    if (c + lane < end) {
-      const int64_t s = (c + lane) * rp::kChunk;
-      word = __ldg(run_starts + c + lane);
+    if (c < end) {
+      const int64_t s = c * rp::kChunk;
+      word = __ldg(run_starts + c);
       if (s < lo) word &= ~0u << (lo - s);
       if (hi - s < rp::kChunk) word &= (1u << (hi - s)) - 1u;
     }
-    unsigned busy = __ballot_sync(rp::kFull, word != 0);
-    while (busy) {
-      const int l = __ffs(busy) - 1;
-      busy &= busy - 1;
-      copy_runs<kCols>(__shfl_sync(rp::kFull, word, l), (c + l) * rp::kChunk, sorted_ids, sums,
-                       dim, base, acc);
+    const int count = __popc(word);
+    int upto = count;  // the warp's inclusive scan of the counts
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(rp::kFull, upto, o);
+      if (lane >= o) upto += y;
     }
+    int at = 0;
+    if (lane == 31 && upto > 0) at = atomicAdd(&listed, upto);
+    at = __shfl_sync(rp::kFull, at, 31) + upto - count;
+    for (; word; word &= word - 1) runs[at++] = (int32_t)(c * rp::kChunk + __ffs(word) - 1);
   }
   __syncthreads();
 
-  constexpr int kWidth = sizeof(V) / sizeof(float);
-  const int64_t count = tile * dim / kWidth;
-  const V* gs = reinterpret_cast<const V*>(acc);
-  V* ps = reinterpret_cast<V*>(p + base * dim);
-  using MP = Pack<MT, kWidth>;
-  MP* ms = reinterpret_cast<MP*>(m + base * dim);
-  MP* vs = reinterpret_cast<MP*>(v + base * dim);
-  const V* ds = kDense ? reinterpret_cast<const V*>(dense + base * dim) : nullptr;
+  // each run's sum to its row of the tile: a thread a (run, column) pair
+  const int pairs = listed * dim;
+  for (int f = tid; f < pairs; f += kThreads) {
+    const int k = f / dim, col = f - k * dim;
+    const int32_t j = runs[k];
+    const int row = (int)(__ldg(sorted_ids + j) - base);
+    acc[row * dim + col] = __ldg(sums + (int64_t)j * dim + col);
+  }
+  __syncthreads();
+
+  using V = Pack<float, kW>;
+  using MP = Pack<MT, kW>;
+  float* ps = p + base * dim;
+  MT* ms = m + base * dim;
+  MT* vs = v + base * dim;
+  const float* ds = kDense ? dense + base * dim : nullptr;
+  const int groups = floats / kW;
+  V* pg = reinterpret_cast<V*>(ps);
+  MP* mg = reinterpret_cast<MP*>(ms);
+  MP* vg = reinterpret_cast<MP*>(vs);
+  const V* gg = reinterpret_cast<const V*>(acc);
+  const V* dg = reinterpret_cast<const V*>(ds);
 #pragma unroll 4
-  for (int64_t i = threadIdx.x; i < count; i += blockDim.x) {
-    V pv = ps[i], gv = gs[i];
-    MP mv = ms[i], vv = vs[i];
-    float* pf = reinterpret_cast<float*>(&pv);
-    float* gf = reinterpret_cast<float*>(&gv);
+  for (int q = tid; q < groups; q += kThreads) {
+    V pv = pg[q], gv = gg[q];
+    MP mv = mg[q], vv = vg[q];
     if constexpr (kDense) {
-      const V dv = ds[i];
-      const float* df = reinterpret_cast<const float*>(&dv);
+      const V dv = dg[q];
 #pragma unroll
-      for (int k = 0; k < kWidth; ++k) gf[k] = __fadd_rn(gf[k], df[k]);
+      for (int k = 0; k < kW; ++k) gv.v[k] = __fadd_rn(gv.v[k], dv.v[k]);
     }
 #pragma unroll
-    for (int k = 0; k < kWidth; ++k) {
-      float mf = to_f32(mv.v[k]), vf = to_f32(vv.v[k]);
-      adam(gf[k], pf[k], mf, vf, h);
-      mv.v[k] = from_f32(mf, (MT*)nullptr);
-      vv.v[k] = from_f32(vf, (MT*)nullptr);
-    }
-    ps[i] = pv;
-    ms[i] = mv;
-    vs[i] = vv;
+    for (int k = 0; k < kW; ++k) adam_stored(gv.v[k], pv.v[k], mv.v[k], vv.v[k], h);
+    pg[q] = pv;
+    mg[q] = mv;
+    vg[q] = vv;
+  }
+  for (int e = groups * kW + tid; e < floats; e += kThreads) {  // the ragged end
+    const float g = kDense ? __fadd_rn(acc[e], ds[e]) : acc[e];
+    adam_stored(g, ps[e], ms[e], vs[e], h);
   }
 }
 
@@ -242,32 +240,35 @@ Scratch carve(void* workspace, int64_t n, int dim, int64_t tiles) {
   return Scratch{sums, run_starts, tile_starts, tile_starts + tiles + 1};
 }
 
-// The tile kernel for one moment type and dense option, at the widths the
-// row allows (float4 when dim % 4 == 0 and the arrays are aligned).
+// Shared memory of a tile block: its gradient tile and its run list.
+size_t tile_shared(int tile_rows, int dim) {
+  return (size_t)tile_rows * dim * sizeof(float) + (size_t)tile_rows * sizeof(int32_t);
+}
+
+// The tile kernel for one moment type and dense option, float4 groups when
+// every tile's slice is whole float4s (tile_rows * dim % 4 == 0) and every
+// array is aligned to its group's bytes, else one float at a time.
 template <typename MT, bool kDense>
 cudaError_t launch_tiles(const int32_t* s, const Scratch& scratch, float* p, void* m, void* v,
                          int64_t num_rows, int dim, int tile_rows, const Hyper& h,
-                         const float* dense, unsigned grid, size_t shared, cudaStream_t st) {
+                         const float* dense, unsigned grid, cudaStream_t st) {
   const auto aligned = [](const void* ptr, uintptr_t a) {
     return reinterpret_cast<uintptr_t>(ptr) % a == 0;
   };
-  const bool vec4 = dim % 4 == 0 && aligned(p, 16) && aligned(m, 4 * sizeof(MT)) &&
-                    aligned(v, 4 * sizeof(MT)) && (!kDense || aligned(dense, 16));
+  const bool vec4 = (int64_t)tile_rows * dim % 4 == 0 && aligned(p, 16) &&
+                    aligned(m, 4 * sizeof(MT)) && aligned(v, 4 * sizeof(MT)) &&
+                    (!kDense || aligned(dense, 16));
   MT* mm = static_cast<MT*>(m);
   MT* vv = static_cast<MT*>(v);
-#define RP_ADAM(V, COLS)                                                                  \
-  fused_adam_kernel<V, COLS, MT, kDense><<<grid, 256, shared, st>>>(                       \
-      s, scratch.sums, scratch.run_starts, scratch.tile_starts, p, mm, vv, num_rows, dim, \
-      tile_rows, h, dense)
-  switch (rp::cols_per_lane(dim) * (vec4 ? 1 : -1)) {
-    case 1: RP_ADAM(float4, 1); break;
-    case 2: RP_ADAM(float4, 2); break;
-    case 4: RP_ADAM(float4, 4); break;
-    case -1: RP_ADAM(float, 1); break;
-    case -2: RP_ADAM(float, 2); break;
-    default: RP_ADAM(float, 4);
-  }
-#undef RP_ADAM
+  const size_t shared = tile_shared(tile_rows, dim);
+  if (vec4)
+    adam_tile_kernel<MT, kDense, 4><<<grid, kThreads, shared, st>>>(
+        s, scratch.sums, scratch.run_starts, scratch.tile_starts, p, mm, vv, dense, num_rows,
+        dim, tile_rows, h);
+  else
+    adam_tile_kernel<MT, kDense, 1><<<grid, kThreads, shared, st>>>(
+        s, scratch.sums, scratch.run_starts, scratch.tile_starts, p, mm, vv, dense, num_rows,
+        dim, tile_rows, h);
   return cudaGetLastError();
 }
 
@@ -284,8 +285,8 @@ extern "C" long long rp_fused_adam_workspace_words(long long n, long long num_ro
 // (f32, or bf16 when moments_bf16), updated in place; dense [num_rows, dim]
 // f32 added to the gradient, or null; workspace of workspace_words 4-byte
 // words (at least rp_fused_adam_workspace_words(n, num_rows, dim,
-// tile_rows)), written before it is read.  tile_rows * dim * 4 bytes of
-// shared memory per block, at most 48 KB.  All contiguous on the current
+// tile_rows)), written before it is read.  tile_rows * (dim + 1) * 4 bytes
+// of shared memory per block, at most 48 KB.  All contiguous on the current
 // device.  Returns cudaGetLastError() after the launches (0 = launched).
 extern "C" int rp_fused_adam_f32(const void* sorted_ids, const void* perm, const void* rows,
                                  long long n, void* workspace, long long workspace_words,
@@ -294,7 +295,7 @@ extern "C" int rp_fused_adam_f32(const void* sorted_ids, const void* perm, const
                                  float inv_b1c, float inv_b2c, const void* dense,
                                  int moments_bf16, void* stream) {
   if (n < 0 || n > 0x7fffffffLL || num_rows <= 0 || dim <= 0 || tile_rows <= 0 ||
-      (long long)tile_rows * dim * 4 > 48 * 1024 ||
+      tile_shared(tile_rows, dim) > 48 * 1024 ||
       workspace_words < rp_fused_adam_workspace_words(n, num_rows, dim, tile_rows))
     return (int)cudaErrorInvalidValue;
   const long long blocks = (num_rows + tile_rows - 1) / tile_rows;
@@ -312,21 +313,20 @@ extern "C" int rp_fused_adam_f32(const void* sorted_ids, const void* perm, const
       s, n, num_rows, tile_rows, blocks, scratch.tile_starts);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const size_t shared = (size_t)tile_rows * dim * sizeof(float);
   const Hyper h{lr, b1, b2, eps, inv_b1c, inv_b2c};
   float* pp = static_cast<float*>(p);
   const float* dd = static_cast<const float*>(dense);
   const unsigned grid = (unsigned)blocks;
   if (moments_bf16) {
     err = dd ? launch_tiles<__nv_bfloat16, true>(s, scratch, pp, m, v, num_rows, dim, tile_rows,
-                                                 h, dd, grid, shared, st)
+                                                 h, dd, grid, st)
              : launch_tiles<__nv_bfloat16, false>(s, scratch, pp, m, v, num_rows, dim,
-                                                  tile_rows, h, dd, grid, shared, st);
+                                                  tile_rows, h, dd, grid, st);
   } else {
     err = dd ? launch_tiles<float, true>(s, scratch, pp, m, v, num_rows, dim, tile_rows, h, dd,
-                                         grid, shared, st)
+                                         grid, st)
              : launch_tiles<float, false>(s, scratch, pp, m, v, num_rows, dim, tile_rows, h, dd,
-                                          grid, shared, st);
+                                          grid, st);
   }
   return (int)err;
 }

@@ -45,10 +45,11 @@ constexpr int kChunk = 32;  // sorted entries one warp reduces
 // Columns a lane holds per pass over the rows (kCols, one pass covers
 // 32 * kCols columns) and rows it has in flight (kGroup): 32 registers of
 // row data whatever the width, so at dim <= 32 a chunk's 32 rows are
-// loaded at once.
+// loaded at once.  Rows narrower than a warp (kCols 0) put the lanes on the
+// chunk's entries instead (reduce_chunk_narrow).
 __host__ __device__ constexpr int group_rows(int cols) { return 32 / cols; }
 
-inline int cols_per_lane(int dim) { return dim <= 32 ? 1 : dim <= 64 ? 2 : 4; }
+inline int cols_per_lane(int dim) { return dim < 32 ? 0 : dim == 32 ? 1 : dim <= 64 ? 2 : 4; }
 
 // Entries of the level after a level of n entries (two pieces per chunk),
 // 0 when n fits one chunk and that level is the last.
@@ -169,14 +170,21 @@ __device__ __forceinline__ void flush_run(const float (&sum)[kCols], int32_t id,
   }
 }
 
-// The warp reduces entries [32w, 32w + 32) of `in` (w < chunks_of(in.n)).
-// On level 0, `starts` (when not null) gets, per chunk, the bits of the
-// entries that begin a run of an id in [0, num_rows).
-template <int kCols>
-__device__ __forceinline__ void reduce_chunk(const Level& in, int64_t w, bool later,
-                                             const Pieces& next, const Output& out, int dim,
-                                             uint32_t* __restrict__ starts) {
-  constexpr int kGroup = group_rows(kCols);
+// A lane's entry of chunk w of `in` (lane < cnt), and the ids of the
+// chunk's first and last runs.
+struct Chunk {
+  int cnt;
+  int32_t key, src, pos;
+  int32_t first, last;
+};
+
+// What both reductions of a chunk do first: read its entries, a lane each;
+// on level 0 set `starts` (when not null), per chunk, to the bits of the
+// entries that begin a run of an id in [0, num_rows); below the last level
+// write the ids and positions of the chunk's two pieces.
+__device__ __forceinline__ Chunk open_chunk(const Level& in, int64_t w, bool later,
+                                            const Pieces& next, const Output& out,
+                                            uint32_t* __restrict__ starts) {
   const int lane = threadIdx.x & 31;
   const int64_t base = w * kChunk;
   const int cnt = in.n - base < kChunk ? (int)(in.n - base) : kChunk;
@@ -204,6 +212,20 @@ __device__ __forceinline__ void reduce_chunk(const Level& in, int64_t w, bool la
     next.keys[2 * w + 1] = last;
     next.pos[2 * w + 1] = last_pos;
   }
+  return Chunk{cnt, key, src, pos, first, last};
+}
+
+// The warp reduces entries [32w, 32w + 32) of `in` (w < chunks_of(in.n)),
+// lane l holding columns c0 + l + 32k.
+template <int kCols>
+__device__ __forceinline__ void reduce_chunk(const Level& in, int64_t w, bool later,
+                                             const Pieces& next, const Output& out, int dim,
+                                             uint32_t* __restrict__ starts) {
+  constexpr int kGroup = group_rows(kCols);
+  const Chunk ch = open_chunk(in, w, later, next, out, starts);
+  const int cnt = ch.cnt, lane = threadIdx.x & 31;
+  const int32_t key = ch.key, src = ch.src, pos = ch.pos, first = ch.first;
+  const bool last_level = next.keys == nullptr;
 
   for (int c0 = 0; c0 < dim; c0 += 32 * kCols) {
     float sum[kCols];
@@ -249,6 +271,52 @@ __device__ __forceinline__ void reduce_chunk(const Level& in, int64_t w, bool la
   }
 }
 
+// reduce_chunk for rows narrower than a warp: lane l holds entry l of the
+// chunk, one column at a time.  The lane where a run starts sums the run's
+// entries in sorted order, reading them from the lanes after it, so every
+// run's sum is the one reduce_chunk takes, bit for bit: ((0 + x_a) +
+// x_a+1) + ...  Its writes are reduce_chunk's: complete runs to the output,
+// the first and last runs as the next level's pieces (a zero second piece
+// when the chunk is one run).
+__device__ __forceinline__ void reduce_chunk_narrow(const Level& in, int64_t w, bool later,
+                                                    const Pieces& next, const Output& out,
+                                                    int dim, uint32_t* __restrict__ starts) {
+  const Chunk ch = open_chunk(in, w, later, next, out, starts);
+  const int cnt = ch.cnt, lane = threadIdx.x & 31;
+  const int32_t key = ch.key, pos = ch.pos, first = ch.first, last = ch.last;
+  const bool valid = lane < cnt, last_level = next.keys == nullptr;
+  const int32_t up = __shfl_up_sync(kFull, key, 1);
+
+  // the runs in the chunk: a head lane and its length
+  const bool head = valid && (lane == 0 || up != key);
+  const unsigned after = __ballot_sync(kFull, head) & ~((2u << lane) - 1u);
+  const int len = head ? (after ? __ffs(after) - 1 : cnt) - lane : 0;
+  const int longest = (int)__reduce_max_sync(kFull, (unsigned)len);
+  const bool is_first = key == first, is_last = key == last;
+  float* dst = nullptr;  // a head lane's row: the output's, or the next level's piece
+  if (head) {
+    if (last_level || (!is_first && !is_last)) {
+      if (key >= 0 && key < out.num_rows) dst = out.rows + (int64_t)(out.by_id ? key : pos) * dim;
+    } else {
+      dst = next.rows + (is_first ? 2 * w : 2 * w + 1) * dim;
+    }
+  }
+  const bool zero_next = head && !last_level && is_first && is_last;
+  const float* row = in.rows + (int64_t)ch.src * dim;
+  for (int c = 0; c < dim; ++c) {
+    const float x = valid ? load(row + c, later) : 0.0f;
+    float sum = __fadd_rn(0.0f, x);
+    for (int k = 1; k < longest; ++k) {
+      const float y = __shfl_down_sync(kFull, x, k);
+      if (k < len) sum = __fadd_rn(sum, y);
+    }
+    if (dst != nullptr) {
+      dst[c] = sum;
+      if (zero_next) dst[dim + c] = 0.0f;
+    }
+  }
+}
+
 // Warp w reduces level 0's chunk w, then, while it is the last of a
 // parent chunk's producers to finish, that parent, up to the last level.
 // (The levels' buffers are indexed by level, so the parameter is read in
@@ -265,7 +333,10 @@ __global__ void __launch_bounds__(256)
     const Level in = L == 0 ? t.base : Level{t.keys[L], nullptr, t.pos[L], t.rows[L], t.n[L]};
     const Pieces next = last_level ? Pieces{nullptr, nullptr, nullptr}
                                    : Pieces{t.keys[L + 1], t.pos[L + 1], t.rows[L + 1]};
-    reduce_chunk<kCols>(in, w, L > 0, next, out, dim, L == 0 ? starts : nullptr);
+    if constexpr (kCols == 0)
+      reduce_chunk_narrow(in, w, L > 0, next, out, dim, L == 0 ? starts : nullptr);
+    else
+      reduce_chunk<kCols>(in, w, L > 0, next, out, dim, L == 0 ? starts : nullptr);
     if (last_level) return;
     // publish the pieces (every lane's stores, then one count), and go on
     // only as the parent's last producer, after the others' pieces are seen
@@ -315,6 +386,9 @@ inline cudaError_t segment_sum(const int32_t* sorted_ids, const int32_t* perm,
   const int threads = 256;
   const unsigned blocks = (unsigned)((chunks_of(n) * 32 + threads - 1) / threads);
   switch (cols_per_lane(dim)) {
+    case 0:
+      segment_sum_kernel<0><<<blocks, threads, 0, stream>>>(t, out, dim, starts);
+      break;
     case 1:
       segment_sum_kernel<1><<<blocks, threads, 0, stream>>>(t, out, dim, starts);
       break;

@@ -10,11 +10,13 @@ per step.  This step, the JAX package's ``train/fused_update.py``:
 2. updates every other parameter with ``torch.optim.Adam`` (optax's
    ``masked`` Adam, the same schedule and betas);
 3. updates each table and its two moments in place with one fused Adam pass
-   (``ops/kernels/fused_adam.planned_adam_update``: K3 on the card, one
-   launch a table), which applies Adam over the dense gradient, absent rows
+   (``ops/kernels/fused_adam.update_sorted``: K3 on the card, one launch a
+   table), which applies Adam over the dense gradient, absent rows
    included.  A model may have several tables (WDL's and the other LR
    models' ``[V, 1]`` ``LRLayer`` table beside the ``[V, D]`` one, AFN's
-   two), each with its own moments, as the JAX step has.
+   two), each with its own moments, as the JAX step has.  Every table
+   takes the batch's fused ids, so they are sorted once a step for each
+   table height (``fused_adam.sort_for``), not once a table.
 
 The JAX package also gates the step on TPU performance (a table and a batch
 large enough for its planned kernels); those gates do not carry over: the
@@ -47,7 +49,7 @@ import torch
 from ..convert import jax_path
 from ..ops.embedding import FusedEmbedding, ItemEmbedding
 from ..ops.kernels.embedding_lookup import fused_ids
-from ..ops.kernels.fused_adam import adam_hyper, planned_adam_update
+from ..ops.kernels.fused_adam import adam_hyper, planned_adam_update, sort_for, update_sorted
 from ..ops.dropout import draw_seed
 from ..ops.softmax_ce import fused_ce_enabled
 from .ckpt import moment_arrays
@@ -78,7 +80,8 @@ def fused_tables(model) -> List[Tuple[str, FusedEmbedding]]:
 
 class FusedStep:
     """Autograd for the dense parameters and each table's captured rows,
-    Adam on the dense parameters, one fused Adam launch on each table.
+    Adam on the dense parameters, one fused Adam launch on each table, on
+    one sort of the ids for each table height.
 
     Every table is looked up once a forward on the batch's sparse ids, so
     every table's launch takes the same fused ids; a forward that looks a
@@ -137,11 +140,16 @@ class FusedStep:
             self.optimizer.step()
         hyper = adam_hyper(step + 1, lr, ADAM_B1, ADAM_B2, ADAM_EPS)
         ids = fused_ids(inputs["sparse"], self.tables[0][1].offsets)
+        sorted_ids = {}  # table height -> the ids sorted for it, once a step
         with torch.no_grad():
             for (_, emb), (mu, nu), r, g in zip(self.tables, self.moments, rows,
                                                 grads[len(self.dense):]):
                 g = torch.zeros_like(r) if g is None else g
-                planned_adam_update(ids, g.reshape(-1, g.shape[-1]), emb.table, mu, nu, hyper)
+                height = emb.table.shape[0]
+                if height not in sorted_ids:
+                    sorted_ids[height] = sort_for(ids, height)
+                update_sorted(sorted_ids[height], g.reshape(-1, g.shape[-1]), emb.table, mu, nu,
+                              hyper)
         return out
 
     def opt_state(self, step: int) -> Dict[str, Any]:

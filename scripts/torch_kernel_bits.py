@@ -1,8 +1,10 @@
 """Bit-compare every CUDA kernel of ``rec_pangu_tpu_torch`` between two trees.
 
 Each tree runs every kernel wrapper (K1 lookup, K2 table gradient with ids
-past both ends of the table, K7 at ContraRec's device-view shape, K3 fused
-Adam on K2's ids, K4f inference and training forward, K4b, K6f, K6b, K5f,
+past both ends of the table at D = 32, 1 and 8, K7 at ContraRec's
+device-view shape, K3 fused Adam on K2's ids at D = 32 with the dense
+stream, D = 1 and D = 40, and at SASRec's shape with the dense stream and
+bfloat16 moments, K4f inference and training forward, K4b, K6f, K6b, K5f,
 K5b; K4f's saved activations too, and K4f at SASRec's shape) on the same
 seeded inputs, in a process of its own that builds that tree's kernels.
 The script prints one JSON line, each output array mapped to whether the
@@ -51,6 +53,10 @@ ids[:8] = torch.tensor([-2 ** 31, 2 ** 31 - 1, -1, -7, 400_000, 400_003, -2 ** 2
                        dtype=torch.int32, device=dev)
 rows = torch.randn(ids.numel(), 32, generator=g, device=dev)
 out["k2"] = k2.table_grad(ids, rows, table.shape[0])
+# K2 at rows narrower than a warp (the levels' lanes over entries)
+for dim in (1, 8):
+    out[f"k2_d{dim}"] = k2.table_grad(
+        ids, torch.randn(ids.numel(), dim, generator=g, device=dev), table.shape[0])
 # K7 at ContraRec's device-view shape: 3 x 1024 histories of 50 over the
 # [1,007,616, 64] table, padding 0 and a masked view's long run of one token
 hist = torch.randint(1, 1_000_000, (3 * 1024 * 50,), generator=g, device=dev, dtype=torch.int32)
@@ -64,6 +70,26 @@ nu = torch.rand(table.shape, generator=g, device=dev) * 1e-8
 dense = torch.randn(table.shape, generator=g, device=dev) * 1e-3
 k3.planned_adam_update(ids, rows, table, mu, nu, k3.adam_hyper(3, 1e-3), dense)
 out.update(k3_p=table, k3_m=mu, k3_v=nu)
+# K3 at the LR tables' D = 1 and the multi-task zoo's D = 40, on the same ids
+for dim in (1, 40):
+    t = torch.randn(400_000, dim, generator=g, device=dev) * 0.25
+    mu = torch.randn(t.shape, generator=g, device=dev) * 1e-4
+    nu = torch.rand(t.shape, generator=g, device=dev) * 1e-8
+    r = torch.randn(ids.numel(), dim, generator=g, device=dev) * 1e-3
+    k3.planned_adam_update(ids, r, t, mu, nu, k3.adam_hyper(3, 1e-3))
+    out.update({f"k3_d{dim}_p": t, f"k3_d{dim}_m": mu, f"k3_d{dim}_v": nu})
+# K3 at SASRec's shape: 1024 histories of 50 over [1,007,616, 64], a run of
+# one item, the dense stream, bfloat16 moments
+hist_ids = torch.randint(0, 1_000_000, (51_200,), generator=g, device=dev, dtype=torch.int32)
+hist_ids[:3000] = 77
+t = torch.randn(1_007_616, 64, generator=g, device=dev) * 0.25
+mu = (torch.randn(t.shape, generator=g, device=dev) * 1e-4).bfloat16()
+nu = (torch.rand(t.shape, generator=g, device=dev) * 1e-8).bfloat16()
+k3.planned_adam_update(hist_ids, torch.randn(51_200, 64, generator=g, device=dev) * 1e-3, t, mu,
+                       nu, k3.adam_hyper(2, 1e-3), torch.randn(t.shape, generator=g, device=dev)
+                       * 1e-6)
+out.update(k3_seq_bf16_p=t, k3_seq_bf16_m=mu, k3_seq_bf16_v=nu)
+del t, mu, nu
 # K4f and K4b at IOCRec's local encoder: 3 blocks of 2 heads, inner 128
 for act, rate in (("gelu", 0.0), ("relu", 0.5)):
     enc = TransformerEncoder(64, 3, 2, 128, 0.0, 0.0, act, 1e-12,

@@ -11,6 +11,8 @@ bit can move a moment to the neighbouring bfloat16 (2^-8 relative), which
 moves that step's update, lr * m_hat / sqrt(v_hat), by up to about lr *
 2^-8: m and v within rtol 2^-7, p within atol lr * 2^-7 (seen: 2.1e-6).
 """
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -112,7 +114,8 @@ def test_inputs_are_checked_and_cpu_builds_nothing(monkeypatch):
         adam.planned_adam_update(ids, rows, t, m, v, torch.zeros(6))
     adam.planned_adam_update(ids, rows, t, m, v, adam.adam_hyper(1, LR))
     assert adam.LAUNCHES == 0 and adam._FN is None
-    assert adam.tile_rows(32) == 256 and adam.tile_rows(1) == 8192
+    assert adam.tile_plan(1_605_632, 32, 132).tile_rows == 64
+    assert adam.tile_plan(1_605_632, 1, 132).tile_rows == 2048
     with pytest.raises(ValueError, match="at most"):
         adam.planned_adam_update(ids, torch.ones(3, 8193), torch.zeros(4, 8193),
                                  torch.zeros(4, 8193), torch.zeros(4, 8193),
@@ -185,3 +188,89 @@ def test_dense_stream_adds_to_the_summed_rows():
         adam.planned_adam_update(ids, rows, *a, adam.adam_hyper(2, LR), dense[:5])
     with pytest.raises(ValueError, match="share a dtype"):
         adam.planned_adam_update(ids, rows, a[0], a[1], a[2].bfloat16(), adam.adam_hyper(2, LR))
+
+
+H100_SMS = 132
+# the tables K3 runs on: DeepFM's and the LR tables' bench table, SASRec's
+# padded corpus, chip_smoke's edge table
+PLAN_ROWS = (1_605_632, 1_007_616, 3001)
+
+
+@pytest.mark.parametrize("dense", [False, True])
+@pytest.mark.parametrize("moments", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dim", [1, 8, 32, 40, 64, 128])
+def test_tile_plan_fills_the_card_in_whole_lines(dim, moments, dense):
+    """Every SM gets several tiles, a block's shared memory stays within what
+    it takes without opting in, and every tile's slice of p, m, v (and the
+    dense gradient) is whole 128-byte lines of float32 (64-byte ones of
+    bfloat16), so it starts on its vector's boundary: 16 bytes for four
+    f32, 8 for four bfloat16."""
+    arrays = [torch.float32, moments, moments] + ([torch.float32] if dense else [])
+    for num_rows in PLAN_ROWS:
+        plan = adam.tile_plan(num_rows, dim, H100_SMS)
+        assert (plan.grid - 1) * plan.tile_rows < num_rows <= plan.grid * plan.tile_rows
+        assert plan.shared_bytes == plan.tile_rows * (dim + 1) * 4 <= adam.SHARED_LIMIT
+        assert plan.tile_rows * dim <= adam.TILE_FLOATS
+        assert plan.width == 4 and plan.tile_rows * dim % adam.TILE_ALIGN == 0
+        for dtype in arrays:
+            size = torch.tensor([], dtype=dtype).element_size()
+            line, vector = adam.TILE_ALIGN * size, plan.width * size
+            for b in (1, plan.grid // 2, plan.grid - 1):
+                offset = b * plan.tile_rows * dim * size  # bytes from the array's start
+                assert offset % line == 0 and offset % vector == 0
+        step = adam.TILE_ALIGN // math.gcd(dim, adam.TILE_ALIGN)
+        if num_rows > 3001:
+            assert plan.grid >= adam.TILES_PER_SM * H100_SMS
+        else:  # a small table: tiles of a line's rows, as many as make lines
+            assert plan.grid >= min(H100_SMS, num_rows // step)
+
+
+def test_tile_plan_of_wide_rows_and_refusals():
+    """Where whole lines of rows do not fit a tile, a row is a tile of its
+    own: float4s when D is a multiple of 4, single floats otherwise; D up to
+    MAX_DIM."""
+    assert adam.tile_plan(100, 4096, H100_SMS) == (1, 100, 4097 * 4, 4)
+    assert adam.tile_plan(10 ** 6, 4096, H100_SMS) == (1, 10 ** 6, 4097 * 4, 4)
+    assert adam.tile_plan(10 ** 6, 1024, H100_SMS) == (2, 500_000, 2 * 1025 * 4, 4)
+    assert adam.tile_plan(100, 2049, H100_SMS) == (1, 100, 2050 * 4, 1)
+    assert adam.tile_plan(100, 8191, H100_SMS).width == 1
+    assert adam.tile_plan(7, adam.MAX_DIM, H100_SMS).shared_bytes <= adam.SHARED_LIMIT
+    assert adam.tile_plan(1, 3, H100_SMS) == (32, 1, 32 * 4 * 4, 4)
+    for args in ((0, 8, 132), (10, 0, 132), (10, adam.MAX_DIM + 1, 132), (10, 8, 0)):
+        with pytest.raises(ValueError, match="no tile plan"):
+            adam.tile_plan(*args)
+
+
+def test_one_sort_updates_several_tables_as_separate_calls():
+    """WDL's two tables on one ``sort_for``: the same bits as one
+    ``planned_adam_update`` a table."""
+    rng = np.random.default_rng(7)
+    ids = torch.from_numpy(rng.integers(-1, 301, 2000).astype(np.int32))
+    plan = adam.sort_for(ids, 300)
+    assert plan.sorted_ids is None and plan.num_rows == 300  # the CPU sorts nothing
+    for dim in (1, 8):
+        rows = torch.from_numpy(rng.standard_normal((2000, dim)).astype(np.float32))
+        table = torch.from_numpy(rng.standard_normal((300, dim)).astype(np.float32))
+        a = [table.clone(), torch.zeros(300, dim), torch.zeros(300, dim)]
+        b = [table.clone(), torch.zeros(300, dim), torch.zeros(300, dim)]
+        for t in (1, 2):
+            adam.update_sorted(plan, rows, *a, adam.adam_hyper(t, LR))
+            adam.planned_adam_update(ids, rows, *b, adam.adam_hyper(t, LR))
+        for x, y in zip(a, b):
+            assert torch.equal(x, y)
+
+
+def test_launch_refuses_a_sort_for_another_height():
+    from rec_pangu_tpu_torch.ops.kernels.embedding_grad import sort_ids_reference
+
+    ids = torch.tensor([0, 5, 99, 5], dtype=torch.int32)
+    rows = torch.ones(4, 2)
+    t, m, v = torch.zeros(50, 2), torch.zeros(50, 2), torch.zeros(50, 2)
+    sorted100 = adam.SortedIds(ids, *sort_ids_reference(ids, 100), 100)
+    with pytest.raises(ValueError, match="ready for a table of 100 rows, this one has 50"):
+        adam.launch(sorted100, rows, t, m, v, adam.adam_hyper(1, LR))
+    with pytest.raises(ValueError, match="ready for a table of 100 rows"):
+        adam.update_sorted(adam.sort_for(ids, 100), rows, t, m, v, adam.adam_hyper(1, LR))
+    with pytest.raises(ValueError, match="sorted on the card"):
+        adam.launch(adam.sort_for(ids, 50), rows, t, m, v, adam.adam_hyper(1, LR))
+    assert adam.LAUNCHES == 0 and torch.equal(t, torch.zeros(50, 2))

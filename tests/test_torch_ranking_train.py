@@ -202,3 +202,32 @@ def test_wdl_standard_step_matches_fused_step(monkeypatch):
     got, want = _leaves(std["params"]), _leaves(fused["params"])
     for key, arr in got.items():
         np.testing.assert_allclose(arr, want[key], rtol=0, atol=1e-6, err_msg=key)
+
+
+def test_wdl_fused_step_sorts_once_a_step(monkeypatch):
+    """WDL's two tables share their height, so the fused step makes the ids
+    ready once a step (``fused_adam.sort_for``) and updates both tables on
+    them: the same bits, after three steps, as one ``planned_adam_update``
+    a table (the JAX comparison above runs on the shared sort too)."""
+    from rec_pangu_tpu_torch.train import fused_update
+
+    j = jax_fused_run("WDL")
+    sorts = []
+    sort_for = fused_update.sort_for
+    monkeypatch.setattr(fused_update, "sort_for",
+                        lambda ids, num_rows: sorts.append(num_rows) or sort_for(ids, num_rows))
+    shared = _port_model(j)
+    step = maybe_enable_fused_update(shared, LR, 1)
+    _run(shared, step, j["batches"])
+    heights = [emb.table.shape[0] for _, emb in step.tables]
+    assert len(heights) == 2 and heights[0] == heights[1]
+    assert sorts == heights[:1] * len(j["batches"])
+
+    monkeypatch.setattr(fused_update, "update_sorted",
+                        lambda plan, *args: fused_update.planned_adam_update(plan.ids, *args))
+    separate = _port_model(j)
+    _run(separate, maybe_enable_fused_update(separate, LR, 1), j["batches"])
+    got, want = _leaves(jax_variables(shared)["params"]), _leaves(jax_variables(separate)["params"])
+    assert got.keys() == want.keys()
+    for key, arr in got.items():
+        np.testing.assert_array_equal(arr, want[key], err_msg=key)
