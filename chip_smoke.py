@@ -126,6 +126,16 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                step (asserted; the trainer's host graph: K3's ids are the
                nodes; GCSAN's K4b too), card_vs_cpu; SRGNN also whole
                requests against the CPU, profiles and standard steps (K2).
+20c. comirecsa_*, comirecdr_*, mind_*, sine_*, re4_*, cmi_* -- the
+               multi-interest family at the same width with each JAX
+               class's defaults (K = 4; SINE 500 prototypes; CMI K = 8):
+               checkpoint, retrieval serving (K1 a request; each item
+               scored by its best interest), eval, a fit on the sequence
+               fused step (asserted; K1 twice a step where the target read
+               feeds best_interest, K3 once; CMI's host negatives and row
+               projection checked after every step), card_vs_cpu;
+               ComirecSA also whole requests against the CPU, profiles and
+               standard steps (K2).
 21. past_limits -- SASRec at max_len 100 and at hidden size 256, IOCRec with
                K = 8 and at max_len 80: retrieval and two fused steps each,
                card against CPU, on the plain versions of the kernels whose
@@ -2272,9 +2282,10 @@ def seq_valid_loader(batches: int, seed: int) -> DataLoader:
 
 
 def timed_seq_fit(trainer: SequenceTrainer, model, train_loader, valid_loader, epochs: int,
-                  device: str = "cuda"):
+                  device: str = "cuda", after_step=None):
     """trainer.fit with each step timed to the end of its device work (a
-    synchronize after each step).  Returns (step seconds, step losses)."""
+    synchronize after each step), ``after_step()`` called after each step's
+    time is taken.  Returns (step seconds, step losses)."""
     inner = trainer._step
     times, losses = [], []
 
@@ -2285,6 +2296,8 @@ def timed_seq_fit(trainer: SequenceTrainer, model, train_loader, valid_loader, e
             torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
         losses.append(out["loss"].detach())
+        if after_step is not None:
+            after_step()
         return out
 
     trainer._step = step
@@ -2497,7 +2510,9 @@ IOC_CPU_CHECKS, IOC_CPU_USERS = 2, 128  # requests held against the CPU, and the
 FIT_EPOCHS, FIT_TRAIN_BATCHES, FIT_VALID_BATCHES = 1, 8, 1  # the fit of IOCRec and later models
 IOC_STD_STEPS, IOC_PROFILED = 3, 3
 IOC_CPU_BATCH = 128               # card against CPU: 100,000 items, 128 histories
-IOC_ZERO_GRAD = ("key.bias", "K_linear.bias", "layer_norm_2.bias")  # exact gradients of 0
+# exact gradients of 0 (SINE's ln2.bias shifts every concept's score for a
+# position alike, which the softmax over the concepts undoes)
+IOC_ZERO_GRAD = ("key.bias", "K_linear.bias", "layer_norm_2.bias", "ln2.bias")
 IOC_LOSS_RTOL = 1e-5              # card against CPU: the losses (see phase_iocrec_card_vs_cpu)
 IOC_LATER_LOSS_RTOL = 1e-4        # ... steps 2 and 3 at LR (first run: 1.7e-5, 4.9e-5)
 IOC_SMALL_LR = 1e-4
@@ -3102,22 +3117,28 @@ def phase_model_serving(path: str, enc_dict: dict, name: str, config: dict, kern
 def phase_model_training(path: str, enc_dict: dict, ckpt_dir: str, name: str, config: dict,
                          per_step, per_batch, seed: int, std_steps: int = 0,
                          epochs: int = FIT_EPOCHS, device: str = "cuda", label: str = "",
-                         train_batches: int = FIT_TRAIN_BATCHES):
+                         train_batches: int = FIT_TRAIN_BATCHES, step_lookups: int = 1,
+                         step_check=None):
     """SequenceTrainer.fit on the sequence model ``name`` at full width from
     the JAX-layout checkpoint: ``epochs`` of ``train_batches`` bench-shape
     batches with the host keys the trainer attaches (IOCRec's and
-    ContraRec's views, CLRec's lookup_all, the SRGNN family's session
-    graph), FIT_VALID_BATCHES of
+    ContraRec's views, CLRec's and CMI's lookup_all, CMI's negatives, the
+    SRGNN family's session graph), FIT_VALID_BATCHES of
     validation, log.csv, checkpoints and early stopping, on the sequence
     fused step: each of ``per_step`` once a step, each of ``per_batch`` once
-    a step and an eval batch (IOCRec: K1, K4f, K4b, K6f, K6b, K5f, K5b, K3).
-    Then ``std_steps`` standard steps (K2 for K3).  ``label`` names the
-    phase (the model's name)."""
+    a step and an eval batch (IOCRec: K1, K4f, K4b, K6f, K6b, K5f, K5b, K3),
+    the lookup (K1) ``step_lookups`` times a step (the multi-interest
+    models' target read: 2).  ``step_check`` (CMIChecks), when given, is
+    installed on the trainer and called after every step.  Then
+    ``std_steps`` standard steps (K2 for K3).  ``label`` names the phase
+    (the model's name)."""
     t_start = time.perf_counter()
     train_loader = seq_train_loader(train_batches, seed)
     valid_loader = seq_valid_loader(FIT_VALID_BATCHES, seed + 1)
     model = load_seq_model(path, enc_dict, device, name, config)
     trainer = SequenceTrainer(device=device, model_ckpt_dir=ckpt_dir)
+    if step_check is not None:
+        step_check.install(trainer)
     setup_s = time.perf_counter() - t_start
 
     # the main path: every count is 0 just before it and read just after
@@ -3125,13 +3146,16 @@ def phase_model_training(path: str, enc_dict: dict, ckpt_dir: str, name: str, co
         torch.cuda.reset_peak_memory_stats()
     reset_launches()
     t0 = time.perf_counter()
-    times, losses = timed_seq_fit(trainer, model, train_loader, valid_loader, epochs, device)
+    times, losses = timed_seq_fit(trainer, model, train_loader, valid_loader, epochs, device,
+                                  step_check)
     fit_s = time.perf_counter() - t0
     launches = read_launches()
     peak = torch.cuda.max_memory_allocated() if device == "cuda" else None
     steps, evals = epochs * train_batches, epochs * FIT_VALID_BATCHES
-    require_launches(launches, {**{k: steps for k in per_step},
-                                **{k: steps + evals for k in per_batch}}, f"{name} fused fit")
+    want = {**{k: steps for k in per_step}, **{k: steps + evals for k in per_batch}}
+    if "embedding_lookup" in per_batch:
+        want["embedding_lookup"] = step_lookups * steps + evals
+    require_launches(launches, want, f"{name} fused fit")
     if not trainer._train_step.fused:
         raise RuntimeError(f"{name}'s fit did not take the sequence fused step")
     first, last = float(np.mean(losses[:3])), float(np.mean(losses[-3:]))
@@ -3151,6 +3175,8 @@ def phase_model_training(path: str, enc_dict: dict, ckpt_dir: str, name: str, co
         "setup_s": setup_s, "loss_first3": first, "loss_last3": last, "losses": losses,
         "files": files, "peak_allocated_bytes": peak,
     }
+    if step_check is not None:
+        summary["step_check"] = step_check.summary()
     if std_steps:  # the standard step: K2 for K3, torch.optim.Adam over the table
         loader = DataLoader(_SeqArrays({k: v[:std_steps * SEQ_BATCH] for k, v in
                                         train_loader.dataset.arrays.items()}),
@@ -3165,9 +3191,11 @@ def phase_model_training(path: str, enc_dict: dict, ckpt_dir: str, name: str, co
             std_launches = read_launches()
         finally:
             del os.environ["REC_PANGU_TPU_FUSED_ADAM"]
-        require_launches(std_launches, {**{k: std_steps for k in per_step + per_batch},
-                                        "fused_adam": 0, "embedding_grad": std_steps},
-                         f"{name} standard fit")
+        want = {**{k: std_steps for k in per_step + per_batch}, "fused_adam": 0,
+                "embedding_grad": std_steps}
+        if "embedding_lookup" in per_batch:  # the target read has no backward: one K2
+            want["embedding_lookup"] = step_lookups * std_steps
+        require_launches(std_launches, want, f"{name} standard fit")
         if std_trainer._train_step.fused or not np.all(np.isfinite(std_losses)):
             raise RuntimeError(f"the {name} standard step did not run cleanly: {std_losses}")
         summary.update({"standard_launches": std_launches,
@@ -3312,8 +3340,12 @@ def card_vs_cpu_leg(name: str, config: dict, batches, lr: float, devices, seed: 
                     on_kink_path) -> dict:
     """Three fused steps of the model ``name`` (SEQ_CPU_VOCAB items, weights
     from ``seed``) at ``lr`` on each device, from host ``batches`` that
-    already hold the model's host keys; what differs."""
+    already hold the model's host keys (and MIND's ``routing_logits``, handed
+    to both devices); a model with ``renorm_param_paths`` (CMI) projected
+    before the first step and after each, as SequenceTrainer.fit trains it;
+    what differs."""
     from rec_pangu_tpu_torch.train.fused_update import maybe_enable_seq_fused_update
+    from rec_pangu_tpu_torch.train.steps import make_param_renorm
 
     enc_dict = {"item_id": {"vocab_size": SEQ_CPU_VOCAB}}
     runs = {}
@@ -3322,10 +3354,17 @@ def card_vs_cpu_leg(name: str, config: dict, batches, lr: float, devices, seed: 
         model = model.to(dev).train()
         step = maybe_enable_seq_fused_update(model, lr, CPU_STEPS,
                                              generator=torch.Generator().manual_seed(SEED))
+        paths = tuple(getattr(model, "renorm_param_paths", ()) or ())
+        renorm = make_param_renorm(model, paths) if paths else (lambda: None)
+        renorm()
         losses, table_grads = [], []
         with recording_table_grad(table_grads):
             for i, batch in enumerate(batches):
-                out = step(model.upload_batch(batch, torch.device(dev), train=True), i)
+                inputs = model.upload_batch(batch, torch.device(dev), train=True)
+                if "routing_logits" in batch:
+                    inputs["routing_logits"] = torch.from_numpy(batch["routing_logits"]).to(dev)
+                out = step(inputs, i)
+                renorm()
                 losses.append(float(out["loss"].detach()))
                 if i == 0:  # the step leaves each dense leaf's gradient in .grad
                     grads = {k: p.grad.detach().cpu().clone()
@@ -3521,6 +3560,11 @@ def phase_model_card_vs_cpu(name: str, config: dict, devices=("cuda", "cpu"),
                                          config=config)
     batches = [trainer._attach_host_keys(b) for b in
                seq_train_loader(CPU_STEPS, SEED + 130, SEQ_CPU_VOCAB, IOC_CPU_BATCH)]
+    if name == "MIND":  # one draw of the routing logits for both devices
+        rng = np.random.default_rng(SEED + 132)
+        for b in batches:
+            b["routing_logits"] = rng.standard_normal(
+                (len(b["target_item"]), int(config["K"]), SEQ_L)).astype(np.float32)
     leg = card_vs_cpu_leg(name, config, batches, LR, devices, SEED + 131, lambda k: False)
     summary = {"phase": f"{label or name.lower()}_card_vs_cpu", "steps": CPU_STEPS,
                "vocab": SEQ_CPU_VOCAB, "batch": IOC_CPU_BATCH, f"lr_{LR:g}": leg,
@@ -3910,6 +3954,167 @@ def phase_graph_zoo(tmp: str, devices=("cuda", "cpu")) -> dict:
             emit(phase_seq_train_profile(
                 m_path, m_enc_dict, m_batches, m_ckpt,
                 functools.partial(load_seq_model, name=name, config=GRAPH_BASE),
+                f"{label}_train_profile"))
+            del m_batches
+        del m_loader
+        shutil.rmtree(m_ckpt, ignore_errors=True)
+        os.remove(m_path)
+        torch.cuda.empty_cache()
+    return zoo
+
+
+# ------------------------------------------------------ the multi-interest family
+# at bench.py's sequence width (bench.py:36: 1024 histories of 50 over
+# 1,000,000 items, D = 64) with each JAX class's own defaults
+# (rec_pangu_tpu/models/sequence/{comirec,mind,sine,re4,cmi}.py) and K = 4
+# where the class needs config["K"] (ComirecSA as BASELINE.md measured it):
+# SINE's 500 prototypes and 4 interests, Re4's K = 4, CMI's K = 8, two-layer
+# GRU, temp 0.1, w_clloss 0.05, no dropout.  K1 a request and eval batch;
+# a fused step K1 twice where the target feeds best_interest's argmax
+# (ComiRec, MIND, Re4: the read without autograd, outside the capture),
+# once for SINE and CMI (its lookup_all), and K3 once (CMI: no dense
+# stream); K2 a standard step.  ComirecSA in full, the others short.
+INTEREST_BASE = {"embedding_dim": SEQ_DIM, "max_length": SEQ_L, "item_col": "item_id"}
+INTEREST_ZOO = (("ComirecSA", {**INTEREST_BASE, "K": 4}, SEED + 700),
+                ("ComirecDR", {**INTEREST_BASE, "K": 4}, SEED + 710),
+                ("MIND", {**INTEREST_BASE, "K": 4}, SEED + 720),
+                ("SINE", {**INTEREST_BASE, "prototype_size": 500, "interest_size": 4},
+                 SEED + 730),
+                ("Re4", {**INTEREST_BASE, "K": 4}, SEED + 740),
+                ("CMI", {**INTEREST_BASE, "K": 8, "num_layers": 2, "temp": 0.1,
+                         "w_clloss": 0.05, "dropout_prob": 0.0}, SEED + 750))
+INTEREST_KERNELS = (("embedding_lookup",), ("fused_adam",))  # a request / eval batch; a step
+INTEREST_STEP_LOOKUPS = {"ComirecSA": 2, "ComirecDR": 2, "MIND": 2, "SINE": 1, "Re4": 2,
+                         "CMI": 1}
+UNIT_ATOL = 1e-5           # CMI: a projected row's norm within this of 1 (or exactly 0)
+ROUTING_DRAW_REPS = 20     # timed draws of MIND's routing logits of each kind
+
+
+class CMIChecks:
+    """CMI's fit, step by step: the batch's host negatives (``neg_items``
+    int32 in [1, vocab - 1), ``lookup_all`` = [hist | target | neg]) and,
+    after the step's projection, every row of the item table and of the
+    interest bank at unit norm (within UNIT_ATOL) or zero."""
+
+    def __init__(self):
+        self.steps, self.max_norm_dev, self.zero_rows, self.batch = 0, 0.0, {}, None
+
+    def install(self, trainer: SequenceTrainer) -> None:
+        self.trainer = trainer
+        attach = trainer._attach_host_keys
+
+        def recording(batch):
+            self.batch = attach(batch)
+            return self.batch
+
+        trainer._attach_host_keys = recording
+
+    def __call__(self) -> None:
+        b, model = self.batch, self.trainer.model
+        neg, hist = b["neg_items"], b["hist_item_list"]
+        want = np.concatenate([hist, b["target_item"][:, None], neg[:, None]], axis=1)
+        if (neg.dtype != np.int32 or neg.min() < 1 or neg.max() >= SEQ_VOCAB - 1
+                or not np.array_equal(b["lookup_all"], want)):
+            raise RuntimeError(f"CMI step {self.steps}: bad host negatives or lookup_all")
+        for key, w in (("item_emb.table", model.item_emb.table),
+                       ("interest_embedding", model.interest_embedding)):
+            norms = torch.linalg.vector_norm(w.detach(), dim=-1)
+            zero = norms == 0
+            dev = (norms[~zero] - 1).abs().max().item()
+            self.zero_rows[key] = int(zero.sum().item())
+            self.max_norm_dev = max(self.max_norm_dev, dev)
+            if dev > UNIT_ATOL:
+                raise RuntimeError(f"CMI step {self.steps}: a row of {key} has norm "
+                                   f"{1 + dev} after the projection")
+        self.steps += 1
+
+    def summary(self) -> dict:
+        return {"steps_checked": self.steps, "max_row_norm_dev": self.max_norm_dev,
+                "unit_atol": UNIT_ATOL, "zero_rows": self.zero_rows}
+
+
+def phase_mind_routing_draw(shape, reps: int = ROUTING_DRAW_REPS) -> dict:
+    """What MIND's routing logits [B, K, L] cost a train step and a request
+    on the card, each draw synchronized and timed ``reps`` times: the train
+    step's draw on the card from its generator, the serving draw (kept after
+    its first call), and, for comparison, a draw on the host from a CPU
+    generator copied to the card."""
+    from rec_pangu_tpu_torch.ops.multi_interest import draw_routing_logits
+
+    dev = torch.device("cuda")
+
+    def host_draw(i):
+        return torch.randn(shape, generator=torch.Generator().manual_seed(i)).to(dev)
+
+    draws = {"train_step_device_draw": lambda i: draw_routing_logits(shape, i, dev),
+             "serving_kept_draw": lambda i: draw_routing_logits(shape, None, dev),
+             "host_draw_and_copy": host_draw}
+    out = {"phase": "mind_routing_draw", "shape": list(shape), "reps": reps}
+    for key, draw in draws.items():
+        draw(0)
+        times = []
+        for i in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            draw(i + 1)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        out[f"{key}_p50_ms"] = statistics.median(times)
+    return out
+
+
+def phase_interest_zoo(tmp: str, devices=("cuda", "cpu")) -> dict:
+    """The multi-interest family at bench.py's sequence width, model by
+    model (INTEREST_ZOO): checkpoint, retrieval serving (K1 a request; each
+    item scored by its best interest, score_items), eval on the bundled data
+    card against CPU, the fused fit (asserted; CMI's host negatives and
+    projection checked after every step, CMIChecks), card against CPU
+    (three fused steps at a cut corpus; MIND's routing logits drawn once
+    on the host and handed to both, CMI projected as fit projects it).
+    ComirecSA in full: SEQ_REQUESTS requests, SEQ_CPU_CHECKS whole requests
+    against the CPU, profiles, GRAPH_EPOCHS x FIT_TRAIN_BATCHES and
+    IOC_STD_STEPS standard steps; the others CLASSIC_REQUESTS requests (their first IOC_CPU_USERS
+    histories against the CPU) and GRAPH_EPOCHS x GRAPH_SHORT_BATCHES;
+    MIND's routing draws timed (phase_mind_routing_draw).
+    Emits each phase; returns the summaries by model."""
+    device = devices[0]
+    per_batch, per_step = INTEREST_KERNELS
+    zoo = {}
+    for name, config, seed in INTEREST_ZOO:
+        full = name == "ComirecSA"
+        label = name.lower()
+        t0 = time.perf_counter()
+        m_path = os.path.join(tmp, f"{label}.ckpt")
+        m_enc_dict = write_model_checkpoint(m_path, name, config, seed)
+        emit({"phase": f"{label}_checkpoint", "seconds": time.perf_counter() - t0,
+              "bytes": os.path.getsize(m_path)})
+        m_serving, m_model, m_profiled = phase_model_serving(
+            m_path, m_enc_dict, name, config, per_batch, seed + 2, device,
+            requests=SEQ_REQUESTS if full else CLASSIC_REQUESTS, label=label,
+            cpu_users=SEQ_BATCH if full else IOC_CPU_USERS)
+        emit(m_serving)
+        if full and device == "cuda":
+            emit(phase_seq_profile(m_model, m_profiled, f"{label}_profile"))
+        del m_model
+        torch.cuda.empty_cache()
+        emit(phase_seq_eval(device, name, config, per_batch, label))
+        m_ckpt = os.path.join(tmp, f"{label}_ckpt")
+        m_training, m_loader = phase_model_training(
+            m_path, m_enc_dict, m_ckpt, name, config, per_step, per_batch, seed + 3,
+            IOC_STD_STEPS if full else 0, GRAPH_EPOCHS, device, label,
+            FIT_TRAIN_BATCHES if full else GRAPH_SHORT_BATCHES, INTEREST_STEP_LOOKUPS[name],
+            CMIChecks() if name == "CMI" else None)
+        emit(m_training)
+        zoo[name] = {"serving": m_serving, "training": m_training}
+        torch.cuda.empty_cache()
+        emit(phase_model_card_vs_cpu(name, config, devices, SEQ_LOSS_RTOL, label))
+        if name == "MIND" and device == "cuda":
+            emit(phase_mind_routing_draw((SEQ_BATCH, int(config["K"]), SEQ_L)))
+        if full and device == "cuda":
+            m_batches = [b for _, b in zip(range(CLASSIC_PROFILED), m_loader)]
+            emit(phase_seq_train_profile(
+                m_path, m_enc_dict, m_batches, m_ckpt,
+                functools.partial(load_seq_model, name=name, config=config),
                 f"{label}_train_profile"))
             del m_batches
         del m_loader
@@ -4498,6 +4703,7 @@ def main() -> int:
             torch.cuda.empty_cache()
 
         graph_zoo = phase_graph_zoo(tmp)
+        interest_zoo = phase_interest_zoo(tmp)
 
     # shapes past the kernels' limits: the plain versions on the card
     emit(phase_past_limits())
@@ -4573,8 +4779,10 @@ def main() -> int:
                     legs["training"]["standard_launches"]["embedding_grad"])
         # the session-graph family's paths: K1 of the nodes a request, step and
         # eval batch, K3 a fused step, K2 a standard step (SRGNN's); GCSAN's
-        # K4f a request, step and eval batch and K4b a fused step
-        for name, legs in graph_zoo.items():
+        # K4f a request, step and eval batch and K4b a fused step; the
+        # multi-interest family's: K1 a request and eval batch and once or
+        # twice a step, K3 a fused step, K2 a standard step (ComirecSA's)
+        for name, legs in list(graph_zoo.items()) + list(interest_zoo.items()):
             label = name.lower()
             for leg, counts in (("serving", legs["serving"]["launches"]),
                                 ("training", legs["training"]["launches"]),

@@ -115,6 +115,17 @@ class SequenceModelBase(nn.Module):
     # False: the loss never reaches the captured CE, so the fused step passes
     # no dense gradient to the table's Adam pass
     fused_uses_ce = True
+    # [B] id columns whose gradient-carrying reads join the history's one
+    # lookup: the trainer builds lookup_all = [hist | extras] [B, L + extras]
+    # (CLRec: the target; CMI: the target and the negative)
+    lookup_extra = ()
+    # True: the trainer draws neg_items [B] uniform in [1, vocab - 1) from its
+    # host generator before it builds lookup_all (CMI)
+    host_negatives = False
+    # flax paths of the weights whose rows the trainer puts back on the unit
+    # sphere before the first step and after each (projected training: CMI's
+    # item table and interest bank); zero rows stay zero
+    renorm_param_paths = ()
 
     def __init__(self, enc_dict: dict, config: dict, seed: int = 1029):
         super().__init__()

@@ -9,7 +9,7 @@ drop the same elements and the masks do not depend on the device.
 
 Streams: the transformer's layers use (layer, 0-2); IOCRec's global
 attention (256, 0-1); the classic sequence models (257, 0-2) and (258, 0),
-NISER's item dropout (258, 1) (``sequence_enc``); the ranking and
+NISER's item dropout (258, 1), CMI's (258, 2) (``sequence_enc``); the ranking and
 multi-task families from ``MLP_DROPOUT_LAYER`` up: an ``MLP`` (a multi-task
 ``TaskTower`` too) with stream ``s`` draws layer i's mask on (512 + 16 s +
 i, 0), the attention of ``ops/attention.py`` on (``ATTENTION_DROPOUT_LAYER``

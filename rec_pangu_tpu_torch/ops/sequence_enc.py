@@ -49,12 +49,13 @@ from .kernels.fused_encoder import (ATTN_OUT_SITE, ATTN_SITE, FFN_OUT_SITE, addi
                                     attention_scores, check_rate, fused_encoder, layer_masks,
                                     routes_to_kernel)
 
-# dropout streams (``dropout_scale``'s layer and site) of the classic models'
-# and NISER's sites, on layers above every transformer layer's and IOCRec's
+# dropout streams (``dropout_scale``'s layer and site) of the classic models',
+# NISER's and CMI's sites, on layers above every transformer layer's and IOCRec's
 # (``global_attn.DROPOUT_LAYER`` 256): no two sites draw the same masks
 NARM_EMB_DROPOUT, NARM_CT_DROPOUT = (257, 0), (257, 1)
 STAMP_DROPOUT, NEXTITNET_DROPOUT = (257, 2), (258, 0)
 NISER_ITEM_DROPOUT = (258, 1)
+CMI_EMB_DROPOUT = (258, 2)
 
 
 def _dense(n_in: int, n_out: int, generator: torch.Generator, bias: bool = True,

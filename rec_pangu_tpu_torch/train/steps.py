@@ -49,6 +49,25 @@ def adam_moments(model, optimizer: Optional[torch.optim.Optimizer]) -> Dict[str,
             "nu": jax_tree(model, moment("exp_avg_sq"))}
 
 
+def make_param_renorm(model, paths) -> Callable[[], None]:
+    """The projection of the model's weights at the flax ``paths`` (its
+    ``renorm_param_paths``): every row divided by its norm (at least 1e-12)
+    in place, so zero rows stay zero, as the JAX package's
+    ``make_param_renorm`` maps its params.  Adam's moments are not touched."""
+    by_path = {path: tensor for _, path, tensor, _ in model.jax_leaves()}
+    missing = [p for p in map(tuple, paths) if p not in by_path]
+    if missing:
+        raise ValueError(f"{type(model).__name__} has no weights at {missing}")
+    weights = [by_path[tuple(p)] for p in paths]
+
+    @torch.no_grad()
+    def renorm() -> None:
+        for w in weights:
+            w.div_(torch.linalg.vector_norm(w, dim=-1, keepdim=True).clamp_min_(1e-12))
+
+    return renorm
+
+
 class StandardStep:
     """forward, ``loss.backward()``, one Adam step over every parameter."""
 

@@ -26,7 +26,9 @@ fresh state, or the standard step with ``REC_PANGU_TPU_FUSED_ADAM=0``), then
 ``evaluate_model`` on the valid loader, a row of ``log.csv``, the
 ``model_e_{i}`` checkpoint and early stopping.  ``seed`` seeds the
 generator the steps draw their dropout seeds (and sampled negatives) from;
-``mesh`` and ``steps_per_call > 1`` raise ``NotImplementedError``.
+``mesh`` and ``steps_per_call > 1`` raise ``NotImplementedError``.  A model
+with ``renorm_param_paths`` (CMI) trains projected: those rows are put back
+on the unit sphere at the start of ``fit`` and after every step.
 
 ``device=None`` means the CUDA card (see ``utils/device.py``); a method's
 ``device`` argument, when given, overrides the trainer's.
@@ -51,7 +53,7 @@ from ..ops.graph import attach_session_graph
 from ..utils.device import DeviceLike, resolve_device
 from .ckpt import load_checkpoint, save_checkpoint
 from .fused_update import maybe_enable_fused_update, maybe_enable_seq_fused_update
-from .steps import StandardStep, strip_host_keys
+from .steps import StandardStep, make_param_renorm, strip_host_keys
 
 logger = logging.getLogger("rec_pangu_tpu_torch")
 
@@ -73,7 +75,8 @@ class _BaseTrainer:
         self.step = 0  # optimizer steps taken; carried from a loaded checkpoint
         self.model = None
         self._train_step = None  # StandardStep or FusedStep, built by fit
-        self._aug_rng = None     # the host augmentations' generator (SequenceTrainer)
+        self._renorm = None      # the projection after each step (SequenceTrainer.fit)
+        self._aug_rng = None     # the host augmentations' and negatives' generator
 
     def _device(self, device: DeviceLike) -> torch.device:
         return self.device if device is None else resolve_device(device)
@@ -304,6 +307,10 @@ class SequenceTrainer(_BaseTrainer):
         else:
             self._train_step = StandardStep(model, lr, steps_per_epoch, lr_scheduler_type,
                                             scheduler_params, generator)
+        paths = tuple(getattr(model, "renorm_param_paths", ()) or ())
+        self._renorm = make_param_renorm(model, paths) if paths else None
+        if self._renorm is not None:  # the reference's first forward normalizes the init
+            self._renorm()
         logger.info("Model Starting Training")
         log_rows: List[Dict[str, float]] = []
         best_epoch, best_metric = -1, -np.inf
@@ -342,10 +349,13 @@ class SequenceTrainer(_BaseTrainer):
     def _step(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         """One train step on a host batch: the views of a ``host_aug`` model,
         the joint lookup ids of a ``lookup_extra`` model, the host session
-        graph of a ``session_graph`` model, id check, upload, the step."""
+        graph of a ``session_graph`` model, id check, upload, the step, then
+        the projection of a ``renorm_param_paths`` model."""
         inputs = self.model.upload_batch(self._attach_host_keys(batch), self._fit_device,
                                          train=True)
         out = self._train_step(inputs, self.step)
+        if self._renorm is not None:
+            self._renorm()
         self.step += 1
         return out
 
@@ -356,9 +366,11 @@ class SequenceTrainer(_BaseTrainer):
         * a ``host_aug`` model (IOCRec, ContraRec): ``aug_all`` = [hist; aug1;
           aug2] [3B, L], the two views drawn from the trainer's
           ``np.random.default_rng(10_301)``;
-        * a model with ``lookup_extra`` (CLRec: the target item), when the
-          batch holds every extra: ``lookup_all`` = [hist | extras]
-          [B, L + extras] int32;
+        * a ``host_negatives`` model (CMI): ``neg_items`` [B] int32 uniform
+          in [1, max(vocab - 1, 2)), drawn from the same generator;
+        * a model with ``lookup_extra`` (CLRec: the target item; CMI: the
+          target and the negative), when the batch holds every extra:
+          ``lookup_all`` = [hist | extras] [B, L + extras] int32;
         * a ``session_graph`` model (the SRGNN family): the host session
           graph's ``graph_nodes`` and ``graph_alias`` [B, L] int32
           (``ops/graph.attach_session_graph``).
@@ -372,6 +384,12 @@ class SequenceTrainer(_BaseTrainer):
             views = [host_augment_sequences(self._aug_rng, hist, model.beta_a, model.beta_b,
                                             model.mask_token) for _ in range(2)]
             batch = {**batch, "aug_all": np.concatenate([hist] + views, axis=0)}
+        if getattr(model, "host_negatives", False) and "neg_items" not in batch:
+            if self._aug_rng is None:
+                self._aug_rng = np.random.default_rng(10_301)
+            high = max(model.item_emb.vocab_size - 1, 2)
+            batch = {**batch, "neg_items": self._aug_rng.integers(1, high, hist.shape[0])
+                     .astype(np.int32)}
         extras = getattr(model, "lookup_extra", ())
         if extras and "lookup_all" not in batch and all(k in batch for k in extras):
             parts = [hist.reshape(hist.shape[0], -1)]
