@@ -136,6 +136,23 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                projection checked after every step), card_vs_cpu;
                ComirecSA also whole requests against the CPU, profiles and
                standard steps (K2).
+20d. graph_cf -- NGCF at the NGCF paper's width (embedding 64, three
+               layers of 64, dropout 0.1, batch 1024) on a graph of Gowalla's
+               size drawn from the seed (29,858 users, 40,981 items,
+               1,027,370 interactions; R_norm 4.89 GB on the card): R_norm's
+               build, GraphTrainer.fit for one epoch cut to 20 steps,
+               evaluate_model over every test user (its top-k's share),
+               peak memory; then the card against the CPU at ratings.csv's
+               size (losses, weights after three steps, metrics).  Plain
+               torch: no kernel of the port.
+    rank_resume -- (after 6) RankTrainer.fit(resume_from=model_e_1) for one
+               epoch: the weights and moments bit-equal to model_e_2's (K1,
+               K3 once a step).
+    train_profile_dir -- (after 8) fit(profile_dir=...) over a few DeepFM
+               steps: the Chrome trace names K1's and K3's kernels.
+    iocrec_k4 -- (after 17) IOCRec's fit one step a call and four steps a
+               call from the same weights: the same weights, each kernel of
+               the step once a step, examples/s of both.
 21. past_limits -- SASRec at max_len 100 and at hidden size 256, IOCRec with
                K = 8 and at max_len 80: retrieval and two fused steps each,
                card against CPU, on the plain versions of the kernels whose
@@ -168,7 +185,7 @@ import numpy as np
 import torch
 
 import rec_pangu_tpu_torch as port
-from rec_pangu_tpu_torch.data import DataLoader, get_dataloader
+from rec_pangu_tpu_torch.data import DataLoader, GeneralGraphDataset, get_dataloader
 from rec_pangu_tpu_torch.eval.retrieval import l2_normalize
 from rec_pangu_tpu_torch.ops.embedding import check_ids, check_item_ids, padded_rows
 from rec_pangu_tpu_torch.ops.kernels import _build
@@ -185,8 +202,10 @@ from rec_pangu_tpu_torch.serving.scorer import score_items
 from rec_pangu_tpu_torch.convert import jax_variables
 from rec_pangu_tpu_torch.models.multi_task import OMOE
 from rec_pangu_tpu_torch.models.multi_task.common import TaskTower
-from rec_pangu_tpu_torch.train import RankTrainer, SequenceTrainer, save_checkpoint
+from rec_pangu_tpu_torch.train import (GraphTrainer, RankTrainer, SequenceTrainer,
+                                       load_checkpoint, save_checkpoint)
 from rec_pangu_tpu_torch.train.fused_update import fused_tables, maybe_enable_fused_update
+from rec_pangu_tpu_torch.train.steps import StandardStep
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
@@ -4506,6 +4525,393 @@ def phase_past_limits(devices=("cuda", "cpu")) -> dict:
     return out
 
 
+# ------------------------------------------------------- graph CF, trainer rest
+# Wang et al., "Neural Graph Collaborative Filtering", SIGIR 2019, section 4.1
+# and Table 1: Gowalla's size, and the paper's widths
+GOWALLA_USERS, GOWALLA_ITEMS, GOWALLA_EDGES = 29_858, 40_981, 1_027_370
+NGCF_CONFIG = {"embedding_dim": 64, "hidden_size": (64, 64, 64), "dropout": 0.1, "lmbd": 1e-5}
+NGCF_BATCH = 1024
+NGCF_STEPS = 20            # the one epoch cut to this many steps
+NGCF_TOPN = 20             # the paper's recall@20 and ndcg@20
+NGCF_CPU_STEPS = 3         # card against CPU at ratings.csv's size
+NGCF_LOSS_RTOL = 1e-5      # ... the losses
+NGCF_PARAM_ATOL = 1e-5     # ... the weights after the steps, on all but NGCF_HANDFUL elements
+NGCF_HANDFUL = 16          # (2 lr at most: Adam moves a gradient near 0 by up to lr a step)
+NGCF_METRIC_ATOL = 5e-3    # ... evaluate_model's metrics: 3 of 610 users' top-20 may flip
+NGCF_PROFILED = 3          # NGCF steps traced by the profiler
+NGCF_PRODUCT_REPS = 5      # timed calls of each product layout
+RATINGS_CSV = os.path.join(ROOT, "examples", "ranking", "sample_data", "ratings.csv")
+IOC_K = 4                  # bench.py's IOCRec leg: steps_per_call=4 (bench.py:253)
+PROFILE_DIR_STEPS = 4      # DeepFM steps of the fit(profile_dir=...) phase
+
+
+class _CutGraph:
+    """A GeneralGraphDataset whose epoch is cut to ``steps`` batches."""
+
+    def __init__(self, dataset, steps: int, batch: int):
+        self.dataset, self.size = dataset, steps * batch
+        self.test_gd = dataset.test_gd
+
+    def __len__(self):
+        return self.size
+
+    def sample(self, batch_size: int):
+        return self.dataset.sample(batch_size)
+
+
+def gowalla_like(seed: int):
+    """(train, test) frames of GOWALLA_EDGES distinct (user, item) pairs at
+    Gowalla's user and item counts, drawn from the seed with skewed degrees
+    (lognormal user activity, Zipf item popularity), split 80/20 at
+    random."""
+    rng = np.random.default_rng(seed)
+    user_w = rng.lognormal(0.0, 1.0, GOWALLA_USERS)
+    item_w = 1.0 / np.arange(1, GOWALLA_ITEMS + 1) ** 0.8
+    item_perm = rng.permutation(GOWALLA_ITEMS)
+    keys = np.zeros(0, np.int64)
+    while len(keys) < GOWALLA_EDGES:
+        n = GOWALLA_EDGES
+        u = rng.choice(GOWALLA_USERS, n, p=user_w / user_w.sum())
+        i = item_perm[rng.choice(GOWALLA_ITEMS, n, p=item_w / item_w.sum())]
+        keys = np.unique(np.concatenate([keys, u.astype(np.int64) * GOWALLA_ITEMS + i]))
+    keys = rng.permutation(keys)[:GOWALLA_EDGES]
+    n_train = int(len(keys) * 0.8)
+    frame = lambda k: {"user_id": k // GOWALLA_ITEMS, "item_id": k % GOWALLA_ITEMS}
+    return frame(keys[:n_train]), frame(keys[n_train:])
+
+
+def ratings_graph():
+    """The JAX package's graph-CF quality protocol without pandas
+    (scripts/parity_common.load_graph_cf): ratings.csv's users and items
+    renumbered in sorted order, rows shuffled by RandomState(2026), split
+    80/20.  Returns (train, test, users, items)."""
+    raw = np.loadtxt(RATINGS_CSV, delimiter=",", skiprows=1, usecols=(0, 1), dtype=np.int64)
+    users, u = np.unique(raw[:, 0], return_inverse=True)
+    items, i = np.unique(raw[:, 1], return_inverse=True)
+    order = np.random.RandomState(2026).permutation(len(raw))
+    u, i = u[order], i[order]
+    n_train = int(len(raw) * 0.8)
+    return ({"user_id": u[:n_train], "item_id": i[:n_train]},
+            {"user_id": u[n_train:], "item_id": i[n_train:]}, len(users), len(items))
+
+
+def ngcf_flops(users: int, items: int, config: dict) -> int:
+    """A training step's products: a layer's two [U, I] products forward
+    and their two backward, 2 U I D each."""
+    dims = [config["embedding_dim"]] + list(config["hidden_size"])
+    return sum(4 * 2 * users * items * d for d in dims[:-1])
+
+
+def phase_graph_cf(tmp: str, devices=("cuda", "cpu")) -> dict:
+    """NGCF at the paper's width at Gowalla's size: R_norm built on the card,
+    GraphTrainer.fit for one epoch cut to NGCF_STEPS steps (each timed to
+    the end of its device work), evaluate_model over every test user
+    (its top-k's share from the profiler), peak memory.  Then the card
+    against the CPU at ratings.csv's size (610 x 9,724), the same weights
+    and batches, dropout 0: NGCF_CPU_STEPS steps' losses, the weights
+    after them, and evaluate_model's metrics."""
+    from torch.profiler import ProfilerActivity, profile
+
+    t_start = time.perf_counter()
+    train_frame, test_frame = gowalla_like(SEED + 800)
+    train_ds = GeneralGraphDataset(train_frame, GOWALLA_USERS, GOWALLA_ITEMS,
+                                             seed=SEED + 801)
+    test_ds = GeneralGraphDataset(test_frame, GOWALLA_USERS, GOWALLA_ITEMS,
+                                            phase="test")
+    data_s = time.perf_counter() - t_start
+    dev = devices[0]
+    sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
+    if dev == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    g = train_ds.generate_graph(dev)
+    sync()
+    build_ms = (time.perf_counter() - t0) * 1e3
+    built_bytes = torch.cuda.memory_allocated() if dev == "cuda" else None
+    model = port.get_model("NGCF")(num_user=GOWALLA_USERS, num_item=GOWALLA_ITEMS, g=g,
+                                   seed=SEED + 802, **NGCF_CONFIG)
+    trainer = GraphTrainer(device=dev, model_ckpt_dir=os.path.join(tmp, "ngcf_ckpt"))
+    inner, times, losses = trainer._step, [], []
+
+    def step(batch):
+        t0 = time.perf_counter()
+        out = inner(batch)
+        sync()
+        times.append(time.perf_counter() - t0)
+        losses.append(out["loss"].detach())
+        return out
+
+    trainer._step = step
+    reset_launches()
+    t0 = time.perf_counter()
+    trainer.fit(model, _CutGraph(train_ds, NGCF_STEPS, NGCF_BATCH), epoch=1, lr=LR,
+                batch_size=NGCF_BATCH, seed=SEED)
+    fit_s = time.perf_counter() - t0
+    del trainer._step
+    fit_peak = torch.cuda.max_memory_allocated() if dev == "cuda" else None
+    require_launches(read_launches(), {}, "NGCF fit")  # plain torch: no kernel of the port
+    losses = [float(x) for x in losses]
+    if len(times) != NGCF_STEPS or not np.all(np.isfinite(losses)):
+        raise RuntimeError(f"NGCF's fit did not run {NGCF_STEPS} clean steps: {losses}")
+    t0 = time.perf_counter()
+    metric = trainer.evaluate_model(model, train_ds, test_ds, topN=NGCF_TOPN)
+    eval_s = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.evaluate_model(model, train_ds, test_ds, topN=NGCF_TOPN)
+        sync()
+        eval_profiled_s = time.perf_counter() - t0
+    busy_s, ops = profile_ops(prof, 1, "eval")
+    topk_s = sum(e.self_device_time_total for e in prof.key_averages()
+                 if "topk" in e.key.lower() and not e.is_user_annotation
+                 and e.device_type != torch.autograd.DeviceType.CPU) / 1e6
+    if not all(0.0 <= v <= 1.0 for v in metric.values()):
+        raise RuntimeError(f"NGCF's metrics out of range: {metric}")
+    peak = torch.cuda.max_memory_allocated() if dev == "cuda" else None
+    flops = ngcf_flops(GOWALLA_USERS, GOWALLA_ITEMS, NGCF_CONFIG)
+    steps = [train_ds.sample(NGCF_BATCH) for _ in range(NGCF_PROFILED)]
+    model.train()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for batch in steps:
+            trainer._step(batch)
+        sync()
+        step_wall_s = time.perf_counter() - t0
+    step_busy_s, step_ops = profile_ops(prof, NGCF_PROFILED, "step")
+    products = ngcf_product_times(g, NGCF_CONFIG["embedding_dim"]) if dev == "cuda" else None
+    del model, g, trainer
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    summary = {
+        "phase": "graph_cf", "model": "NGCF", "config": NGCF_CONFIG,
+        "source": "Wang et al., NGCF, SIGIR 2019, sec. 4.1, Table 1 (Gowalla)",
+        "users": GOWALLA_USERS, "items": GOWALLA_ITEMS, "edges": GOWALLA_EDGES,
+        "train_edges": len(train_ds), "test_users": len(test_ds), "batch": NGCF_BATCH,
+        "r_norm_bytes": GOWALLA_USERS * GOWALLA_ITEMS * 4, "r_norm_build_ms": build_ms,
+        "step": step_stats(times, NGCF_BATCH), "step_flops": flops,
+        "step_bound_ms": flops / peak_fp32(torch.cuda.get_device_name(0)) * 1e3
+        if dev == "cuda" else None,
+        "fit_s": fit_s, "losses": losses, "eval_s": eval_s,
+        "eval_profiled_s": eval_profiled_s, "eval_device_busy_s": busy_s,
+        "eval_topk_device_s": topk_s, "eval_topk_share": topk_s / eval_profiled_s,
+        "eval_device_ops": ops, "metric": metric, "peak_allocated_bytes": peak,
+        "allocated_after_build_bytes": built_bytes, "fit_peak_allocated_bytes": fit_peak,
+        "profiled_steps": NGCF_PROFILED, "step_wall_ms": step_wall_s * 1e3 / NGCF_PROFILED,
+        "step_device_busy_ms": step_busy_s * 1e3 / NGCF_PROFILED,
+        "step_device_idle_share": 1.0 - step_busy_s / step_wall_s, "step_device_ops": step_ops,
+        "products": products, "data_s": data_s,
+    }
+    summary["card_vs_cpu"] = ngcf_card_vs_cpu(devices)
+    summary["seconds"] = time.perf_counter() - t_start
+    return summary
+
+
+def ngcf_product_times(g: torch.Tensor, dim: int) -> dict:
+    """CUDA-event medians of the step's two product layouts on R_norm [U, I]
+    against a [., dim] operand: ``R @ X`` (the messages to the users, and
+    the backward of the items' products), ``R^T @ Y`` (a transposed view:
+    the messages to the items), and ``R @ X`` through a transposed copy
+    of R (4.89 GB more at Gowalla's size) as ``(R^T)^T @ X``: figures for
+    whether such a copy would pay."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    x = torch.randn(g.shape[1], dim, device="cuda", generator=gen)
+    y = torch.randn(g.shape[0], dim, device="cuda", generator=gen)
+    rt = g.t().contiguous()
+    calls = {"r_x_ms": lambda: torch.matmul(g, x), "rt_view_y_ms": lambda: torch.matmul(g.t(), y),
+             "rt_copy_t_x_ms": lambda: torch.matmul(rt.t(), x)}
+    out = {}
+    for name, fn in calls.items():
+        fn()
+        times = []
+        for _ in range(NGCF_PRODUCT_REPS):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        out[name] = statistics.median(times)
+    out["gflop_each"] = 2 * g.shape[0] * g.shape[1] * dim / 1e9
+    del rt
+    torch.cuda.empty_cache()
+    return out
+
+
+def ngcf_card_vs_cpu(devices) -> dict:
+    train, test, users, items = ratings_graph()
+    runs = {}
+    for dev in devices:
+        train_ds = GeneralGraphDataset(train, users, items, seed=SEED + 810)
+        test_ds = GeneralGraphDataset(test, users, items, phase="test")
+        model = port.get_model("NGCF")(num_user=users, num_item=items,
+                                       g=train_ds.generate_graph(dev), seed=SEED + 811,
+                                       **{**NGCF_CONFIG, "dropout": 0.0}).to(dev)
+        step = StandardStep(model, LR, 1,
+                                             generator=torch.Generator().manual_seed(SEED))
+        model.train()
+        losses = []
+        for i in range(NGCF_CPU_STEPS):
+            batch = model.upload_batch(train_ds.sample(NGCF_BATCH), torch.device(dev),
+                                       train=True)
+            losses.append(float(step(batch, i)["loss"].detach()))
+        weights = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+        metric = GraphTrainer(device=dev).evaluate_model(model, train_ds, test_ds,
+                                                               topN=NGCF_TOPN)
+        runs[dev] = (losses, weights, metric)
+        del model, step
+    (card_l, card_w, card_m), (cpu_l, cpu_w, cpu_m) = (runs[d] for d in devices)
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(card_l, cpu_l))
+    diffs = {k: (card_w[k] - cpu_w[k]).abs() for k in cpu_w}
+    beyond = sum(int((d > NGCF_PARAM_ATOL).sum()) for d in diffs.values())
+    max_diff = max(float(d.max()) for d in diffs.values())
+    metric_diff = max(abs(card_m[k] - cpu_m[k]) for k in cpu_m)
+    leg = {"users": users, "items": items, "steps": NGCF_CPU_STEPS,
+           "card_losses": card_l, "cpu_losses": cpu_l, "loss_max_rel_diff": loss_rel,
+           "param_max_abs_diff": max_diff, "param_elements_beyond_atol": beyond,
+           "card_metric": card_m, "cpu_metric": cpu_m, "metric_max_abs_diff": metric_diff,
+           "loss_rtol": NGCF_LOSS_RTOL, "param_atol": NGCF_PARAM_ATOL,
+           "handful": NGCF_HANDFUL, "metric_atol": NGCF_METRIC_ATOL}
+    if (loss_rel > NGCF_LOSS_RTOL or beyond > NGCF_HANDFUL or max_diff > 2 * LR
+            or metric_diff > NGCF_METRIC_ATOL):
+        raise RuntimeError(f"NGCF on the card differs from the CPU: {leg}")
+    return leg
+
+
+def ckpt_leaves(tree, prefix=()) -> dict:
+    """{path: array} of a nested checkpoint tree (None leaves dropped)."""
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(ckpt_leaves(v, prefix + (str(k),)))
+        return out
+    return {} if tree is None or isinstance(tree, str) else {prefix: np.asarray(tree)}
+
+
+def tree_diff(got, want) -> tuple:
+    """(max abs difference, bit-equal) of two checkpoint trees of one shape."""
+    got, want = ckpt_leaves(got), ckpt_leaves(want)
+    if got.keys() != want.keys():
+        raise RuntimeError(f"trees differ in keys: {sorted(got.keys() ^ want.keys())[:8]}")
+    diff = max(float(np.abs(got[k].astype(np.float64) - want[k].astype(np.float64)).max())
+               for k in want)
+    return diff, all(np.array_equal(got[k], want[k]) for k in want)
+
+
+def phase_rank_resume(path: str, enc_dict: dict, score, ckpt_dir: str, tmp: str,
+                      device: str = "cuda") -> dict:
+    """RankTrainer.fit(resume_from=model_e_1) on DeepFM at full width for one
+    epoch of phase_training's batches, on the fused step: the weights, the
+    table and its moments and the dense moments against that phase's
+    model_e_2 (K1-K3 sum in fixed orders: the same bits)."""
+    t0 = time.perf_counter()
+    train_loader = labelled_loader(score, TRAIN_BATCHES, SEED + 4)  # phase_training's
+    model = load_model(path, enc_dict, device)
+    trainer = RankTrainer(device=device, model_ckpt_dir=os.path.join(tmp, "resume_ckpt"))
+    reset_launches()
+    t1 = time.perf_counter()
+    trainer.fit(model, train_loader, None, epoch=1, lr=LR, log_rounds=10 ** 9,
+                resume_from=os.path.join(ckpt_dir, "model_e_1.ckpt"))
+    if device == "cuda":
+        torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t1
+    launches = read_launches()
+    require_launches(launches, {"embedding_lookup": TRAIN_BATCHES,
+                                "fused_adam": TRAIN_BATCHES}, "DeepFM resumed fit")
+    if not trainer._train_step.fused:
+        raise RuntimeError("the resumed fit did not take the fused step")
+    want = load_checkpoint(os.path.join(ckpt_dir, f"model_e_{EPOCHS}.ckpt"))
+    state = trainer._opt_state()
+    params = tree_diff(jax_variables(model)["params"], want["params"])
+    dense = tree_diff(state["params"], want["opt_state"]["params"])
+    tables = tree_diff(state["tables"], want["opt_state"]["tables"])
+    summary = {"phase": "rank_resume", "model": "DeepFM", "resumed_from": "model_e_1",
+               "against": f"model_e_{EPOCHS}", "steps": TRAIN_BATCHES,
+               "step": trainer.step, "launches": launches, "fit_s": fit_s,
+               "params_max_abs_diff": params[0], "params_bit_equal": params[1],
+               "dense_moments_max_abs_diff": dense[0], "dense_moments_bit_equal": dense[1],
+               "table_moments_max_abs_diff": tables[0], "table_moments_bit_equal": tables[1],
+               "seconds": time.perf_counter() - t0}
+    if trainer.step != want["step"] or not (params[1] and dense[1] and tables[1]):
+        raise RuntimeError(f"the resumed DeepFM differs from the uninterrupted run: {summary}")
+    return summary
+
+
+def phase_iocrec_k4(path: str, enc_dict: dict, tmp: str, device: str = "cuda") -> dict:
+    """IOCRec at bench.py's shape: SequenceTrainer.fit over FIT_TRAIN_BATCHES
+    batches with steps_per_call 1 and IOC_K, in turns (1, K, K, 1), from
+    the same weights (the trainer runs one step a call for every K): the
+    weights after every run equal, each kernel of the fused step launched
+    once a step in every run, examples/s of each (figures)."""
+    t0 = time.perf_counter()
+    runs = []
+    for k in (1, IOC_K, IOC_K, 1):  # in turns: the first run also pays one-time set-up
+        loader = seq_train_loader(FIT_TRAIN_BATCHES, SEED + 95)
+        model = load_seq_model(path, enc_dict, device, "IOCRec", IOC_CONFIG)
+        trainer = SequenceTrainer(device=device, model_ckpt_dir=os.path.join(tmp, "ioc_k_ckpt"))
+        sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+        sync()
+        reset_launches()
+        t1 = time.perf_counter()
+        trainer.fit(model, loader, None, epoch=1, lr=LR, log_rounds=10 ** 9, seed=SEED,
+                    steps_per_call=k)
+        sync()
+        fit_s = time.perf_counter() - t1
+        launches = read_launches()
+        if not trainer._train_step.fused:
+            raise RuntimeError(f"IOCRec's K = {k} fit did not take the fused step")
+        runs.append({"k": k, "fit_s": fit_s, "launches": launches,
+                     "examples_per_s": FIT_TRAIN_BATCHES * SEQ_BATCH / fit_s,
+                     "weights": {n: v.detach().cpu().clone()
+                                 for n, v in model.state_dict().items()}})
+        del model, trainer
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    per_step = ("embedding_lookup", "fused_adam", "fused_encoder", "fused_encoder_bwd",
+                "global_attn", "global_attn_bwd", "multimax_ce", "multimax_ce_bwd")
+    for run in runs:
+        require_launches(run["launches"], {k: FIT_TRAIN_BATCHES for k in per_step},
+                         f"IOCRec K = {run['k']} fit")
+    one = runs[0]["weights"]
+    unequal = sorted({n for run in runs[1:] for n in one
+                      if not torch.equal(one[n], run["weights"][n])})
+    k4 = [r for r in runs if r["k"] == IOC_K]
+    summary = {"phase": "iocrec_k4", "model": "IOCRec", "steps": FIT_TRAIN_BATCHES,
+               "steps_per_call": IOC_K, "batch": SEQ_BATCH, "launches": k4[0]["launches"],
+               "order": [r["k"] for r in runs], "fit_s": [r["fit_s"] for r in runs],
+               "examples_per_s": [r["examples_per_s"] for r in runs],
+               "weights_unequal": unequal, "seconds": time.perf_counter() - t0}
+    if unequal:
+        raise RuntimeError(f"IOCRec's K = {IOC_K} weights differ from K = 1's: {summary}")
+    return summary
+
+
+def phase_train_profile_dir(path: str, enc_dict: dict, score, tmp: str,
+                            device: str = "cuda") -> dict:
+    """RankTrainer.fit(profile_dir=...) over PROFILE_DIR_STEPS DeepFM steps:
+    the Chrome trace exists and names K1's and K3's kernels."""
+    t0 = time.perf_counter()
+    loader = labelled_loader(score, PROFILE_DIR_STEPS, SEED + 40)
+    model = load_model(path, enc_dict, device)
+    trainer = RankTrainer(device=device, model_ckpt_dir=os.path.join(tmp, "profile_ckpt"))
+    trace_dir = os.path.join(tmp, "trace")
+    reset_launches()
+    trainer.fit(model, loader, None, epoch=1, lr=LR, profile_dir=trace_dir)
+    launches = read_launches()
+    require_launches(launches, {"embedding_lookup": PROFILE_DIR_STEPS,
+                                "fused_adam": PROFILE_DIR_STEPS}, "DeepFM profiled fit")
+    with open(trainer.trace_path) as f:
+        names = {str(e.get("name", "")) for e in json.load(f)["traceEvents"]}
+    kernels = {k: sorted(n for n in names if k in n)[:2]
+               for k in ("embedding_lookup_kernel", "adam_tile_kernel")}
+    summary = {"phase": "train_profile_dir", "model": "DeepFM", "steps": PROFILE_DIR_STEPS,
+               "trace_bytes": os.path.getsize(trainer.trace_path),
+               "trace_events": len(names), "kernels_named": kernels, "launches": launches,
+               "seconds": time.perf_counter() - t0}
+    if not all(kernels.values()):
+        raise RuntimeError(f"the trace does not name K1's and K3's kernels: {summary}")
+    return summary
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -4548,10 +4954,14 @@ def main() -> int:
         training, trainer, train_loader = phase_training(path, enc_dict, score,
                                                          os.path.join(tmp, "ckpt"))
         emit(training)
+        rank_resume = phase_rank_resume(path, enc_dict, score, os.path.join(tmp, "ckpt"), tmp)
+        emit(rank_resume)
         batches = [b for _, b in zip(range(TRAIN_PROFILED), train_loader)]
         emit(phase_card_vs_cpu(path, enc_dict, batches[:CPU_STEPS]))
         emit(phase_train_profile(trainer, batches))
         del trainer, train_loader, batches
+        profile_dir = phase_train_profile_dir(path, enc_dict, score, tmp)
+        emit(profile_dir)
         shutil.rmtree(os.path.join(tmp, "ckpt"))
         torch.cuda.empty_cache()
         zoo = phase_ranking_zoo(tmp)
@@ -4608,6 +5018,9 @@ def main() -> int:
                                                        config=IOC_CONFIG),
                                      "iocrec_train_profile"))
         del ioc_loader, ioc_batches
+        torch.cuda.empty_cache()
+        ioc_k4 = phase_iocrec_k4(ioc_path, ioc_enc_dict, tmp)
+        emit(ioc_k4)
         shutil.rmtree(os.path.join(tmp, "ioc_ckpt"))
         os.remove(ioc_path)
         torch.cuda.empty_cache()
@@ -4704,6 +5117,8 @@ def main() -> int:
 
         graph_zoo = phase_graph_zoo(tmp)
         interest_zoo = phase_interest_zoo(tmp)
+        torch.cuda.empty_cache()
+        emit(phase_graph_cf(tmp))
 
     # shapes past the kernels' limits: the plain versions on the card
     emit(phase_past_limits())
@@ -4789,6 +5204,14 @@ def main() -> int:
                                 ("standard", legs["training"].get("standard_launches", {}))):
                 if counts.get(line["name"]):
                     line[f"launches_{label}_{leg}"] = counts[line["name"]]
+        # fit's resume, K-step calls and profiler trace: K1 and K3 once a
+        # step of the resumed and the profiled DeepFM fits; IOCRec's four-step
+        # calls once a step each
+        for leg, counts in (("rank_resume", rank_resume["launches"]),
+                            ("train_profile_dir", profile_dir["launches"]),
+                            ("iocrec_k4", ioc_k4["launches"])):
+            if counts.get(line["name"]):
+                line[f"launches_{leg}"] = counts[line["name"]]
         if line["name"] in ("fused_adam", "embedding_grad"):  # at the LR table's shape, D = 1
             line["d1"] = {k: v for k, v in d1[line["name"]].items() if k != "name"}
         if line["name"] in d40:  # at the multi-task family's width, D = 40

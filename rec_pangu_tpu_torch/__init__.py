@@ -14,8 +14,16 @@ transformer encoder, ``SequenceTrainer.evaluate_model``,
 backward kernels, the streamed full-softmax loss, the sequence fused step,
 ``SequenceTrainer.fit``); then IOCRec, ContraRec and CLRec, the classic
 sequence models, the ranking zoo, the multi-task zoo
-(``RankTrainer(num_task=2)``) and the session-graph family (SRGNN, GCSAN,
-NISER).
+(``RankTrainer(num_task=2)``), the session-graph family (SRGNN, GCSAN,
+NISER), the multi-interest family (ComirecSA, ComirecDR, MIND, SINE, Re4,
+CMI) and graph CF (NGCF, ``GeneralGraphDataset``, ``GraphTrainer``): all
+39 models.  ``fit`` resumes from a checkpoint of either package, takes
+``steps_per_call`` (one step a call for every K) and writes a profiler
+trace; ``set_pretrained_weights``,
+``BenchmarkTrainer``, wandb logging and ``utils`` (``seed_everything``,
+``beautify_json``, ``get_device_usage``) are the JAX package's.  Not yet
+ported: the serving export, scale-out (``mesh``) and the ops no model
+reaches (ROADMAP Queue 1 items 9-11).
 Entry points run on the CUDA card unless the caller passes
 ``device="cpu"``.
 """
@@ -23,6 +31,7 @@ __version__ = "0.1.0"
 
 from .data import get_dataloader
 from .models import get_model
-from .train import RankTrainer, SequenceTrainer
+from .train import GraphTrainer, RankTrainer, SequenceTrainer
 
-__all__ = ["get_dataloader", "get_model", "RankTrainer", "SequenceTrainer", "__version__"]
+__all__ = ["get_dataloader", "get_model", "GraphTrainer", "RankTrainer", "SequenceTrainer",
+           "__version__"]

@@ -1,4 +1,5 @@
 from .dataset import MultiTaskDataset, RankingDataset
+from .graph_dataset import GeneralGraphDataset
 from .encoder import (OOV_SENTINEL, FeatureSpec, encode_ranking_df,
                       fit_enc_dict, fit_sequence_enc_dict)
 from .loader import DataLoader
@@ -9,6 +10,7 @@ from .sequence import SequenceDataset, SequenceDatasetV2, seq_collate
 __all__ = [
     "OOV_SENTINEL",
     "FeatureSpec",
+    "GeneralGraphDataset",
     "fit_enc_dict",
     "fit_sequence_enc_dict",
     "encode_ranking_df",

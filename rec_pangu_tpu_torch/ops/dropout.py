@@ -1,7 +1,9 @@
 """Dropout by counter-hash masks: the same elements on the card and the CPU.
 
 A train step draws one seed a step (``draw_seed``, from the trainer's
-generator seeded by ``fit``'s ``seed``) and hands it to the model's forward.
+generator seeded by ``fit``'s ``seed``) and hands it to the model's forward;
+a resumed ``fit`` first skips the seeds of the steps already taken
+(``skip_seeds``), so it draws what the uninterrupted run would.
 Each dropout site draws its mask from the fused encoder's hash
 (``kernels/fused_encoder.dropout_scale``) of (seed, sample, stream,
 element), on a stream (layer, site) of its own, so no two sites of a model
@@ -14,7 +16,8 @@ multi-task families from ``MLP_DROPOUT_LAYER`` up: an ``MLP`` (a multi-task
 ``TaskTower`` too) with stream ``s`` draws layer i's mask on (512 + 16 s +
 i, 0), the attention of ``ops/attention.py`` on (``ATTENTION_DROPOUT_LAYER``
 + its block, 0-1), AFM's on (``AFM_DROPOUT``) and AITM's info dropout on
-(``AITM_INFO_DROPOUT``).
+(``AITM_INFO_DROPOUT``); NGCF's layer i on (``NGCF_DROPOUT_LAYER`` + i, 0)
+for the users and (..., 1) for the items.
 """
 from __future__ import annotations
 
@@ -30,11 +33,23 @@ MLP_STREAM_LAYERS = 16      # hidden layers an MLP's streams leave room for
 ATTENTION_DROPOUT_LAYER = 1024
 AFM_DROPOUT = (1536, 0)
 AITM_INFO_DROPOUT = (1537, 0)
+NGCF_DROPOUT_LAYER = 1600
 
 
 def draw_seed(generator: torch.Generator = None) -> int:
     """One dropout seed from ``generator`` (torch's default one when None)."""
     return int(torch.randint(0, _SEED_RANGE, (1,), generator=generator)[0])
+
+
+def skip_seeds(generator: torch.Generator, n: int) -> None:
+    """Advance ``generator`` past ``n`` ``draw_seed`` calls (a resumed
+    ``fit`` then draws the seeds of the steps after the restored ones).
+    A draw of many seeds advances the CPU generator as as many single
+    draws do."""
+    while n > 0:
+        k = min(int(n), 1 << 16)
+        torch.randint(0, _SEED_RANGE, (k,), generator=generator)
+        n -= k
 
 
 def feature_dropout(x: torch.Tensor, rate: float, seed: int, stream: Tuple[int, int]

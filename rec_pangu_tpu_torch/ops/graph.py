@@ -1,5 +1,5 @@
-"""Session graphs, the JAX package's ``ops/graph.py``: fixed-shape dense
-session graphs and the SR-GNN cell.
+"""Session graphs and NGCF's layer, the JAX package's ``ops/graph.py``:
+fixed-shape dense session graphs, the SR-GNN cell and ``NGCFLayer``.
 
 Per history (ids [L], mask [L]) the graph's nodes are its distinct valid
 items in ascending order, padded with 0 (``nodes`` [L]); ``alias`` [L]
@@ -25,6 +25,11 @@ the reversed graph.
 
 The edge counts are small integers, exact in float32 in any summation
 order, so host and device graphs agree bit for bit with the JAX package's.
+
+``NGCFLayer`` is NGCF's bipartite message passing: given a node set's
+aggregated neighbour messages ``side`` and its own embeddings ``ego``,
+``leaky_relu(W1 ego + W1 side + W2 (ego * side), 0.2)``, then dropout
+(the hash masks of ``ops/dropout.py``), then ``safe_l2norm``.
 """
 from __future__ import annotations
 
@@ -34,6 +39,9 @@ import numpy as np
 import torch
 from torch import nn
 
+from .dropout import feature_dropout
+from .initializers import flax_xavier_normal_
+from .numerics import safe_l2norm
 from .sequence_enc import _dense, _linear_leaves
 
 _BIG = 2 ** 30  # the sort key of a padded position: after every item id
@@ -139,3 +147,31 @@ class SRGNNCell(nn.Module):
 
     def jax_leaves(self):
         return _linear_leaves(self, ("in_conv", "out_conv", "lin_ih", "lin_hh"))
+
+
+class NGCFLayer(nn.Module):
+    """NGCF's layer (see the module's docstring): ``W1`` and ``W2`` are flax
+    ``Dense`` layers with xavier-normal kernels and zero biases, shared by
+    the users and the items."""
+
+    def __init__(self, in_dim: int, out_dim: int, dropout: float = 0.1,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        gen = generator if generator is not None else torch.Generator().manual_seed(0)
+        self.dropout = float(dropout)
+        self.W1 = nn.Linear(in_dim, out_dim)
+        self.W2 = nn.Linear(in_dim, out_dim)
+        for layer in (self.W1, self.W2):
+            flax_xavier_normal_(layer.weight, gen)
+            nn.init.zeros_(layer.bias)
+
+    def forward(self, side: torch.Tensor, ego: torch.Tensor, train: bool = False,
+                seed: int = 0, stream: Tuple[int, int] = (0, 0)) -> torch.Tensor:
+        out = torch.nn.functional.leaky_relu(
+            self.W1(ego) + self.W1(side) + self.W2(ego * side), negative_slope=0.2)
+        if train:
+            out = feature_dropout(out, self.dropout, seed, stream)
+        return safe_l2norm(out)
+
+    def jax_leaves(self):
+        return _linear_leaves(self, ("W1", "W2"))

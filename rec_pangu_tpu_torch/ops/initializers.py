@@ -12,6 +12,9 @@ explicit ``torch.Generator``.
   ``prod(shape[:-1])`` (:func:`flax_fan_in_normal_`).
 * The multi-task family's Linears: xavier normal, std
   ``sqrt(2 / (in + out))``, and zero biases (:func:`xavier_normal_`).
+* NGCF's weights: flax's own ``xavier_normal``, a normal truncated at two
+  standard deviations, scaled to the variance ``2 / (fan_in + fan_out)``
+  (:func:`flax_xavier_normal_`).
 
 The same seed gives other numbers than the JAX package's ``jax.random``:
 parity tests carry weights across with :mod:`rec_pangu_tpu_torch.convert`.
@@ -55,3 +58,18 @@ def xavier_normal_(t: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
     if t.dim() != 2:
         raise ValueError("xavier_normal_ is for 2-D Linear weights")
     return t.normal_(0.0, math.sqrt(2.0 / (t.shape[0] + t.shape[1])), generator=generator)
+
+
+_TRUNCATED_STD = 0.87962566103423978  # std of a standard normal truncated to [-2, 2]
+
+
+@torch.no_grad()
+def flax_xavier_normal_(t: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    """flax's ``xavier_normal`` of a 2-D weight (either layout: the fans
+    only add): a standard normal truncated to [-2, 2], times
+    ``sqrt(2 / (fan_in + fan_out)) / 0.8796``."""
+    if t.dim() != 2:
+        raise ValueError("flax_xavier_normal_ is for 2-D weights")
+    std = math.sqrt(2.0 / (t.shape[0] + t.shape[1])) / _TRUNCATED_STD
+    torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator)
+    return t.mul_(std)

@@ -1,4 +1,6 @@
+from .benchmark import BenchmarkTrainer
 from .ckpt import load_checkpoint, save_checkpoint
-from .trainer import RankTrainer, SequenceTrainer
+from .trainer import GraphTrainer, RankTrainer, SequenceTrainer
 
-__all__ = ["RankTrainer", "SequenceTrainer", "load_checkpoint", "save_checkpoint"]
+__all__ = ["BenchmarkTrainer", "GraphTrainer", "RankTrainer", "SequenceTrainer",
+           "load_checkpoint", "save_checkpoint"]

@@ -25,9 +25,14 @@ arrays that the JAX package's ``load_checkpoint`` reads as they are::
                                               "dtype": "float32"}},
     }
 
-The JAX trainer cannot resume from it (its ``resume`` wants optax's state
-and restores only the params when the structure differs); the port cannot
-resume yet either.
+``read_opt_state`` turns the optimizer state of either package's
+checkpoint into this layout for ``fit(resume_from=...)``: the port's as it
+is; the JAX trainer's from optax's ``ScaleByAdamState(count, mu, nu)``
+inside its chain (the standard step's, or the fused step's masked one,
+whose masked-out leaves are left out), with the fused step's table
+moments beside it (``{"<flax path>": {"mu", "nu"}}``), already keyed and
+laid out as here.  The JAX trainer cannot resume from a port checkpoint:
+its ``resume`` wants optax's state and restores only the params.
 
 Unpickling runs code named in the file: load only checkpoints this program
 or the JAX package wrote.
@@ -41,6 +46,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+OPT_STATE_LAYOUT = "rec_pangu_tpu_torch/adam-1"
 _FOREIGN_ROOTS = frozenset({"jax", "jaxlib", "flax", "optax", "rec_pangu_tpu"})
 
 
@@ -79,6 +85,63 @@ def moment_arrays(mu: torch.Tensor, nu: torch.Tensor) -> Dict[str, Any]:
 
     return {"mu": host(mu), "nu": host(nu),
             "dtype": "bfloat16" if mu.dtype == torch.bfloat16 else "float32"}
+
+
+def _moment_entry(mu: np.ndarray, nu: np.ndarray) -> Dict[str, Any]:
+    """A table's moments from the JAX package (numpy arrays, bfloat16 ones
+    of ml_dtypes' type) as the layout's entry."""
+    mu, nu = np.asarray(mu), np.asarray(nu)
+    if mu.dtype.name == "bfloat16":
+        return {"mu": mu.view(np.uint16), "nu": nu.view(np.uint16), "dtype": "bfloat16"}
+    return {"mu": mu.astype(np.float32), "nu": nu.astype(np.float32), "dtype": "float32"}
+
+
+def _strip_masked(tree: Any) -> Any:
+    """A moment tree without optax's masked-out leaves (None when nothing
+    is left)."""
+    if isinstance(tree, dict):
+        out = {k: _strip_masked(v) for k, v in tree.items()}
+        out = {k: v for k, v in out.items() if v is not None}
+        return out or None
+    if isinstance(tree, ForeignObject) or tree is None:
+        return None
+    return np.asarray(tree)
+
+
+def _walk(node: Any):
+    """Every object of a pickled optimizer state, depth first."""
+    yield node
+    children = ()
+    if isinstance(node, ForeignObject):
+        children = node.args
+    elif isinstance(node, (tuple, list)):
+        children = node
+    elif isinstance(node, dict):
+        children = node.values()
+    for child in children:
+        yield from _walk(child)
+
+
+def read_opt_state(opt_state: Any, step: int) -> Optional[Dict[str, Any]]:
+    """The optimizer state of a checkpoint (see the module's docstring) in
+    the port's layout; None when there is none or it holds no Adam state
+    this reader knows."""
+    if opt_state is None:
+        return None
+    if isinstance(opt_state, dict) and opt_state.get("layout") == OPT_STATE_LAYOUT:
+        return opt_state
+    adam = next((n for n in _walk(opt_state) if isinstance(n, ForeignObject)
+                 and n.jax_class.endswith("ScaleByAdamState") and len(n.args) == 3), None)
+    if adam is None:
+        return None
+    _, mu, nu = adam.args
+    tables = {}
+    for node in _walk(opt_state):  # the JAX fused step's table moments
+        if (isinstance(node, dict) and node
+                and all(isinstance(v, dict) and set(v) == {"mu", "nu"} for v in node.values())):
+            tables.update({str(k): _moment_entry(v["mu"], v["nu"]) for k, v in node.items()})
+    return {"layout": OPT_STATE_LAYOUT, "step": int(step),
+            "params": {"mu": _strip_masked(mu), "nu": _strip_masked(nu)}, "tables": tables}
 
 
 def save_checkpoint(path: str, params: Any, batch_stats: Any = None,

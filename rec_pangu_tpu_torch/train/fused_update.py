@@ -21,9 +21,14 @@ per step.  This step, the JAX package's ``train/fused_update.py``:
 The JAX package also gates the step on TPU performance (a table and a batch
 large enough for its planned kernels); those gates do not carry over: the
 step runs for every model with a ``FusedEmbedding``.  ``fit`` trains with
-Adam from a fresh state, as the JAX package's does; resuming is not ported
-yet (ROADMAP Queue 1).  ``REC_PANGU_TPU_FUSED_ADAM=0`` turns the step off,
-as it does in the JAX package, and the trainer then takes the standard step.
+Adam from a fresh state, as the JAX package's does, or from a checkpoint's
+(``load_opt_state``: the dense moments into ``torch.optim.Adam``, each
+table's into its moments in their stored dtype).  The JAX trainer takes
+the standard step when it resumes, because its fused state has another
+structure, and then restarts the moments; the port's layout holds both
+kinds, so the resumed fused step is exact.  ``REC_PANGU_TPU_FUSED_ADAM=0``
+turns the step off, as it does in the JAX package, and the trainer then
+takes the standard step.
 
 ``SeqFusedStep`` is the sequence models' counterpart (the JAX
 ``_seq_fused_step_fn``): the history lookup (``ItemEmbedding``'s capture
@@ -54,7 +59,7 @@ from ..ops.dropout import draw_seed
 from ..ops.softmax_ce import fused_ce_enabled
 from .ckpt import moment_arrays
 from .optim import ADAM_B1, ADAM_B2, ADAM_EPS, make_lr_schedule, make_optimizer, set_lr
-from .steps import OPT_STATE_LAYOUT, adam_moments
+from .steps import OPT_STATE_LAYOUT, adam_entries, adam_moments, load_adam_state
 
 
 def _moment_dtype() -> torch.dtype:
@@ -157,6 +162,16 @@ class FusedStep:
                 "params": adam_moments(self.model, self.optimizer),
                 "tables": {jax_path(self.model, m.table): moment_arrays(mu, nu)
                            for (_, m), (mu, nu) in zip(self.tables, self.moments)}}
+
+    def load_opt_state(self, state: Dict[str, Any]) -> None:
+        """The dense parameters' Adam state and each table's moments (in
+        their stored dtype) from the layout ``state`` (``ckpt.py``); a table
+        the state holds nothing for keeps its moments."""
+        entries = adam_entries(self.model, state)
+        load_adam_state(self.optimizer, entries, state["step"])
+        for i, (_, m) in enumerate(self.tables):
+            if id(m.table) in entries:
+                self.moments[i] = tuple(t.to(m.table.device) for t in entries[id(m.table)])
 
 
 def maybe_enable_fused_update(model, lr: float, steps_per_epoch: int,

@@ -1,34 +1,68 @@
-"""RankTrainer and SequenceTrainer: the JAX package's trainer API on PyTorch.
+"""RankTrainer, SequenceTrainer and GraphTrainer: the JAX package's trainer
+API on PyTorch.
 
-RankTrainer's ``fit``, ``load_model``, ``save_model``, ``save_all``,
-``save_train_model``, ``evaluate_model``, ``predict_dataloader`` and
-``predict_dataframe`` keep the JAX package's names, signatures, checkpoint
-file names and metric names.
-The weights live in the model module itself: ``load_model`` copies a
-checkpoint into it, and ``fit`` trains it where it stands, on the trainer's
-device.
+RankTrainer's ``fit``, ``resume``, ``load_model``, ``save_model``,
+``save_all``, ``save_train_model``, ``set_pretrained_weights``,
+``evaluate_model``, ``predict_dataloader`` and ``predict_dataframe`` keep
+the JAX package's names, signatures, checkpoint file names and metric
+names.  The weights live in the model module itself: ``load_model`` copies
+a checkpoint into it, and ``fit`` trains it where it stands, on the
+trainer's device.
 
 ``fit`` takes the fused train step (``fused_update.py``: the table's Adam
-update in one kernel pass) from a fresh state with Adam, as the JAX package
-does, and the standard step (``steps.py``) when ``REC_PANGU_TPU_FUSED_ADAM=0``.
-Two differences from the JAX ``fit``: it trains the module's weights as they
-are (the JAX ``fit`` initializes new ones from ``seed``; here ``seed`` seeds
-the generator the steps draw each step's dropout seed from, and the model's
-constructor takes a ``seed`` for its weights), and ``resume_from``,
-``mesh``, ``profile_dir`` and ``steps_per_call > 1`` raise
-``NotImplementedError``.
+update in one kernel pass) with Adam, as the JAX package does, and the
+standard step (``steps.py``) when ``REC_PANGU_TPU_FUSED_ADAM=0`` or when
+pretrained rows are pending (K3 would run Adam over the frozen rows).
+Its options:
+
+* ``resume_from``: the weights, batch statistics, step counter and
+  optimizer state of a checkpoint of either package (``ckpt.read_opt_state``)
+  replace the module's and the step's, on the step ``fit`` takes (the JAX
+  ``fit`` falls back to its standard step and restarts the moments).  A
+  state this reader does not know restores the weights only, with a
+  warning, as in the JAX package.  The steps' dropout seeds then continue
+  where the checkpoint's run stopped: ``fit``'s generator skips one seed
+  for each restored step (``ops/dropout.skip_seeds``).
+* ``steps_per_call=K`` is taken for the JAX package's signature, and every
+  K runs one step a call: the steps already queue on the card without a
+  host sync (the predictions stay there for the train metrics, the loss
+  is read only when it is logged), and K batches stacked into one pinned
+  copy ran slower on the card (``scripts/torch_k_steps.py``).  The
+  counterpart of JAX's one dispatch for K steps would be a CUDA graph.
+* ``profile_dir``: ``torch.profiler`` (CPU, and CUDA on the card) over the
+  first epoch, its Chrome trace written there (``trace_path``).
+* ``mesh`` raises ``NotImplementedError`` (ROADMAP Queue 1 item 10).
+
+A kept difference from the JAX ``fit``: it trains the module's weights as
+they are (the PyTorch idiom: the module owns its weights, made by its
+constructor's ``seed``, and ``resume_from`` overwrites them), where the
+JAX ``fit`` initializes new ones from ``seed``; here ``seed`` seeds the
+generator the steps draw each step's dropout seed from.
 
 SequenceTrainer drives sequence-recall models: ``load_model``, the
 ``save_*`` methods, ``evaluate_model`` (top-200 retrieval over the whole
 corpus, then recall/ndcg/hitrate at each k, as in the JAX package) and
 ``fit``: per epoch the train steps (the sequence fused step with Adam from a
-fresh state, or the standard step with ``REC_PANGU_TPU_FUSED_ADAM=0``), then
-``evaluate_model`` on the valid loader, a row of ``log.csv``, the
-``model_e_{i}`` checkpoint and early stopping.  ``seed`` seeds the
-generator the steps draw their dropout seeds (and sampled negatives) from;
-``mesh`` and ``steps_per_call > 1`` raise ``NotImplementedError``.  A model
-with ``renorm_param_paths`` (CMI) trains projected: those rows are put back
-on the unit sphere at the start of ``fit`` and after every step.
+fresh state, or the standard step with ``REC_PANGU_TPU_FUSED_ADAM=0`` or
+pending pretrained rows), then ``evaluate_model`` on the valid loader, a
+row of ``log.csv``, the ``model_e_{i}`` checkpoint and early stopping.
+``seed`` seeds the generator the steps draw their dropout seeds (and
+sampled negatives) from; ``steps_per_call`` is RankTrainer's; ``mesh``
+raises.  A model with ``renorm_param_paths`` (CMI) trains projected:
+those rows are put back on the unit sphere at the start of ``fit`` and
+after every step.
+
+GraphTrainer drives graph CF (NGCF): ``fit`` samples a BPR batch a step
+from the dataset and takes the standard step; ``evaluate_model`` scores
+every test user against the whole item table in chunks of 1,024 users on
+the model's device, sets each user's train items to -inf and takes the
+top min(1000, items) (``masked_topk``), then recall/ndcg/hitrate at
+``topN``.
+
+Both RankTrainer and SequenceTrainer take ``wandb_config``: with the
+``wandb`` package installed, ``fit`` logs in and starts a run with it,
+logs ``{"loss": ...}`` every ``log_rounds`` batches and each epoch's
+metrics (``utils/logging.py``'s stand-in does nothing otherwise).
 
 ``device=None`` means the CUDA card (see ``utils/device.py``); a method's
 ``device`` argument, when given, overrides the trainer's.
@@ -36,10 +70,9 @@ on the unit sphere at the start of ``fit`` and after every step.
 from __future__ import annotations
 
 import csv
-import logging
 import os
 import time
-from typing import Dict, List, Optional
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -48,38 +81,83 @@ from ..convert import jax_variables, load_jax_variables
 from ..data.loader import DataLoader
 from ..eval.metrics import RollingMetricBuffer, compute_ranking_metrics
 from ..eval.retrieval import evaluate_recall, get_recall_predict
+from ..models.pretrained import inject_pretrained
 from ..models.sequence.augment import host_augment_sequences
+from ..ops.dropout import skip_seeds
 from ..ops.graph import attach_session_graph
 from ..utils.device import DeviceLike, resolve_device
-from .ckpt import load_checkpoint, save_checkpoint
+from ..utils.logging import HAS_WANDB, logger, wandb
+from .ckpt import load_checkpoint, read_opt_state, save_checkpoint
 from .fused_update import maybe_enable_fused_update, maybe_enable_seq_fused_update
 from .steps import StandardStep, make_param_renorm, strip_host_keys
 
-logger = logging.getLogger("rec_pangu_tpu_torch")
+# fit's one argument the port does not run yet, with the ROADMAP item that ports it
+_MESH_NOT_PORTED = ("fit(mesh=...) is not ported yet: data-parallel and sharded training "
+                    "(ROADMAP Queue 1 item 10)")
 
-# fit's arguments the port does not run yet, with the ROADMAP item that ports each
-_NOT_PORTED = {
-    "resume_from": "resume (ROADMAP Queue 1 item 11)",
-    "mesh": "data-parallel and sharded training (ROADMAP Queue 1 item 10)",
-    "profile_dir": "the trainer's profiler trace (ROADMAP Queue 1 item 11)",
-    "steps_per_call": "K-step calls (ROADMAP Queue 1 item 11)",
-}
+
+def _refuse_mesh(mesh) -> None:
+    if mesh is not None:
+        raise NotImplementedError(_MESH_NOT_PORTED)
 
 
 class _BaseTrainer:
-    """Checkpoints and the device, shared by the trainers."""
+    """Checkpoints, the device, resume, pretrained rows, wandb and the
+    train steps' calls, shared by the trainers."""
 
-    def __init__(self, model_ckpt_dir: str = "./model_ckpt", device: DeviceLike = None):
+    def __init__(self, model_ckpt_dir: str = "./model_ckpt", device: DeviceLike = None,
+                 wandb_config: Optional[dict] = None):
         self.model_ckpt_dir = model_ckpt_dir
         self.device = resolve_device(device)
+        self.wandb_config = wandb_config
+        self.use_wandb = wandb_config is not None and HAS_WANDB
         self.step = 0  # optimizer steps taken; carried from a loaded checkpoint
         self.model = None
         self._train_step = None  # StandardStep or FusedStep, built by fit
         self._renorm = None      # the projection after each step (SequenceTrainer.fit)
         self._aug_rng = None     # the host augmentations' and negatives' generator
+        self._pending_pretrained: List[Tuple[str, dict, bool]] = []
+        self.trace_path: Optional[str] = None  # fit(profile_dir=...)'s trace
 
     def _device(self, device: DeviceLike) -> torch.device:
         return self.device if device is None else resolve_device(device)
+
+    def set_pretrained_weights(self, model, col_name: str, pretrained_dict: dict,
+                               trainable: bool = True) -> None:
+        """Queue pretrained rows for ``col_name``, written into the model's
+        fused tables when ``fit`` starts; ``trainable=False`` keeps them as
+        written through training."""
+        self._pending_pretrained.append((col_name, pretrained_dict, trainable))
+        logger.info(f"Queued pretrained embedding for column:{col_name} "
+                    f"With Trainable={trainable}")
+
+    def _inject_pretrained(self, model) -> List[Tuple[torch.Tensor, slice]]:
+        """Write the queued rows; returns the frozen (table, rows) pairs."""
+        frozen = []
+        for col_name, pre_dict, trainable in self._pending_pretrained:
+            touched = inject_pretrained(model, model.enc_dict, col_name, pre_dict,
+                                        model.embedding_dim)
+            if not trainable:
+                frozen.extend(touched)
+            logger.info(f"Set pretrained embedding weights for column:{col_name}")
+        return frozen
+
+    def _wandb_init(self) -> None:
+        """Log in with the config's ``key`` (popped), then start a run with
+        the rest of it."""
+        cfg = dict(self.wandb_config)
+        key = cfg.pop("key", None)
+        if key:
+            wandb.login(key=key)
+        wandb.init(**cfg)
+
+    def _start_fit(self, model, device: DeviceLike) -> torch.device:
+        dev = self._device(device)
+        os.makedirs(self.model_ckpt_dir, exist_ok=True)
+        self.model = model.to(dev)
+        self._fit_device = dev
+        self.step = 0
+        return dev
 
     # ------------------------------------------------------------- ckpt api
     def load_model(self, model, path: str) -> dict:
@@ -90,6 +168,24 @@ class _BaseTrainer:
                                    "batch_stats": ckpt.get("batch_stats")})
         model.to(self.device).eval()
         self.step = int(ckpt.get("step", 0))
+        return ckpt
+
+    def resume(self, path: str) -> dict:
+        """Restore the weights, batch statistics, step counter and optimizer
+        state of the checkpoint at ``path`` into the model and the step
+        ``fit`` built; an optimizer state this port cannot read restores
+        the weights only, with a warning."""
+        ckpt = load_checkpoint(path)
+        load_jax_variables(self.model, {"params": ckpt["params"],
+                                        "batch_stats": ckpt.get("batch_stats")})
+        self.step = int(ckpt.get("step", 0))
+        state = read_opt_state(ckpt.get("opt_state"), self.step)
+        if state is not None:
+            self._train_step.load_opt_state(state)
+        elif ckpt.get("opt_state") is not None:
+            logger.warning("Checkpoint optimizer state is of an unknown structure: restoring "
+                           "params only; optimizer restarts from scratch")
+        logger.info(f"Resumed from {path} at step {self.step}")
         return ckpt
 
     def save_model(self, model, model_ckpt_dir: str) -> str:
@@ -116,11 +212,45 @@ class _BaseTrainer:
                         step=self.step)
         return path
 
+    # ----------------------------------------------------------------- steps
+    def _host_inputs(self, batch: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+        """The host batch a training step uploads (the sequence trainer adds
+        its host keys)."""
+        return batch
+
+    def _step(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+        """One train step on a host batch: the host keys, id check, upload,
+        the step, the projection."""
+        out = self._train_step(self.model.upload_batch(self._host_inputs(batch),
+                                                       self._fit_device, train=True), self.step)
+        if self._renorm is not None:
+            self._renorm()
+        self.step += 1
+        return out
+
+    def _steps(self, train_loader) -> Iterator[Tuple[dict, Dict[str, torch.Tensor]]]:
+        """(host batch, step outputs) of each step over ``train_loader``."""
+        for batch in train_loader:
+            batch, _ = strip_host_keys(batch)
+            yield batch, self._step(batch)
+
+    def _log_iter(self, idx: int, out, max_iter: int, start: float, log_rounds: int) -> None:
+        """The log line (and wandb's ``{"loss"}``) every ``log_rounds`` steps."""
+        if idx % log_rounds != 0:
+            return
+        loss = float(out["loss"].detach())
+        elapsed = time.time() - start
+        remaining = round(((elapsed / (idx + 1)) * (max_iter - idx + 1)) / 60, 2)
+        logger.info(f"Iter {idx}/{max_iter} Remaining time:{remaining} min "
+                    f"Loss:{round(loss, 4)}")
+        if self.use_wandb:
+            wandb.log({"loss": loss})
+
 
 class RankTrainer(_BaseTrainer):
     def __init__(self, num_task: int = 1, model_ckpt_dir: str = "./model_ckpt",
-                 device: DeviceLike = None):
-        super().__init__(model_ckpt_dir, device)
+                 device: DeviceLike = None, wandb_config: Optional[dict] = None):
+        super().__init__(model_ckpt_dir, device, wandb_config)
         self.num_task = num_task
 
     # ----------------------------------------------------------------- train
@@ -131,26 +261,26 @@ class RankTrainer(_BaseTrainer):
             scheduler_params: Optional[dict] = None, seed: int = 1029,
             log_rounds: int = 100, mesh=None, resume_from: Optional[str] = None,
             profile_dir: Optional[str] = None, steps_per_call: int = 1) -> Dict[str, float]:
-        asked = {"resume_from": resume_from, "mesh": mesh, "profile_dir": profile_dir,
-                 "steps_per_call": steps_per_call if int(steps_per_call) > 1 else None}
-        for name, value in asked.items():
-            if value is not None:
-                raise NotImplementedError(f"fit({name}=...) is not ported yet: "
-                                          f"{_NOT_PORTED[name]}")
-        dev = self._device(device)
-        os.makedirs(self.model_ckpt_dir, exist_ok=True)
-        self.model = model.to(dev)
-        self._fit_device = dev
-        self.step = 0
+        _refuse_mesh(mesh)
+        if self.use_wandb:
+            self._wandb_init()
+        dev = self._start_fit(model, device)
         generator = torch.Generator().manual_seed(seed)
         steps_per_epoch = len(train_loader)
-        self._train_step = maybe_enable_fused_update(
-            model, lr, steps_per_epoch, lr_scheduler_type, scheduler_params, generator)
+        frozen = self._inject_pretrained(model)
+        self._train_step = None
+        if not self._pending_pretrained:
+            self._train_step = maybe_enable_fused_update(
+                model, lr, steps_per_epoch, lr_scheduler_type, scheduler_params, generator)
         if self._train_step is not None:
             logger.info("Embedding Adam update fused into the table kernel")
         else:
             self._train_step = StandardStep(model, lr, steps_per_epoch, lr_scheduler_type,
-                                            scheduler_params, generator)
+                                            scheduler_params, generator, frozen)
+        if resume_from:
+            self.resume(resume_from)
+            skip_seeds(generator, self.step)
+        self._profile_dir = profile_dir
         n_params = sum(p.numel() for p in model.parameters())
         logger.info(f"Model initialized: {n_params:,} parameters")
 
@@ -158,11 +288,15 @@ class RankTrainer(_BaseTrainer):
         best_epoch, best_metric = -1, -np.inf
         train_metric: Dict[str, float] = {}
         for i in range(1, epoch + 1):
-            train_metric = self._train_one_epoch(train_loader, log_rounds)
+            train_metric = self._train_one_epoch(train_loader, i, log_rounds)
             logger.info(f"Epoch {i} Train Metric:{train_metric}")
+            if self.use_wandb:
+                wandb.log(train_metric)
             if valid_loader is not None:
                 valid_metric = self.evaluate_model(self.model, valid_loader, dev)
                 self.save_train_model(self.model, self.model_ckpt_dir, f"e_{i}")
+                if self.use_wandb:
+                    wandb.log(valid_metric)
                 if use_earlystopping:
                     if monitor_metric not in valid_metric:
                         raise KeyError(f"{monitor_metric} not in Valid Metric "
@@ -177,14 +311,31 @@ class RankTrainer(_BaseTrainer):
                 logger.info(f"Epoch {i} Valid Metric:{valid_metric}")
         return train_metric
 
-    def _step(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-        """One train step on a host batch: id check, upload, the step."""
-        inputs = self.model.upload_batch(batch, self._fit_device, train=True)
-        out = self._train_step(inputs, self.step)
-        self.step += 1
-        return out
+    def _start_profile(self):
+        """torch.profiler over the first epoch: CPU activities, and CUDA's on
+        the card."""
+        from torch.profiler import ProfilerActivity, profile
 
-    def _train_one_epoch(self, train_loader, log_rounds: int):
+        acts = [ProfilerActivity.CPU]
+        if self._fit_device.type == "cuda":
+            acts.append(ProfilerActivity.CUDA)
+        prof = profile(activities=acts)
+        prof.start()
+        return prof
+
+    def _stop_profile(self, prof) -> None:
+        if self._fit_device.type == "cuda":
+            torch.cuda.synchronize(self._fit_device)
+        prof.stop()
+        os.makedirs(self._profile_dir, exist_ok=True)
+        self.trace_path = os.path.join(self._profile_dir, f"trace_{os.getpid()}_"
+                                                          f"{time.time_ns()}.json")
+        prof.export_chrome_trace(self.trace_path)
+        logger.info(f"Profiler trace written to {self.trace_path}")
+
+    def _train_one_epoch(self, train_loader, epoch_idx: int = 1, log_rounds: int = 100):
+        prof = (self._start_profile() if getattr(self, "_profile_dir", None) and epoch_idx == 1
+                else None)
         # bounded train-metric accumulation: constant host memory per epoch
         window = int(os.environ.get("REC_PANGU_TPU_TRAIN_METRIC_WINDOW", str(1 << 20)))
         preds = RollingMetricBuffer(window)
@@ -193,9 +344,7 @@ class RankTrainer(_BaseTrainer):
         self.model.train()
         start = time.time()
         n_seen = 0
-        for idx, batch in enumerate(train_loader):
-            batch, _ = strip_host_keys(batch)
-            out = self._step(batch)
+        for idx, (batch, out) in enumerate(self._steps(train_loader)):
             if self.num_task == 1:
                 pred = out["pred"]
             else:
@@ -204,12 +353,9 @@ class RankTrainer(_BaseTrainer):
             preds.append(pred.detach())  # stays on the device until the epoch ends
             labels.append(batch["label"])
             n_seen += len(batch["label"])
-            if idx % log_rounds == 0:
-                loss = float(out["loss"].detach())
-                elapsed = time.time() - start
-                remaining = round(((elapsed / (idx + 1)) * (max_iter - idx + 1)) / 60, 2)
-                logger.info(f"Iter {idx}/{max_iter} Remaining time:{remaining} min "
-                            f"Loss:{round(loss, 4)}")
+            self._log_iter(idx, out, max_iter, start, log_rounds)
+        if prof is not None:
+            self._stop_profile(prof)
         pred_arr = preds.concat()
         label_arr = labels.concat()
         elapsed = time.time() - start
@@ -284,29 +430,25 @@ class SequenceTrainer(_BaseTrainer):
             topk_list: Optional[List[int]] = None, lr_scheduler_type: str = "",
             scheduler_params: Optional[dict] = None, seed: int = 1029, mesh=None,
             steps_per_call: int = 1) -> None:
-        asked = {"mesh": mesh, "steps_per_call": steps_per_call if int(steps_per_call) > 1
-                 else None}
-        for name, value in asked.items():
-            if value is not None:
-                raise NotImplementedError(f"fit({name}=...) is not ported yet: "
-                                          f"{_NOT_PORTED[name]}")
+        _refuse_mesh(mesh)
         topk_list = topk_list or [20, 50, 100]
-        dev = self._device(device)
-        os.makedirs(self.model_ckpt_dir, exist_ok=True)
-        self.model = model.to(dev)
-        self._fit_device = dev
-        self.step = 0
+        if self.use_wandb:
+            self._wandb_init()
+        dev = self._start_fit(model, device)
         generator = torch.Generator().manual_seed(seed)
         steps_per_epoch = len(train_loader)
-        self._train_step = maybe_enable_seq_fused_update(
-            model, lr, steps_per_epoch, lr_scheduler_type, scheduler_params,
-            generator=generator)
+        frozen = self._inject_pretrained(model)
+        self._train_step = None
+        if not self._pending_pretrained:  # K3's whole-table pass would move frozen rows
+            self._train_step = maybe_enable_seq_fused_update(
+                model, lr, steps_per_epoch, lr_scheduler_type, scheduler_params,
+                generator=generator)
         if self._train_step is not None:
             logger.info("Item-table Adam update fused into the table kernel "
                         "(history + softmax-CE gradients)")
         else:
             self._train_step = StandardStep(model, lr, steps_per_epoch, lr_scheduler_type,
-                                            scheduler_params, generator)
+                                            scheduler_params, generator, frozen)
         paths = tuple(getattr(model, "renorm_param_paths", ()) or ())
         self._renorm = make_param_renorm(model, paths) if paths else None
         if self._renorm is not None:  # the reference's first forward normalizes the init
@@ -317,21 +459,15 @@ class SequenceTrainer(_BaseTrainer):
         for i in range(1, epoch + 1):
             self.model.train()
             start = time.time()
-            for idx, batch in enumerate(train_loader):
-                batch, _ = strip_host_keys(batch)
-                out = self._step(batch)
-                if idx % log_rounds == 0:
-                    loss = float(out["loss"].detach())
-                    elapsed = time.time() - start
-                    remaining = round(((elapsed / (idx + 1)) * (steps_per_epoch - idx + 1)) / 60,
-                                      2)
-                    logger.info(f"Iter {idx}/{steps_per_epoch} Remaining time:{remaining} min "
-                                f"Loss:{round(loss, 4)}")
+            for idx, (_, out) in enumerate(self._steps(train_loader)):
+                self._log_iter(idx, out, steps_per_epoch, start, log_rounds)
             if valid_loader is None:
                 continue
             valid_metric = self.evaluate_model(self.model, valid_loader, dev,
                                                topk_list=topk_list)
             logger.info(f"Epoch {i} Valid Metric:{valid_metric}")
+            if self.use_wandb:
+                wandb.log(valid_metric)
             log_rows.append({"epoch": i, **valid_metric})
             _write_log_csv(os.path.join(self.model_ckpt_dir, "log.csv"), log_rows)
             self.save_train_model(self.model, self.model_ckpt_dir, f"e_{i}")
@@ -346,18 +482,8 @@ class SequenceTrainer(_BaseTrainer):
                     logger.info(f"EarlyStopping at the Epoch {i} Valid Metric:{valid_metric}")
                     break
 
-    def _step(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-        """One train step on a host batch: the views of a ``host_aug`` model,
-        the joint lookup ids of a ``lookup_extra`` model, the host session
-        graph of a ``session_graph`` model, id check, upload, the step, then
-        the projection of a ``renorm_param_paths`` model."""
-        inputs = self.model.upload_batch(self._attach_host_keys(batch), self._fit_device,
-                                         train=True)
-        out = self._train_step(inputs, self.step)
-        if self._renorm is not None:
-            self._renorm()
-        self.step += 1
-        return out
+    def _host_inputs(self, batch: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+        return self._attach_host_keys(batch)
 
     def _attach_host_keys(self, batch: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
         """The training batch with the keys the model's one table lookup
@@ -417,3 +543,72 @@ class SequenceTrainer(_BaseTrainer):
             logger.info(res)
             metric_dict.update(res)
         return metric_dict
+
+
+def masked_topk(user_embs: torch.Tensor, item_embs: torch.Tensor, users: torch.Tensor,
+                seen: torch.Tensor, k: int) -> torch.Tensor:
+    """Top-k item ids [B, k] of ``users`` [B] scored against every item,
+    each user's ``seen`` [B, S] items (padded with the item count) set to
+    -inf first: a sentinel column past the last item takes the pads."""
+    scores = torch.matmul(user_embs[users], item_embs.t())
+    scores = torch.nn.functional.pad(scores, (0, 1))
+    scores.scatter_(1, seen, float("-inf"))
+    return torch.topk(scores[:, :-1], k, dim=1).indices
+
+
+class GraphTrainer(_BaseTrainer):
+    """Graph CF (NGCF): BPR steps, full-corpus top-k eval with each user's
+    train items filtered out."""
+
+    EVAL_CHUNK = 1024   # users scored at once
+
+    def __init__(self, model_ckpt_dir: str = "./model_ckpt", device: DeviceLike = None):
+        super().__init__(model_ckpt_dir, device)
+
+    def fit(self, model, train_dataset, epoch: int = 10, lr: float = 1e-3,
+            device: DeviceLike = None, batch_size: int = 1024, seed: int = 1029,
+            mesh=None) -> None:
+        """``epoch`` epochs of ``len(train_dataset) // batch_size`` (at
+        least 1) standard steps, each on a fresh ``sample(batch_size)``."""
+        _refuse_mesh(mesh)
+        self._start_fit(model, device)
+        steps_per_epoch = max(1, len(train_dataset) // batch_size)
+        generator = torch.Generator().manual_seed(seed)
+        self._train_step = StandardStep(model, lr, steps_per_epoch, generator=generator)
+        model.train()
+        for i in range(1, epoch + 1):
+            losses = [self._step(train_dataset.sample(batch_size))["loss"].detach()
+                      for _ in range(steps_per_epoch)]
+            logger.info(f"Epoch {i} Loss:{round(float(torch.stack(losses).sum()), 4)}")
+
+    def evaluate_model(self, model, train_dataset, test_dataset,
+                       hidden_size: Optional[int] = None, topN: int = 50) -> Dict[str, float]:
+        """recall, ndcg and hit rate at ``topN`` of every user of
+        ``test_dataset``, on the model's device: ``masked_topk`` over chunks
+        of ``EVAL_CHUNK`` users with k = min(1000, items), each user's
+        ``train_dataset`` items filtered out before the top-k (the same
+        unseen items in the same order as the reference's filter after a
+        top-1000).  Only the first ``topN`` of each list leave the device."""
+        dev = next(model.parameters()).device
+        model.eval()
+        with torch.inference_mode():
+            out = model({}, train=False)
+            user_embs, item_embs = out["user_emb"], out["item_emb"]
+            train_gd, test_gd = train_dataset.test_gd, test_dataset.test_gd
+            users = np.fromiter(test_gd.keys(), dtype=np.int64)
+            n_items = int(item_embs.shape[0])
+            k = min(1000, n_items)
+            max_seen = max([len(train_gd.get(int(u), [])) for u in users] or [0])
+            seen = np.full((len(users), max(1, max_seen)), n_items, dtype=np.int64)
+            for i, u in enumerate(users):
+                items = train_gd.get(int(u), [])
+                seen[i, :len(items)] = items
+            tops = []
+            for s in range(0, len(users), self.EVAL_CHUNK):
+                chunk = slice(s, s + self.EVAL_CHUNK)
+                top = masked_topk(user_embs, item_embs, torch.from_numpy(users[chunk]).to(dev),
+                                  torch.from_numpy(seen[chunk]).to(dev), k)
+                tops.append(top[:, :topN].cpu().numpy())
+        top = np.concatenate(tops) if tops else np.zeros((0, 0), np.int64)
+        preds = {int(u): top[i].tolist() for i, u in enumerate(users)}
+        return evaluate_recall(preds, test_gd, topN)

@@ -10,7 +10,13 @@ the protocols of ``scripts/fill_baseline.py``, run by
   (``load_ratings_mtl``: like = rating >= 3, click = rating >= 4), the same
   split, budget and seeds, validation each epoch, test AUC of each task;
 * ``ratings_mtl/<model>`` (ShareBottom, OMOE, MLMMOE): the same at seed
-  1029 alone.
+  1029 alone;
+* ``graph/NGCF``: ratings.csv as a bipartite graph (``load_graph_cf``: a
+  fixed shuffled 80/20 row split), NGCF with embedding 64 and two layers
+  of 64, ``GraphTrainer.fit`` for 5 epochs of BPR batches of 512, Adam
+  1e-3, recall, ndcg and hit rate at 50 over the test users, seed 1029 (the
+  dataset's sampler, the weights and the dropout seeds), beside the JAX
+  package's single run.
 
 Each seed seeds the model's weights (its constructor), the train loader's
 shuffle and ``fit``'s dropout seeds.
@@ -22,7 +28,8 @@ multi-task legs), and the JAX package's range for the same leg (read from
 the port's AUC minus the JAX package's).  Keys already in
 the file are skipped, so an interrupted run resumes.
 
-    python scripts/fill_baseline_torch.py [--models WDL,AFN] [--mtl MMOE,OMOE] [--threads 4]
+    python scripts/fill_baseline_torch.py [--models WDL,AFN] [--mtl MMOE,OMOE] [--graph NGCF]
+                                          [--threads 4]
 
 Imports nothing of the JAX package and no JAX.
 """
@@ -37,14 +44,16 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-from parity_common import (MTL_RATINGS_MODELS, MTL_RATINGS_MODELS_EXTRA,  # noqa: E402
-                           RANKING_MODELS, RANKING_MODELS_EXTRA, RATINGS_BATCH,
-                           RATINGS_EPOCHS, RATINGS_MTL_SCHEMA, RATINGS_SCHEMA,
+from parity_common import (GRAPH_BATCH, GRAPH_EPOCHS, GRAPH_TOPN,  # noqa: E402
+                           MTL_RATINGS_MODELS, MTL_RATINGS_MODELS_EXTRA, RANKING_MODELS,
+                           RANKING_MODELS_EXTRA, RATINGS_BATCH, RATINGS_EPOCHS,
+                           RATINGS_MTL_SCHEMA, RATINGS_SCHEMA, load_graph_cf,
                            load_ratings_ctr, load_ratings_mtl, repo_path)
 
-from rec_pangu_tpu_torch.data import DataLoader, get_dataloader  # noqa: E402
+from rec_pangu_tpu_torch.data import (DataLoader, GeneralGraphDataset,  # noqa: E402
+                                      get_dataloader)
 from rec_pangu_tpu_torch.models import get_model  # noqa: E402
-from rec_pangu_tpu_torch.train import RankTrainer  # noqa: E402
+from rec_pangu_tpu_torch.train import GraphTrainer, RankTrainer  # noqa: E402
 
 OUT = repo_path("baseline_results_torch.json")
 JAX_RESULTS = repo_path("baseline_results.json")
@@ -99,12 +108,37 @@ def run_mtl(name: str, seeds, loaders, threads: int) -> dict:
     return leg
 
 
+def run_graph_cf(threads: int, seed: int = 1029) -> dict:
+    """The graph/NGCF leg (see the module's docstring), beside the JAX
+    package's one run."""
+    train_df, test_df, n_user, n_item = load_graph_cf()
+    t0 = time.time()
+    train_ds = GeneralGraphDataset(train_df, n_user, n_item, phase="train", seed=seed)
+    test_ds = GeneralGraphDataset(test_df, n_user, n_item, phase="test", seed=seed)
+    model = get_model("NGCF")(num_user=n_user, num_item=n_item, embedding_dim=64,
+                              hidden_size=(64, 64), g=train_ds.generate_graph("cpu"), seed=seed)
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        trainer = GraphTrainer(model_ckpt_dir=ckpt_dir, device="cpu")
+        trainer.fit(model, train_ds, epoch=GRAPH_EPOCHS, lr=1e-3, batch_size=GRAPH_BATCH,
+                    seed=seed)
+        metric = trainer.evaluate_model(model, train_ds, test_ds, topN=GRAPH_TOPN)
+    leg = {"seeds": {str(seed): metric}, "train_s": round(time.time() - t0, 1),
+           "device": "cpu", "threads": threads}
+    with open(JAX_RESULTS) as f:
+        jax_leg = json.load(f).get("graph/NGCF")
+    if jax_leg is not None:
+        leg["jax_test"] = jax_leg["test"]
+        leg["minus_jax"] = {k: round(v - jax_leg["test"][k], 4) for k, v in metric.items()}
+    return leg
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--models", default=",".join(RANKING_MODELS + RANKING_MODELS_EXTRA))
     ap.add_argument("--mtl", default=",".join(MTL_RATINGS_MODELS + MTL_RATINGS_MODELS_EXTRA),
                     help="multi-task models: mtl3/ legs for MMOE, ESSM, AITM, "
                          "ratings_mtl/ (seed 1029) for the others")
+    ap.add_argument("--graph", default="NGCF", help="graph/NGCF's leg ('' skips it)")
     ap.add_argument("--threads", type=int, default=4)
     args = ap.parse_args()
     torch.set_num_threads(args.threads)
@@ -166,6 +200,12 @@ def main() -> int:
         with open(OUT, "w") as f:
             json.dump(results, f, indent=2)
         print(key, json.dumps(leg), flush=True)
+
+    if args.graph and "graph/NGCF" not in results:
+        results["graph/NGCF"] = run_graph_cf(args.threads)
+        with open(OUT, "w") as f:
+            json.dump(results, f, indent=2)
+        print("graph/NGCF", json.dumps(results["graph/NGCF"]), flush=True)
     return 0
 
 

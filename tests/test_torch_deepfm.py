@@ -206,8 +206,8 @@ def test_jax_checkpoint_loads_without_jax(jax_trained, tmp_path):
 def test_fit_waits_for_training_slice():
     """fit is ported; an option a later slice ports still raises, naming
     its ROADMAP item, before it touches the model."""
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 11"):
-        RankTrainer(device="cpu").fit(None, None, profile_dir="trace")
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 10"):
+        RankTrainer(device="cpu").fit(None, None, profile_dir="trace", mesh=object())
 
 
 @pytest.mark.parametrize("mode", ["product_sum_pooling", "Bi_interaction_pooling",

@@ -40,10 +40,15 @@ def test_imports_without_jax_flax_optax_or_pandas():
         import rec_pangu_tpu_torch.data.sequence, rec_pangu_tpu_torch.models.sequence
         import rec_pangu_tpu_torch.ops.numerics
         import rec_pangu_tpu_torch.models.sequence.contra_losses
+        import rec_pangu_tpu_torch.models.graph, rec_pangu_tpu_torch.models.pretrained
+        import rec_pangu_tpu_torch.data.graph_dataset, rec_pangu_tpu_torch.train.benchmark
+        import rec_pangu_tpu_torch.utils.logging, rec_pangu_tpu_torch.utils.seed
+        import rec_pangu_tpu_torch.utils.json_utils
+        assert rec_pangu_tpu_torch.GraphTrainer is rec_pangu_tpu_torch.train.GraphTrainer
         loaded = sorted(m for m in sys.modules if sys.modules[m] is not None
                         and m.split(".")[0] in {"rec_pangu_tpu", "jax", "flax", "optax"})
         assert not loaded, loaded
-        for name in ("DeepFM", "SASRec", "IOCRec", "CLRec", "ContraRec"):
+        for name in ("DeepFM", "SASRec", "IOCRec", "CLRec", "ContraRec", "NGCF"):
             assert name in rec_pangu_tpu_torch.models.MODEL_REGISTRY, name
         print("ok")
     """)
@@ -79,7 +84,7 @@ def test_sources_import_nothing_of_jax():
 def test_entry_points_require_cuda_by_default(monkeypatch):
     from rec_pangu_tpu_torch.models import get_model
     from rec_pangu_tpu_torch.serving import make_ranking_scorer, make_retrieval_scorer
-    from rec_pangu_tpu_torch.train import RankTrainer, SequenceTrainer
+    from rec_pangu_tpu_torch.train import GraphTrainer, RankTrainer, SequenceTrainer
     from rec_pangu_tpu_torch.utils import resolve_device
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -89,7 +94,8 @@ def test_entry_points_require_cuda_by_default(monkeypatch):
                                  config={"embedding_dim": 4, "max_length": 5, "n_heads": 2})
     for call in (lambda: resolve_device(None), lambda: resolve_device("cuda:0"),
                  lambda: RankTrainer(), lambda: make_ranking_scorer(model),
-                 lambda: SequenceTrainer(), lambda: make_retrieval_scorer(sasrec)):
+                 lambda: SequenceTrainer(), lambda: make_retrieval_scorer(sasrec),
+                 lambda: GraphTrainer()):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
     assert resolve_device("cpu") == torch.device("cpu")
