@@ -48,6 +48,19 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                CPU; then evaluate_model on a seeded labelled set.
 5. profile  -- torch.profiler over a few more requests: device time by
                operation and the card's idle share.
+5b. serving_export -- the same checkpoint loaded on the card and written
+               by export_program as a torch.export program (the lookup a
+               registered op, one node a table), read back by
+               torch.export.load: the serving phase's requests through the
+               loaded program (K1 a table a request), each within 1e-6 of
+               the scorer's predictions, timed beside the scorer; a request
+               of one row; the checkpoint exported on the CPU and moved to
+               the card with move_to_device_pass launches K1 too.
+5c. ops_rest -- the layers no model builds (Dice in an MLP, train and eval;
+               InteractionMachine of order 5 with BatchNorm; the three
+               holographic interactions; FiGNN), card against CPU from the
+               same weights and inputs: outputs, BatchNorm statistics and
+               gradients.  Plain torch: no kernel launches.
 6. training -- RankTrainer.fit from the same checkpoint, 2 epochs of 8192-row
                batches whose labels are drawn from the model's own scores,
                with validation, checkpoints and early stopping: the fused
@@ -197,7 +210,8 @@ from rec_pangu_tpu_torch.ops.kernels import fused_encoder as encoder
 from rec_pangu_tpu_torch.ops.kernels import global_attn as gattn
 from rec_pangu_tpu_torch.ops.kernels import multimax_ce as mmce
 from rec_pangu_tpu_torch.ops.sequence_enc import TransformerEncoder
-from rec_pangu_tpu_torch.serving import make_ranking_scorer, make_retrieval_scorer
+from rec_pangu_tpu_torch.ops import FiGNNLayer, HolographicInteraction, InteractionMachine, MLP
+from rec_pangu_tpu_torch.serving import export_program, make_ranking_scorer, make_retrieval_scorer
 from rec_pangu_tpu_torch.serving.scorer import score_items
 from rec_pangu_tpu_torch.convert import jax_variables
 from rec_pangu_tpu_torch.models.multi_task import OMOE
@@ -4912,6 +4926,187 @@ def phase_train_profile_dir(path: str, enc_dict: dict, score, tmp: str,
     return summary
 
 
+EXPORT_ATOL = 1e-6         # exported program against the scorer on the same card
+EXPORT_CPU_MOVED = 3       # requests through the program exported on the CPU, moved to the card
+OPS_REST_ATOL = 1e-5       # ops_rest: the card against the CPU (outputs of order 1)
+OPS_REST_REL_TOL = 1e-5    # ... the interaction machine's, of its largest output; the
+#                            gradients, of the largest entry of any leaf's (a bias in front
+#                            of a BatchNorm has a gradient of 0: rounding noise on both)
+
+
+def program_request(program, req, dev):
+    """One request through a loaded program: upload, call, copy back."""
+    with torch.inference_mode():
+        out = program(torch.from_numpy(req["sparse"]).to(dev),
+                      torch.from_numpy(req["dense"]).to(dev))
+    return out.cpu().numpy()
+
+
+def phase_serving_export(path: str, enc_dict: dict, score, tmp: str,
+                         device: str = "cuda") -> dict:
+    """The serving export at the serving phase's width: DeepFM loaded on the
+    card, ``export_program`` (a ``torch.export`` program whose lookup is
+    the registered op), ``torch.export.load``, then WARMUP + REQUESTS
+    requests of BATCH rows through the loaded program (upload, call, copy
+    back; no host id check), K1 once a table a request, each request within
+    EXPORT_ATOL of ``score`` (the serving phase's scorer on the card), timed
+    beside the same requests through ``score``; a request of one row.  Then
+    the same checkpoint exported on the CPU, moved to the card with
+    ``move_to_device_pass``: its requests launch K1 too."""
+    from torch.export.passes import move_to_device_pass
+
+    dev = torch.device(device)
+    t0 = time.perf_counter()
+    model = load_model(path, enc_dict, device)
+    tables = num_tables(model)
+    prog_path = os.path.join(tmp, "deepfm_export.pt2")
+    export_program(model, enc_dict, prog_path, device=device)
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded = torch.export.load(prog_path)
+    program = loaded.module()
+    load_s = time.perf_counter() - t0
+    lookups = sum(1 for n in loaded.graph.nodes
+                  if n.op == "call_function" and "embedding_lookup" in str(n.target))
+    if lookups != tables:
+        raise RuntimeError(f"serving_export: the program holds {lookups} lookup ops, "
+                           f"expected {tables}")
+    (batch_range,) = loaded.range_constraints.values()
+
+    requests = make_requests(WARMUP + REQUESTS, SEED + 1)
+    scorer_preds, scorer_lat = [], []
+    for i, req in enumerate(requests):
+        t1 = time.perf_counter()
+        scorer_preds.append(score(req))
+        if i >= WARMUP:
+            scorer_lat.append(time.perf_counter() - t1)
+    # the main path: every count is 0 just before it and read just after
+    reset_launches()
+    preds, latencies = [], []
+    for i, req in enumerate(requests):
+        t1 = time.perf_counter()
+        pred = program_request(program, req, dev)
+        if i >= WARMUP:
+            latencies.append(time.perf_counter() - t1)
+        preds.append(pred)
+    launches = read_launches()
+    require_launches(launches, {"embedding_lookup": len(requests) * tables}, "serving_export")
+    max_err = 0.0
+    for pred, want in zip(preds, scorer_preds):
+        if pred.shape != (BATCH,) or not np.all(np.isfinite(pred)):
+            raise RuntimeError(f"serving_export: bad predictions, shape {pred.shape}")
+        max_err = max(max_err, float(np.abs(pred - want).max()))
+    if max_err > EXPORT_ATOL:
+        raise RuntimeError(f"serving_export: the program differs from the scorer by "
+                           f"{max_err} > {EXPORT_ATOL}")
+    one = {k: v[:1] for k, v in requests[0].items()}
+    one_err = float(np.abs(program_request(program, one, dev) - score(one)).max())
+    if one_err > EXPORT_ATOL:
+        raise RuntimeError(f"serving_export: a one-row request differs by {one_err}")
+    file_bytes = os.path.getsize(prog_path)
+    del program, loaded, model
+    os.remove(prog_path)
+
+    # exported on the CPU, moved to the card
+    t0 = time.perf_counter()
+    cpu_path = os.path.join(tmp, "deepfm_export_cpu.pt2")
+    export_program(load_model(path, enc_dict, "cpu"), enc_dict, cpu_path, device="cpu")
+    moved = move_to_device_pass(torch.export.load(cpu_path), device).module()
+    moved_s = time.perf_counter() - t0
+    os.remove(cpu_path)
+    reset_launches()
+    moved_preds = [program_request(moved, req, dev) for req in requests[:EXPORT_CPU_MOVED]]
+    moved_launches = read_launches()
+    require_launches(moved_launches, {"embedding_lookup": EXPORT_CPU_MOVED * tables},
+                     "serving_export (exported on the CPU)")
+    moved_err = max(float(np.abs(p - w).max()) for p, w in zip(moved_preds, scorer_preds))
+    if moved_err > EXPORT_ATOL:
+        raise RuntimeError(f"serving_export: the program moved from the CPU differs by "
+                           f"{moved_err} > {EXPORT_ATOL}")
+    del moved
+    torch.cuda.empty_cache()
+    return {
+        "phase": "serving_export", "model": "DeepFM", "batch": BATCH, "tables": tables,
+        "requests": REQUESTS, "warmup": WARMUP, "launches": launches,
+        "lookup_ops": lookups, "batch_range": [int(batch_range.lower), str(batch_range.upper)],
+        "export_s": export_s, "load_s": load_s, "file_bytes": file_bytes,
+        "max_abs_err_vs_scorer": max_err, "one_row_abs_err": one_err, "atol": EXPORT_ATOL,
+        "p50_ms": statistics.median(latencies) * 1e3,
+        "p90_ms": float(np.percentile(latencies, 90)) * 1e3,
+        "scorer_p50_ms": statistics.median(scorer_lat) * 1e3,
+        "scorer_p90_ms": float(np.percentile(scorer_lat, 90)) * 1e3,
+        "cpu_export_moved": {"seconds": moved_s, "requests": EXPORT_CPU_MOVED,
+                             "launches": moved_launches, "max_abs_err_vs_scorer": moved_err},
+    }
+
+
+def ops_rest_cases(gen: torch.Generator) -> list:
+    """(name, module, inputs, train) of the layers no model builds, each at
+    a small size: Dice in an MLP (train and eval), InteractionMachine of
+    order 5 with BatchNorm, the three holographic interactions, FiGNN."""
+    b, f, d = 256, 10, 16
+    emb = torch.randn(b, f, d, generator=gen) * 0.5
+    flat = torch.randn(b, f * d, generator=gen)
+    mlp = MLP(f * d, (64, 32), output_dim=1, hidden_activations=["dice", "dice"],
+              dropout_rates=0.0, batch_norm=True, generator=gen)
+    im = InteractionMachine(d, order=5, batch_norm=True, generator=gen)
+    with torch.no_grad():  # statistics and alphas away from their init, so they matter
+        for dice in mlp.dice:
+            dice.alpha.normal_(generator=gen)
+        for bn in [*mlp.bn, *(dc.bn for dc in mlp.dice), im.bn]:
+            bn.running_mean.normal_(generator=gen)
+            bn.running_var.uniform_(0.5, 1.5, generator=gen)
+    cases = [("mlp_dice_eval", mlp, (flat,), False), ("mlp_dice_train", mlp, (flat,), True),
+             ("interaction_machine_5_eval", im, (emb,), False),
+             ("interaction_machine_5_train", im, (emb,), True)]
+    cases += [(f"holographic_{kind}", HolographicInteraction(kind), (emb,), None)
+              for kind in HolographicInteraction.TYPES]
+    cases.append(("fignn", FiGNNLayer(f, d, generator=gen), (emb,), None))
+    return cases
+
+
+def phase_ops_rest(devices=("cuda", "cpu")) -> dict:
+    """The layers no model builds, on the card against the CPU from the same
+    weights and inputs: outputs and the updated BatchNorm statistics within
+    OPS_REST_ATOL (the interaction machine's outputs within OPS_REST_REL_TOL
+    of the largest), the gradients of sum(out) within OPS_REST_REL_TOL of
+    the largest entry of any leaf's.  Plain torch: no kernel of the port
+    launches."""
+    t0 = time.perf_counter()
+    results = {}
+    reset_launches()
+    for name, module, inputs, train in ops_rest_cases(torch.Generator().manual_seed(SEED + 800)):
+        runs = []
+        for dev in devices:
+            m = copy.deepcopy(module).to(dev)
+            xs = [x.to(dev) for x in inputs]
+            out = m(*xs) if train is None else m(*xs, train=train)
+            if out.requires_grad:
+                out.sum().backward()
+            grads = {k: p.grad.detach().cpu() for k, p in m.named_parameters()
+                     if p.grad is not None}
+            stats = {k: v.detach().cpu() for k, v in m.named_buffers() if "running" in k}
+            runs.append((out.detach().cpu(), grads, stats))
+        (got, got_g, got_s), (want, want_g, want_s) = runs
+        if got.shape != want.shape or not torch.isfinite(got).all():
+            raise RuntimeError(f"ops_rest {name}: bad output {tuple(got.shape)}")
+        scale = want.abs().max().item() if name.startswith("interaction") else 1.0
+        tol = OPS_REST_REL_TOL * scale if name.startswith("interaction") else OPS_REST_ATOL
+        err = (got - want).abs().max().item()
+        grad_scale = max((g.abs().max().item() for g in want_g.values()), default=1.0)
+        grad_err = max(((got_g[k] - want_g[k]).abs().max().item() / grad_scale
+                        for k in want_g), default=0.0)
+        stats_err = max(((got_s[k] - want_s[k]).abs().max().item() for k in want_s), default=0.0)
+        if err > tol or grad_err > OPS_REST_REL_TOL or stats_err > OPS_REST_ATOL:
+            raise RuntimeError(f"ops_rest {name}: card against CPU err {err} (tol {tol}), "
+                               f"grad rel err {grad_err}, stats err {stats_err}")
+        results[name] = {"max_abs_err": err, "grad_rel_err": grad_err, "stats_err": stats_err}
+    launches = read_launches()
+    require_launches(launches, {}, "ops_rest")
+    return {"phase": "ops_rest", "seconds": time.perf_counter() - t0, "cases": results,
+            "atol": OPS_REST_ATOL, "rel_tol": OPS_REST_REL_TOL, "launches": launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -4951,6 +5146,9 @@ def main() -> int:
         emit(serving)
         emit(phase_profile(model, profiled))
         del model
+        serving_export = phase_serving_export(path, enc_dict, score, tmp)
+        emit(serving_export)
+        emit(phase_ops_rest())
         training, trainer, train_loader = phase_training(path, enc_dict, score,
                                                          os.path.join(tmp, "ckpt"))
         emit(training)
@@ -5212,6 +5410,10 @@ def main() -> int:
                             ("iocrec_k4", ioc_k4["launches"])):
             if counts.get(line["name"]):
                 line[f"launches_{leg}"] = counts[line["name"]]
+        if line["name"] == "embedding_lookup":  # the exported program's requests
+            line["launches_serving_export"] = serving_export["launches"]["embedding_lookup"]
+            line["launches_serving_export_cpu_moved"] = (
+                serving_export["cpu_export_moved"]["launches"]["embedding_lookup"])
         if line["name"] in ("fused_adam", "embedding_grad"):  # at the LR table's shape, D = 1
             line["d1"] = {k: v for k, v in d1[line["name"]].items() if k != "name"}
         if line["name"] in d40:  # at the multi-task family's width, D = 40

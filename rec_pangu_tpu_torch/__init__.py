@@ -21,9 +21,15 @@ CMI) and graph CF (NGCF, ``GeneralGraphDataset``, ``GraphTrainer``): all
 ``steps_per_call`` (one step a call for every K) and writes a profiler
 trace; ``set_pretrained_weights``,
 ``BenchmarkTrainer``, wandb logging and ``utils`` (``seed_everything``,
-``beautify_json``, ``get_device_usage``) are the JAX package's.  Not yet
-ported: the serving export, scale-out (``mesh``) and the ops no model
-reaches (ROADMAP Queue 1 items 9-11).
+``beautify_json``, ``get_device_usage``) are the JAX package's.
+``serving.export_program`` writes a ranking model's scorer as a
+``torch.export`` program whose lookup is the registered op
+``rec_pangu_tpu_torch::embedding_lookup`` (importing this package registers
+it; ``torch.export.load`` then reads the program), and ``ops`` has every
+layer of the JAX package's, ``Dice`` and the ones no model builds
+included.  Not yet ported: scale-out (``mesh``, ROADMAP Queue 1 item 10);
+by decision, ``export2tf`` (no TensorFlow exporter in torch) and
+``utils/compile_cache.py``.
 Entry points run on the CUDA card unless the caller passes
 ``device="cpu"``.
 """

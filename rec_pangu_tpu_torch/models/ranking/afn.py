@@ -17,17 +17,10 @@ from torch import nn
 
 from ...convert import prefixed
 from ...ops.embedding import FusedEmbedding
-from ...ops.mlp import BN_EPS, BN_MOMENTUM, MLP, flax_batch_norm
+from ...ops.mlp import BN_EPS, BN_MOMENTUM, MLP, bn_leaves, flax_batch_norm
 from ...ops.sequence_enc import _dense, _linear_leaves
 from ..base import RankModelBase, register_model
 from ..losses import get_loss_fn
-
-
-def _bn_leaves(name: str, bn: nn.BatchNorm1d):
-    return prefixed(name, [("params", ("scale",), bn.weight, False),
-                           ("params", ("bias",), bn.bias, False),
-                           ("batch_stats", ("mean",), bn.running_mean, False),
-                           ("batch_stats", ("var",), bn.running_var, False)])
 
 
 @register_model("AFN")
@@ -69,8 +62,8 @@ class AFN(RankModelBase):
 
     def jax_leaves(self):
         leaves = (prefixed("FusedEmbedding_0", self.embedding.jax_leaves())
-                  + _bn_leaves("log_bn", self.log_bn) + _linear_leaves(self, ("Dense_0",))
-                  + _bn_leaves("exp_bn", self.exp_bn)
+                  + bn_leaves("log_bn", self.log_bn) + _linear_leaves(self, ("Dense_0",))
+                  + bn_leaves("exp_bn", self.exp_bn)
                   + prefixed("MLP_0", self.afn_mlp.jax_leaves()))
         if self.ensemble_dnn:
             leaves += (prefixed("embedding2", self.embedding2.jax_leaves())

@@ -12,9 +12,11 @@ explicit ``torch.Generator``.
   ``prod(shape[:-1])`` (:func:`flax_fan_in_normal_`).
 * The multi-task family's Linears: xavier normal, std
   ``sqrt(2 / (in + out))``, and zero biases (:func:`xavier_normal_`).
-* NGCF's weights: flax's own ``xavier_normal``, a normal truncated at two
-  standard deviations, scaled to the variance ``2 / (fan_in + fan_out)``
-  (:func:`flax_xavier_normal_`).
+* NGCF's weights and the field graph's ``[F, D, D]`` ones: flax's own
+  ``xavier_normal``, a normal truncated at two standard deviations, scaled
+  to the variance ``2 / (fan_in + fan_out)`` (:func:`flax_xavier_normal_`).
+* The field graph's GRU input kernels: flax ``GRUCell``'s default
+  ``lecun_normal`` (:func:`flax_lecun_normal_`).
 
 The same seed gives other numbers than the JAX package's ``jax.random``:
 parity tests carry weights across with :mod:`rec_pangu_tpu_torch.convert`.
@@ -63,13 +65,31 @@ def xavier_normal_(t: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
 _TRUNCATED_STD = 0.87962566103423978  # std of a standard normal truncated to [-2, 2]
 
 
+def _truncated_normal_(t: torch.Tensor, std: float, generator: torch.Generator) -> torch.Tensor:
+    """flax's truncated normal of ``std``: a standard normal truncated to
+    [-2, 2], times ``std / 0.8796``."""
+    torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator)
+    return t.mul_(std / _TRUNCATED_STD)
+
+
 @torch.no_grad()
 def flax_xavier_normal_(t: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
-    """flax's ``xavier_normal`` of a 2-D weight (either layout: the fans
-    only add): a standard normal truncated to [-2, 2], times
-    ``sqrt(2 / (fan_in + fan_out)) / 0.8796``."""
-    if t.dim() != 2:
-        raise ValueError("flax_xavier_normal_ is for 2-D weights")
-    std = math.sqrt(2.0 / (t.shape[0] + t.shape[1])) / _TRUNCATED_STD
-    torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator)
-    return t.mul_(std)
+    """flax's ``xavier_normal`` of a weight of two or more axes, std
+    ``sqrt(2 / (fan_in + fan_out))``: of a 2-D weight in either layout (the
+    fans only add); of one in flax's layout ``[..., in, out]`` with flax's
+    fans, each times the leading axes' product."""
+    if t.dim() < 2:
+        raise ValueError("flax_xavier_normal_ is for weights of two or more axes")
+    receptive = math.prod(t.shape[:-2])
+    return _truncated_normal_(
+        t, math.sqrt(2.0 / ((t.shape[-2] + t.shape[-1]) * receptive)), generator)
+
+
+@torch.no_grad()
+def flax_lecun_normal_(t: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    """flax's ``lecun_normal`` of a kernel in flax's layout ``[..., in,
+    out]``: a truncated normal of std ``sqrt(1 / fan_in)``, flax's fan-in
+    ``prod(shape[:-1])`` (flax ``GRUCell``'s input kernels)."""
+    if t.dim() < 2:
+        raise ValueError("flax_lecun_normal_ is for >=2-D kernels")
+    return _truncated_normal_(t, math.sqrt(1.0 / math.prod(t.shape[:-1])), generator)

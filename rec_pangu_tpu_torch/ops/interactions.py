@@ -10,6 +10,8 @@
 * ``SENETLayer`` and ``BilinearInteraction`` (FiBiNet).
 * ``MaskBlock`` (MaskNet): LayerNorm(net) times a mask MLP of the mask
   input, a Dense and a LayerNorm (both eps 1e-5, torch's).
+* ``FMLayer``, ``InteractionMachine`` and ``HolographicInteraction``: layers
+  no model of the package builds, kept for its layer library.
 
 Every product is ``torch.matmul``/``einsum``: the JAX package computes them
 outside any Pallas kernel.  Parameters the flax code makes with
@@ -26,7 +28,9 @@ import torch
 from torch import nn
 
 from ..convert import prefixed
+from .activations import get_activation
 from .initializers import flax_fan_in_normal_
+from .mlp import BN_EPS, BN_MOMENTUM, bn_leaves, flax_batch_norm
 from .sequence_enc import _dense, _linear_leaves
 
 Leaves = List[Tuple[str, tuple, torch.Tensor, bool]]
@@ -122,7 +126,11 @@ class CompressedInteractionNet(nn.Module):
         pooled = []
         for kernel, bias in zip(self.kernels, self.biases):
             k3 = kernel.view(self.num_fields, xi.shape[1], -1)
-            xi = torch.einsum("bfd,bmd,fmo->bod", x0, xi, k3) + bias[None, :, None]
+            # the outer product first, then one product over its F * H_i
+            # channels: a fixed order (a three-operand einsum picks one by
+            # the shapes, the batch's too, which torch.export cannot trace)
+            outer = x0.unsqueeze(2) * xi.unsqueeze(1)                  # [B, F, H_i, D]
+            xi = torch.einsum("bfmd,fmo->bod", outer, k3) + bias[None, :, None]
             pooled.append(xi.sum(dim=-1))
         return self.Dense_0(torch.cat(pooled, dim=-1))
 
@@ -213,3 +221,95 @@ class MaskBlock(nn.Module):
             leaves += prefixed(name, [("params", ("scale",), norm.weight, False),
                                       ("params", ("bias",), norm.bias, False)])
         return leaves
+
+
+class FMLayer(nn.Module):
+    """``inner_product``'s product_sum_pooling [B, 1], then
+    ``final_activation`` (a name of ``get_activation``; none when empty)."""
+
+    def __init__(self, final_activation: str = ""):
+        super().__init__()
+        self.final_activation = get_activation(final_activation) if final_activation else None
+
+    def forward(self, feature_emb: torch.Tensor) -> torch.Tensor:
+        out = inner_product(feature_emb, "product_sum_pooling")
+        return self.final_activation(out) if self.final_activation is not None else out
+
+    def jax_leaves(self) -> Leaves:
+        return []
+
+
+class InteractionMachine(nn.Module):
+    """The interactions of orders 1 to ``order`` (at most 5) over [B, F, D]
+    in closed form, from the power sums p_k = sum over the fields of x^k:
+    [B, order * D], then flax's ``BatchNorm_0`` (momentum 0.9, eps 1e-5)
+    when ``batch_norm``, and ``Dense_0`` to [B, 1]."""
+
+    def __init__(self, embedding_dim: int, order: int = 2, batch_norm: bool = False,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if not 1 <= order <= 5:
+            raise ValueError(f"order={order} is not supported")
+        self.order = int(order)
+        width = self.order * embedding_dim
+        self.bn = (nn.BatchNorm1d(width, eps=BN_EPS, momentum=BN_MOMENTUM)
+                   if batch_norm else None)
+        self.Dense_0 = _dense(width, 1, _gen(generator))
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        q = x
+        p1 = q.sum(dim=1)
+        out = [p1]
+        if self.order >= 2:
+            q = q * x
+            p2 = q.sum(dim=1)
+            out.append((p1 ** 2 - p2) / 2)
+        if self.order >= 3:
+            q = q * x
+            p3 = q.sum(dim=1)
+            out.append((p1 ** 3 - 3 * p1 * p2 + 2 * p3) / 6)
+        if self.order >= 4:
+            q = q * x
+            p4 = q.sum(dim=1)
+            out.append((p1 ** 4 - 6 * p1 ** 2 * p2 + 3 * p2 ** 2 + 8 * p1 * p3 - 6 * p4) / 24)
+        if self.order == 5:
+            q = q * x
+            p5 = q.sum(dim=1)
+            out.append((p1 ** 5 - 10 * p1 ** 3 * p2 + 20 * p1 ** 2 * p3 - 30 * p1 * p4
+                        - 20 * p2 * p3 + 15 * p1 * p2 ** 2 + 24 * p5) / 120)
+        h = torch.cat(out, dim=-1)
+        if self.bn is not None:
+            h = flax_batch_norm(h, self.bn, train)
+        return self.Dense_0(h)
+
+    def jax_leaves(self) -> Leaves:
+        bn = bn_leaves("BatchNorm_0", self.bn) if self.bn is not None else []
+        return _linear_leaves(self, ("Dense_0",)) + bn
+
+
+class HolographicInteraction(nn.Module):
+    """Pairwise interactions over [B, F, D] -> [B, F(F-1)/2, D]: the
+    hadamard product, or the circular convolution or correlation of each
+    field pair through ``torch.fft`` along D."""
+
+    TYPES = ("hadamard_product", "circular_convolution", "circular_correlation")
+
+    def __init__(self, interaction_type: str = "circular_convolution"):
+        super().__init__()
+        if interaction_type not in self.TYPES:
+            raise ValueError(f"interaction_type={interaction_type!r} not supported")
+        self.interaction_type = interaction_type
+
+    def forward(self, feature_emb: torch.Tensor) -> torch.Tensor:
+        p, q = _pair_indices(feature_emb.shape[1], feature_emb.device)
+        e1, e2 = feature_emb[:, p], feature_emb[:, q]
+        if self.interaction_type == "hadamard_product":
+            return e1 * e2
+        f1 = torch.fft.fft(e1, dim=-1)
+        f2 = torch.fft.fft(e2, dim=-1)
+        if self.interaction_type == "circular_correlation":
+            f1 = torch.conj(f1)
+        return torch.fft.ifft(f1 * f2, dim=-1).real
+
+    def jax_leaves(self) -> Leaves:
+        return []

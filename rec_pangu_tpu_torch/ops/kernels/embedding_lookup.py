@@ -20,9 +20,14 @@ A fused id outside ``[0, rows)`` gives a zero row, as in K1 (such an id
 matches no one-hot column).  Callers that take ids from outside check them
 on the host first and raise (``ops.embedding.check_ids``).
 
-The wrapper launches the kernel for CUDA tensors and raises if it cannot;
-it uses the plain version below only for tensors on the CPU.  On the card
-the lookup's backward is the table gradient kernel (``embedding_grad.py``).
+The lookup is the registered op ``rec_pangu_tpu_torch::embedding_lookup``
+(``torch.library.custom_op``), so that ``torch.export`` keeps it as one node
+of a saved program and the loaded program runs the kernel
+(``serving/export.py``).  Its CUDA implementation launches the kernel and
+raises if it cannot; its CPU implementation is the plain version below, used
+only for tensors on the CPU.  Its backward is the table gradient kernel
+(``embedding_grad.py``) on the card and, on the CPU, the gradient autograd
+takes through the plain version.
 """
 from __future__ import annotations
 
@@ -102,22 +107,49 @@ def fused_ids(sparse: torch.Tensor, offsets: torch.Tensor) -> torch.Tensor:
     return (sparse + offsets).reshape(-1)
 
 
-class _KernelLookup(torch.autograd.Function):
-    """The lookup kernel forward; the table gradient kernel (K2,
-    ``embedding_grad.py``) backward."""
+OP = "rec_pangu_tpu_torch::embedding_lookup"
 
-    @staticmethod
-    def forward(ctx, table, sparse, offsets):
-        ctx.save_for_backward(sparse, offsets)
-        ctx.num_rows = table.shape[0]
-        return _launch(table, sparse, offsets)
 
-    @staticmethod
-    def backward(ctx, grad):
-        sparse, offsets = ctx.saved_tensors
-        rows = grad.reshape(-1, grad.shape[-1])
-        return (table_grad(fused_ids(sparse, offsets), rows, ctx.num_rows),
-                None, None)
+@torch.library.custom_op(OP, mutates_args=(), device_types="cpu")
+def embedding_lookup_op(table: torch.Tensor, sparse: torch.Tensor,
+                        offsets: torch.Tensor) -> torch.Tensor:
+    """The registered lookup; on the CPU, the plain version."""
+    return fused_embedding_lookup_reference(table, sparse, offsets)
+
+
+embedding_lookup_op.register_kernel("cuda")(_launch)
+
+
+@embedding_lookup_op.register_fake
+def _(table, sparse, offsets):
+    return table.new_empty((sparse.shape[0], sparse.shape[1], table.shape[1]))
+
+
+def _setup_context(ctx, inputs, output):
+    table, sparse, offsets = inputs
+    ctx.save_for_backward(sparse, offsets)
+    ctx.num_rows = table.shape[0]
+
+
+def _cpu_table_grad(grad, sparse, offsets, num_rows):
+    """The table gradient autograd takes through the plain version: the
+    where's backward, then the index's (``index_put_`` with accumulation)."""
+    ids = sparse.long() + offsets.long()
+    valid = (ids >= 0) & (ids < num_rows)
+    grad = torch.where(valid.unsqueeze(-1), grad, grad.new_zeros(()))
+    out = grad.new_zeros((num_rows, grad.shape[-1]))
+    return out.index_put_((ids.clamp(0, num_rows - 1),), grad, accumulate=True)
+
+
+def _backward(ctx, grad):
+    sparse, offsets = ctx.saved_tensors
+    if grad.device.type == "cpu":
+        return _cpu_table_grad(grad, sparse, offsets, ctx.num_rows), None, None
+    rows = grad.reshape(-1, grad.shape[-1])
+    return table_grad(fused_ids(sparse, offsets), rows, ctx.num_rows), None, None
+
+
+embedding_lookup_op.register_autograd(_backward, setup_context=_setup_context)
 
 
 def fused_embedding_lookup(table: torch.Tensor, sparse: torch.Tensor,
@@ -125,8 +157,6 @@ def fused_embedding_lookup(table: torch.Tensor, sparse: torch.Tensor,
     """[R, D] f32 table, [B, F] i32 per-field ids, [F] i32 row offsets
     -> [B, F, D] = ``table[sparse + offsets]``, zero rows for ids out of range."""
     _check(table, sparse, offsets)
-    if table.device.type == "cpu":
-        return fused_embedding_lookup_reference(table, sparse, offsets)
-    if table.device.type != "cuda":
+    if table.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no embedding lookup kernel for device {table.device}")
-    return _KernelLookup.apply(table, sparse, offsets)
+    return embedding_lookup_op(table, sparse, offsets)

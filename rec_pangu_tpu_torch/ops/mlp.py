@@ -3,6 +3,8 @@
 Per hidden layer: Linear -> [BatchNorm] -> activation -> [Dropout]; then an
 optional output Linear and output activation.  ``dense[i]`` is flax's
 ``Dense_i`` (the output layer is the last), ``bn[i]`` is ``BatchNorm_i``.
+A hidden layer whose activation is ``"dice"`` gets a ``Dice`` (flax's
+``Dice_j``, j counting the Dice layers).
 ``train`` is an argument, as in the JAX package: it picks batch statistics
 and active dropout.
 
@@ -27,7 +29,8 @@ from typing import List, Optional, Sequence, Tuple, Union
 import torch
 from torch import nn
 
-from .activations import get_activation
+from ..convert import prefixed
+from .activations import Dice, get_activation
 from .dropout import draw_seed, feature_dropout, mlp_stream
 from .initializers import kaiming_normal_, torch_linear_bias_, xavier_normal_
 
@@ -54,8 +57,18 @@ def flax_batch_norm(x: torch.Tensor, bn: nn.BatchNorm1d, train: bool,
             bn.running_var.mul_(1.0 - bn.momentum).add_(var.detach(), alpha=bn.momentum)
     else:
         mean, var = bn.running_mean, bn.running_var
+    if not bn.affine:  # flax's use_scale=False, use_bias=False (Dice's)
+        return (x - mean.view(shape)) * torch.rsqrt(var + bn.eps).view(shape)
     scale = bn.weight * torch.rsqrt(var + bn.eps)
     return (x - mean.view(shape)) * scale.view(shape) + bn.bias.view(shape)
+
+
+def bn_leaves(name: str, bn: nn.BatchNorm1d) -> List[Tuple[str, tuple, torch.Tensor, bool]]:
+    """flax ``BatchNorm`` leaves of ``bn`` under the module name ``name``."""
+    return [("params", (name, "scale"), bn.weight, False),
+            ("params", (name, "bias"), bn.bias, False),
+            ("batch_stats", (name, "mean"), bn.running_mean, False),
+            ("batch_stats", (name, "var"), bn.running_var, False)]
 
 
 class MLP(nn.Module):
@@ -76,7 +89,14 @@ class MLP(nn.Module):
                 else list(hidden_activations))
         drops = (list(dropout_rates) if isinstance(dropout_rates, (list, tuple))
                  else [dropout_rates] * n)
-        self.acts = [get_activation(a) if a else None for a in acts]
+        self.dice = nn.ModuleList()
+        self.acts = []
+        for a, units in zip(acts, hidden_units):
+            if isinstance(a, str) and a.lower() == "dice":
+                self.dice.append(Dice(units))
+                self.acts.append(self.dice[-1])
+            else:
+                self.acts.append(get_activation(a) if a else None)
         self.drops = [float(d or 0.0) for d in drops]
         self.output_act = (get_activation(output_activation)
                            if output_activation is not None else None)
@@ -110,7 +130,9 @@ class MLP(nn.Module):
             x = self.dense[i](x)
             if len(self.bn):
                 x = flax_batch_norm(x, self.bn[i], train)
-            if self.acts[i] is not None:
+            if isinstance(self.acts[i], Dice):
+                x = self.acts[i](x, train)
+            elif self.acts[i] is not None:
                 x = self.acts[i](x)
             if train and self.drops[i] > 0:
                 x = feature_dropout(x, self.drops[i], seed,
@@ -129,8 +151,7 @@ class MLP(nn.Module):
             if layer.bias is not None:
                 leaves.append(("params", (f"Dense_{i}", "bias"), layer.bias, False))
         for i, bn in enumerate(self.bn):
-            leaves += [("params", (f"BatchNorm_{i}", "scale"), bn.weight, False),
-                       ("params", (f"BatchNorm_{i}", "bias"), bn.bias, False),
-                       ("batch_stats", (f"BatchNorm_{i}", "mean"), bn.running_mean, False),
-                       ("batch_stats", (f"BatchNorm_{i}", "var"), bn.running_var, False)]
+            leaves += bn_leaves(f"BatchNorm_{i}", bn)
+        for j, dice in enumerate(self.dice):
+            leaves += prefixed(f"Dice_{j}", dice.jax_leaves())
         return leaves

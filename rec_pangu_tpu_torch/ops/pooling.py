@@ -1,7 +1,21 @@
-"""K-max pooling, the JAX package's ``ops/pooling.kmax_pooling``."""
+"""Poolings, the JAX package's ``ops/pooling.py``: the masked average and
+sum over a sequence's positions, and k-max pooling."""
 from __future__ import annotations
 
 import torch
+
+
+def masked_average_pooling(embedding_matrix: torch.Tensor) -> torch.Tensor:
+    """[B, L, D] -> [B, D]: each column's sum over L over its count of
+    nonzero entries (+1e-16): an all-zero row is padding."""
+    summed = embedding_matrix.sum(dim=1)
+    non_padding = (embedding_matrix != 0).sum(dim=1)
+    return summed / (non_padding.to(summed.dtype) + 1e-16)
+
+
+def masked_sum_pooling(embedding_matrix: torch.Tensor) -> torch.Tensor:
+    """[B, L, D] -> [B, D]: the sum over L (padding rows are zero)."""
+    return embedding_matrix.sum(dim=1)
 
 
 def kmax_pooling(x: torch.Tensor, k: int, dim: int) -> torch.Tensor:

@@ -269,24 +269,43 @@ class GRULayer(nn.Module):
         h W_hz), n = tanh(x W_in + b_in + r (h W_hn + b_hn)),
         h' = (1 - z) n + z h, as flax computes it."""
         B, L, _ = x.shape
-        H = self.hn_bias.shape[0]
-        w_i = torch.cat([getattr(self, f"i{g}_kernel") for g in self.GATES], dim=1)
-        b_i = torch.cat([getattr(self, f"i{g}_bias") for g in self.GATES])
+        w_i, b_i, w_h, b_h = self._packed()
         # unbind and split, not indexing: a slice's backward writes a zero
         # tensor of its whole source, [B, L, 3H] each step
         gi = (torch.matmul(x, w_i) + b_i).unbind(dim=1)               # L x [B, 3H]
-        w_h = torch.cat([getattr(self, f"h{g}_kernel") for g in self.GATES], dim=1)
-        b_h = torch.cat([self.hn_bias.new_zeros(2 * H), self.hn_bias])  # no hr, hz bias
-        h = x.new_zeros(B, H)
+        h = x.new_zeros(B, self.hn_bias.shape[0])
         out = []
         for t in range(L):
-            gi_rz, gi_n = gi[t].split([2 * H, H], dim=1)
-            gh_rz, gh_n = torch.addmm(b_h, h, w_h).split([2 * H, H], dim=1)
-            r, z = torch.sigmoid(gi_rz + gh_rz).chunk(2, dim=1)
-            n = torch.tanh(gi_n + r * gh_n)
-            h = (1.0 - z) * n + z * h
+            h = self._step(gi[t], h, w_h, b_h)
             out.append(h)
         return torch.stack(out, dim=1)
+
+    def _packed(self) -> Tuple[torch.Tensor, ...]:
+        """The gates' kernels side by side, input [in, 3H] and recurrent
+        [H, 3H], and their biases (the recurrent one hn's alone: hr and hz
+        have none)."""
+        H = self.hn_bias.shape[0]
+        w_i = torch.cat([getattr(self, f"i{g}_kernel") for g in self.GATES], dim=1)
+        b_i = torch.cat([getattr(self, f"i{g}_bias") for g in self.GATES])
+        w_h = torch.cat([getattr(self, f"h{g}_kernel") for g in self.GATES], dim=1)
+        return w_i, b_i, w_h, torch.cat([self.hn_bias.new_zeros(2 * H), self.hn_bias])
+
+    @staticmethod
+    def _step(gi: torch.Tensor, h: torch.Tensor, w_h: torch.Tensor,
+              b_h: torch.Tensor) -> torch.Tensor:
+        """The new carry from the input products ``gi`` [N, 3H] and ``h``."""
+        H = h.shape[1]
+        gi_rz, gi_n = gi.split([2 * H, H], dim=1)
+        gh_rz, gh_n = torch.addmm(b_h, h, w_h).split([2 * H, H], dim=1)
+        r, z = torch.sigmoid(gi_rz + gh_rz).chunk(2, dim=1)
+        n = torch.tanh(gi_n + r * gh_n)
+        return (1.0 - z) * n + z * h
+
+    def cell(self, x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+        """One step of flax's ``GRUCell(carry=h, inputs=x)``: [N, in], [N, H]
+        -> the new carry [N, H]."""
+        w_i, b_i, w_h, b_h = self._packed()
+        return self._step(torch.matmul(x, w_i) + b_i, h, w_h, b_h)
 
     def jax_leaves(self) -> List[Tuple[str, tuple, torch.Tensor, bool]]:
         leaves = []

@@ -1,6 +1,6 @@
-"""Boundaries of the port: it imports nothing of JAX or of the JAX package,
-imports without pandas, builds nothing at import, and runs on the CPU only
-when asked to."""
+"""Boundaries of the port: it (its example scripts too) imports nothing of
+JAX or of the JAX package, imports without pandas, builds nothing at
+import, and runs on the CPU only when asked to."""
 import ast
 import os
 import subprocess
@@ -44,6 +44,9 @@ def test_imports_without_jax_flax_optax_or_pandas():
         import rec_pangu_tpu_torch.data.graph_dataset, rec_pangu_tpu_torch.train.benchmark
         import rec_pangu_tpu_torch.utils.logging, rec_pangu_tpu_torch.utils.seed
         import rec_pangu_tpu_torch.utils.json_utils
+        import rec_pangu_tpu_torch.ops.field_graph, rec_pangu_tpu_torch.serving.export
+        assert rec_pangu_tpu_torch.serving.export_program is (
+            rec_pangu_tpu_torch.serving.export.export_program)
         assert rec_pangu_tpu_torch.GraphTrainer is rec_pangu_tpu_torch.train.GraphTrainer
         loaded = sorted(m for m in sys.modules if sys.modules[m] is not None
                         and m.split(".")[0] in {"rec_pangu_tpu", "jax", "flax", "optax"})
@@ -69,8 +72,10 @@ def _imported_roots(path: Path):
 
 
 def test_sources_import_nothing_of_jax():
-    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
-    assert len(files) > 10
+    examples = sorted(REPO.glob("examples/**/*_torch.py"))
+    assert len(examples) == 10
+    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"] + examples
+    assert PORT / "ops" / "field_graph.py" in files and PORT / "serving" / "export.py" in files
     bad = [f"{f.relative_to(REPO)}:{line} imports {root}"
            for f in files for root, line in _imported_roots(f)
            if root in FORBIDDEN_ROOTS]
@@ -83,7 +88,8 @@ def test_sources_import_nothing_of_jax():
 
 def test_entry_points_require_cuda_by_default(monkeypatch):
     from rec_pangu_tpu_torch.models import get_model
-    from rec_pangu_tpu_torch.serving import make_ranking_scorer, make_retrieval_scorer
+    from rec_pangu_tpu_torch.serving import (export_program, make_ranking_scorer,
+                                             make_retrieval_scorer)
     from rec_pangu_tpu_torch.train import GraphTrainer, RankTrainer, SequenceTrainer
     from rec_pangu_tpu_torch.utils import resolve_device
 
@@ -95,7 +101,7 @@ def test_entry_points_require_cuda_by_default(monkeypatch):
     for call in (lambda: resolve_device(None), lambda: resolve_device("cuda:0"),
                  lambda: RankTrainer(), lambda: make_ranking_scorer(model),
                  lambda: SequenceTrainer(), lambda: make_retrieval_scorer(sasrec),
-                 lambda: GraphTrainer()):
+                 lambda: GraphTrainer(), lambda: export_program(model, enc, "unused.pt2")):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
     assert resolve_device("cpu") == torch.device("cpu")
