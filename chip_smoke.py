@@ -171,6 +171,18 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                card against CPU, on the plain versions of the kernels whose
                limits they pass (0 launches of those; their plain-route
                counts).
+22. mesh    -- scale-out (rec_pangu_tpu_torch/parallel): a world of one rank
+               over NCCL on the card, DeepFM at the bench's width fitted
+               under make_mesh(1, 1) for a few fused and standard steps,
+               bit-equal to the same fits without a mesh; then two spawned
+               ranks on the one card over gloo with CUDA tensors (NCCL does
+               not put two ranks of a group on one card), DeepFM at 16 x
+               10,000 ids: a data-parallel fused fit and standard fit and a
+               1 x 2 row-sharded standard fit, each against the same fit on
+               one rank, the sharded lookup bit-equal, and distributed_topk
+               over two item shards against torch.topk.  K1, K2 and K3
+               counted on each leg (launches_mesh_*).  No collective is
+               timed: one card cannot show what they cost between cards.
 
 Then the kernels line, the card's name and power limit as nvidia-smi gives
 them, and last {"ok": true, "device": {...}}.
@@ -186,13 +198,17 @@ import copy
 import functools
 import json
 import math
+import multiprocessing
 import os
+import pickle
 import shutil
+import socket
 import statistics
 import subprocess
 import sys
 import tempfile
 import time
+import traceback
 
 import numpy as np
 import torch
@@ -216,6 +232,9 @@ from rec_pangu_tpu_torch.serving.scorer import score_items
 from rec_pangu_tpu_torch.convert import jax_variables
 from rec_pangu_tpu_torch.models.multi_task import OMOE
 from rec_pangu_tpu_torch.models.multi_task.common import TaskTower
+from rec_pangu_tpu_torch.parallel import (distributed_topk, initialize_multihost, make_mesh,
+                                          shard_state)
+from rec_pangu_tpu_torch.parallel.sharding import whole_variables
 from rec_pangu_tpu_torch.train import (GraphTrainer, RankTrainer, SequenceTrainer,
                                        load_checkpoint, save_checkpoint)
 from rec_pangu_tpu_torch.train.fused_update import fused_tables, maybe_enable_fused_update
@@ -5107,6 +5126,303 @@ def phase_ops_rest(devices=("cuda", "cpu")) -> dict:
             "atol": OPS_REST_ATOL, "rel_tol": OPS_REST_REL_TOL, "launches": launches}
 
 
+MESH_SEED = SEED + 800
+MESH_STEPS = CPU_STEPS     # steps a leg (rank_cpu_batches' batches)
+MESH_BATCH = 4096          # two-rank legs: rows a step (2,048 a data rank)
+MESH_TOPK_ITEMS, MESH_TOPK_USERS, MESH_TOPK_K = 100_000, 512, 200
+MESH_TIMEOUT_S = 240       # the two ranks' deadline, spawn included
+# the two-rank legs against one rank on the same card: the same gates as the
+# card against the CPU (the blocks' GEMMs and the all-reduce sum in other
+# orders; Adam's first step moves an element with a gradient near 0 by up
+# to 2 lr)
+MESH_DENSE_HANDFUL, MESH_TABLE_HANDFUL = RANK_DENSE_HANDFUL, RANK_TABLE_HANDFUL
+
+
+def free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+@contextlib.contextmanager
+def fused_adam_env(on: bool):
+    """REC_PANGU_TPU_FUSED_ADAM set for the fits inside: fit's fused step, or
+    its standard step."""
+    prev = os.environ.get("REC_PANGU_TPU_FUSED_ADAM")
+    os.environ["REC_PANGU_TPU_FUSED_ADAM"] = "1" if on else "0"
+    try:
+        yield
+    finally:
+        if prev is None:
+            del os.environ["REC_PANGU_TPU_FUSED_ADAM"]
+        else:
+            os.environ["REC_PANGU_TPU_FUSED_ADAM"] = prev
+
+
+def mesh_model(enc_dict: dict):
+    """DeepFM at the bench's width over ``enc_dict``, weights from MESH_SEED."""
+    return port.get_model("DeepFM")(enc_dict=enc_dict, embedding_dim=DIM, hidden_units=HIDDEN,
+                                    seed=MESH_SEED)
+
+
+def mesh_fit(initial, batches, mesh, device: str, ckpt_dir: str) -> dict:
+    """A copy of the DeepFM ``initial`` fitted one epoch over ``batches``
+    (under ``mesh`` when given), its launches counted from 0 just before the
+    fit and read just after: the losses, and after the first step and the
+    last the weights in the JAX layout (whole tables) and the fused step's
+    table moments."""
+    model = copy.deepcopy(initial)
+    trainer = RankTrainer(device=device, model_ckpt_dir=ckpt_dir)
+    losses, states, inner = [], [], trainer._step
+
+    def snapshot() -> dict:
+        state = {"params": whole_variables(model)["params"]}
+        moments = getattr(trainer._train_step, "moments", None)
+        if moments:
+            state["moments"] = {k: t.detach().cpu().numpy() for k, t in zip(("mu", "nu"),
+                                                                              moments[0])}
+        return state
+
+    def step(b):
+        out = inner(b)
+        losses.append(out["loss"].detach())
+        if not states:
+            states.append(snapshot())
+        return out
+
+    trainer._step = step
+    if device == "cuda":
+        torch.cuda.synchronize()
+    reset_launches()
+    trainer.fit(model, batches, epoch=1, lr=LR, mesh=mesh, log_rounds=10 ** 9)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    launches = read_launches()
+    del trainer._step
+    return {"launches": launches, "losses": [float(x) for x in losses],
+            "step": type(trainer._train_step).__name__, "after_one": states[0],
+            "final": snapshot()}
+
+
+def state_diffs(got: dict, want: dict) -> tuple:
+    """{leaf: |got - want|} of two snapshots (weights, table moments) and
+    the table and moment leaves among them."""
+    got_w, want_w = ckpt_leaves(got["params"]), ckpt_leaves(want["params"])
+    if got_w.keys() != want_w.keys():
+        raise RuntimeError(f"snapshots differ in keys: {sorted(got_w.keys() ^ want_w.keys())}")
+    table_keys = [k for k in want_w if k[-1] == "table"]
+    diffs = {k: np.abs(got_w[k] - want_w[k]) for k in want_w}  # float32: 0 only where equal
+    for k in want.get("moments", {}):
+        diffs[("moments", k)] = np.abs(got["moments"][k] - want["moments"][k])
+        table_keys.append(("moments", k))
+    return diffs, table_keys
+
+
+def mesh_compare(got: dict, want: dict, what: str) -> dict:
+    """A mesh fit against the same fit on one rank: the losses over the
+    steps within LOSS_RTOL, the weights and table moments after the first
+    step as phase_rank_card_vs_cpu holds the card to the CPU; also whether
+    every array is bit-equal after the first step and after the last."""
+    if got["step"] != want["step"]:
+        raise RuntimeError(f"{what}: the mesh fit took the {got['step']}, the one-rank fit "
+                           f"the {want['step']}")
+    diffs, table_keys = state_diffs(got["after_one"], want["after_one"])
+    dense = np.concatenate([np.zeros(1)] + [d.reshape(-1) for k, d in diffs.items()
+                                            if k not in table_keys])
+    tables = np.concatenate([diffs[k].reshape(-1) for k in table_keys])
+    loss_rel = [abs(a - b) / abs(b) for a, b in zip(got["losses"], want["losses"])]
+    summary = {"step": got["step"], "losses": got["losses"], "one_rank_losses": want["losses"],
+               "loss_rel_diffs": loss_rel, "dense_max_abs_diff": float(dense.max()),
+               "dense_elements_beyond_atol": int((dense > DENSE_ATOL).sum()),
+               "table_max_abs_diff": float(tables.max()),
+               "table_elements_beyond_atol": int((tables > TABLE_ATOL).sum()),
+               "table_elements": int(tables.size),
+               "bit_equal": bool(dense.max() == 0 and tables.max() == 0
+                                 and got["losses"] == want["losses"]
+                                 and all(d.max() == 0 for d in state_diffs(
+                                     got["final"], want["final"])[0].values())),
+               "launches": got["launches"]}
+    if (len(loss_rel) != len(want["losses"]) or max(loss_rel) > LOSS_RTOL
+            or summary["dense_elements_beyond_atol"] > MESH_DENSE_HANDFUL
+            or summary["table_elements_beyond_atol"] > MESH_TABLE_HANDFUL
+            or max(dense.max(), tables.max()) > 2 * LR):
+        raise RuntimeError(f"{what}: the mesh fit differs from the one-rank fit: {summary}")
+    return summary
+
+
+def mesh_expected(step: str, steps: int) -> dict:
+    """Launches of a DeepFM fit of ``steps`` steps: K1 once a step, and K3
+    (the fused step) or K2 (the standard step) once a step."""
+    kernel = "fused_adam" if step == "FusedStep" else "embedding_grad"
+    return {"embedding_lookup": steps, kernel: steps}
+
+
+def mesh_rank_legs(rank: int, store: str, tmp: str, device: str) -> dict:
+    """One rank of phase_mesh's two-rank legs (see there)."""
+    t0 = time.perf_counter()
+    initialize_multihost(f"file://{store}", 2, rank, device=device, backend="gloo")
+    dp, tp = make_mesh(2, 1, device=device), make_mesh(1, 2, device=device)
+    enc_dict = {**{f"C{f + 1}": {"vocab_size": RANK_CPU_VOCAB} for f in range(FIELDS)},
+                **{f"I{d + 1}": {"min": 0.0, "max": 1.0} for d in range(DENSE)}}
+    batches = rank_cpu_batches(MESH_SEED + 1, RANK_CPU_VOCAB, MESH_BATCH)
+    out = {"init_seconds": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    ckpt = os.path.join(tmp, f"rank{rank}")
+    whole = mesh_model(enc_dict)
+    for name, mesh, fused in (("dp_fused", dp, True), ("dp_standard", dp, False),
+                              ("tp_standard", tp, False)):
+        with fused_adam_env(fused):
+            got = mesh_fit(whole, batches, mesh, device, ckpt)
+            want = mesh_fit(whole, batches, None, device, ckpt)
+        if device == "cuda":
+            require_launches(got["launches"], mesh_expected(got["step"], MESH_STEPS),
+                             f"mesh {name} (rank {rank})")
+        out[name] = mesh_compare(got, want, f"mesh {name} (rank {rank})")
+        out[name]["seconds"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
+    # the 1 x 2 row-sharded lookup, bit-equal to the whole table's
+    whole = whole.to(device)
+    sharded = copy.deepcopy(whole)
+    shard_state(sharded, tp)
+    ids = torch.from_numpy(batches[0]["sparse"]).to(device)
+    with torch.no_grad():
+        if not torch.equal(sharded.embedding(ids), whole.embedding(ids)):
+            raise RuntimeError(f"mesh: the 1 x 2 sharded lookup differs from the whole "
+                               f"table's (rank {rank})")
+    out["tp_lookup_rows"] = int(sharded.embedding.table.shape[0])
+
+    # distributed_topk over two item shards against torch.topk on the whole
+    gen = torch.Generator().manual_seed(MESH_SEED + 2)
+    items = torch.randn(MESH_TOPK_ITEMS, SEQ_DIM, generator=gen).to(device)
+    users = torch.randn(MESH_TOPK_USERS, SEQ_DIM, generator=gen).to(device)
+    scores, ids = distributed_topk(tp, users, items, MESH_TOPK_K)
+    want_scores, want_ids = torch.topk(users @ items.t(), MESH_TOPK_K + 1, dim=1)
+    out["topk_near_tie_positions"] = compare_topk(
+        ids.cpu().numpy(), scores.cpu().numpy(), want_ids.cpu().numpy(),
+        want_scores.cpu().numpy())
+    out["lookup_topk_seconds"] = time.perf_counter() - t0
+    return out
+
+
+def mesh_rank(rank: int, store: str, tmp: str, device: str) -> None:
+    """A spawned rank of phase_mesh: its legs' summary, or its traceback,
+    pickled for the parent."""
+    started = time.time()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(2)
+    try:
+        result = {"ok": {**mesh_rank_legs(rank, store, tmp, device),
+                         "started": started, "finished": time.time()}}
+    except BaseException:
+        result = {"error": traceback.format_exc()}
+    with open(os.path.join(tmp, f"result.{rank}.tmp"), "wb") as f:
+        pickle.dump(result, f)
+    os.replace(os.path.join(tmp, f"result.{rank}.tmp"), os.path.join(tmp, f"result.{rank}"))
+
+
+def start_mesh_ranks(tmp: str, device: str) -> list:
+    """The two ranks of phase_mesh, spawned: they rendezvous with each
+    other over a file in ``tmp``, not with this process."""
+    ctx = multiprocessing.get_context("spawn")
+    store = os.path.join(tmp, "store")
+    procs = [ctx.Process(target=mesh_rank, args=(r, store, tmp, device), daemon=True)
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    return procs
+
+
+def stop_processes(procs) -> None:
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+        p.join()
+
+
+def join_mesh_ranks(procs, tmp: str, deadline: float) -> list:
+    """The ranks' results, polled until ``deadline`` (time.monotonic());
+    every rank still running when one fails or the time passes is killed,
+    and the failure raises."""
+    results = {}
+    try:
+        while len(results) < 2 and time.monotonic() < deadline:
+            for r, p in enumerate(procs):
+                path = os.path.join(tmp, f"result.{r}")
+                if r not in results and os.path.exists(path):
+                    with open(path, "rb") as f:
+                        results[r] = pickle.load(f)
+                elif r not in results and not p.is_alive():
+                    results[r] = {"error": f"rank {r} exited with code {p.exitcode}"}
+            if any("error" in v for v in results.values()):
+                break
+            time.sleep(0.1)
+    finally:
+        stop_processes(procs)
+    errors = {r: v["error"] for r, v in results.items() if "error" in v}
+    if errors or len(results) < 2:
+        raise RuntimeError(f"mesh ranks failed or timed out after {MESH_TIMEOUT_S} s: {errors}")
+    return [results[r]["ok"] for r in range(2)]
+
+
+def phase_mesh(device: str = "cuda") -> dict:
+    """Phase 22 (see the module's docstring).  The two ranks are spawned
+    first, so that their start (a process takes seconds to import torch
+    and reach the card) overlaps the one-rank legs; nothing here is timed
+    as a result."""
+    t_start = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix=".chip_smoke_mesh_") as tmp:
+        spawned = time.time()
+        procs = start_mesh_ranks(tmp, device)
+        deadline = time.monotonic() + MESH_TIMEOUT_S
+        try:
+            # (a) one rank over NCCL: the mesh fit bit-equal to the fit without one
+            world1 = {}
+            initialize_multihost(f"localhost:{free_port()}", 1, 0, device=device)
+            try:
+                mesh = make_mesh(1, 1, device=device)
+                batches = rank_cpu_batches(MESH_SEED + 3, VOCAB, BATCH)
+                initial = mesh_model(bench_enc_dict())
+                for name, fused in (("world1_fused", True), ("world1_standard", False)):
+                    t0 = time.perf_counter()
+                    with fused_adam_env(fused):
+                        got = mesh_fit(initial, batches, mesh, device, tmp)
+                        want = mesh_fit(initial, batches, None, device, tmp)
+                    if device == "cuda":
+                        require_launches(got["launches"], mesh_expected(got["step"], MESH_STEPS),
+                                         f"mesh {name}")
+                    world1[name] = mesh_compare(got, want, f"mesh {name}")
+                    # the card's kernels sum in fixed orders; on the CPU the plain
+                    # table gradient's index_put_ accumulates over threads
+                    if device == "cuda" and not world1[name]["bit_equal"]:
+                        raise RuntimeError(f"mesh {name}: one rank's mesh fit is not bit-equal "
+                                           f"to the fit without a mesh: {world1[name]}")
+                    world1[name]["seconds"] = time.perf_counter() - t0
+                backend = torch.distributed.get_backend()
+            finally:
+                torch.distributed.destroy_process_group()
+            del initial
+            if device == "cuda":
+                torch.cuda.empty_cache()
+            world1_s = time.perf_counter() - t_start
+            # (b) the two ranks on the one card over gloo
+            ranks = join_mesh_ranks(procs, tmp, deadline)
+        finally:
+            stop_processes(procs)
+    legs = {name: ranks[0][name] for name in ("dp_fused", "dp_standard", "tp_standard")}
+    return {"phase": "mesh", "world1_backend": backend, **world1,
+            "world1_seconds": world1_s, "two_ranks_backend": "gloo", **legs,
+            "rank_launches": {name: [r[name]["launches"] for r in ranks] for name in legs},
+            "tp_lookup_rows": ranks[0]["tp_lookup_rows"],
+            "topk_near_tie_positions": [r["topk_near_tie_positions"] for r in ranks],
+            "rank_start_seconds": [r["started"] - spawned for r in ranks],
+            "rank_init_seconds": [r["init_seconds"] for r in ranks],
+            "rank_lookup_topk_seconds": [r["lookup_topk_seconds"] for r in ranks],
+            "rank_seconds": [r["finished"] - spawned for r in ranks],
+            "seconds": time.perf_counter() - t_start}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -5320,6 +5636,9 @@ def main() -> int:
 
     # shapes past the kernels' limits: the plain versions on the card
     emit(phase_past_limits())
+    torch.cuda.empty_cache()
+    mesh = phase_mesh()
+    emit(mesh)
 
     # launches on each kernel's own main path: the lookup's on serving, the
     # fused Adam's on the fused fit (and on the sequence fused fit), the
@@ -5410,6 +5729,12 @@ def main() -> int:
                             ("iocrec_k4", ioc_k4["launches"])):
             if counts.get(line["name"]):
                 line[f"launches_{leg}"] = counts[line["name"]]
+        # the mesh legs: K1 once a step of every leg, K3 of the fused ones,
+        # K2 of the standard ones (the two-rank legs' counts are rank 0's)
+        for leg in ("world1_fused", "world1_standard", "dp_fused", "dp_standard",
+                    "tp_standard"):
+            if mesh[leg]["launches"].get(line["name"]):
+                line[f"launches_mesh_{leg}"] = mesh[leg]["launches"][line["name"]]
         if line["name"] == "embedding_lookup":  # the exported program's requests
             line["launches_serving_export"] = serving_export["launches"]["embedding_lookup"]
             line["launches_serving_export_cpu_moved"] = (

@@ -27,8 +27,13 @@ trace; ``set_pretrained_weights``,
 ``rec_pangu_tpu_torch::embedding_lookup`` (importing this package registers
 it; ``torch.export.load`` then reads the program), and ``ops`` has every
 layer of the JAX package's, ``Dice`` and the ones no model builds
-included.  Not yet ported: scale-out (``mesh``, ROADMAP Queue 1 item 10);
-by decision, ``export2tf`` (no TensorFlow exporter in torch) and
+included.  ``parallel`` is the scale-out on ``torch.distributed``, one
+process per device: ``make_mesh``, ``initialize_multihost``, the sharding
+policy, ``distributed_topk``; ``RankTrainer.fit`` and ``GraphTrainer.fit``
+take ``mesh`` (data-parallel, and row-sharded tables over ``model``), and
+``get_recall_predict`` scores over it.  Not yet ported: the sequence
+trainer's mesh (``SequenceTrainer.fit(mesh=...)``, ROADMAP Queue 1 item
+12); by decision, ``export2tf`` (no TensorFlow exporter in torch) and
 ``utils/compile_cache.py``.
 Entry points run on the CUDA card unless the caller passes
 ``device="cpu"``.

@@ -11,7 +11,10 @@
 
 ``approx_recall_target`` selects the TPU's approximate top-k in the JAX
 package; here every top-k is exact, which meets any recall target.
-``mesh`` (the JAX package's distributed top-k) is not ported yet.
+``get_recall_predict(mesh=...)`` scores through the distributed top-k
+(``parallel/topk.distributed_topk``): every rank runs every batch, each
+``model`` rank scores its rows of the normalized item table (padded to a
+multiple of the axis), and every rank gets the same lists.
 """
 from __future__ import annotations
 
@@ -21,7 +24,8 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-_MESH = "the sharded top-k is not ported yet (ROADMAP Queue 1 item 10)"
+from ..parallel.mesh import mesh_shape
+from ..parallel.topk import distributed_topk, pad_to_multiple
 
 
 def l2_normalize(x: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Tensor:
@@ -83,17 +87,35 @@ def batched_merge_multi_interest_np(ids: np.ndarray, scores: np.ndarray, topn: i
     return merged, counts
 
 
+def make_mesh_topn_scorer(mesh, item_embs: torch.Tensor, topn: int
+                          ) -> Callable[[torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]:
+    """``make_topn_scorer`` over a mesh: the normalized items padded to a
+    multiple of the ``model`` axis, each rank scoring its own rows
+    (``distributed_topk``, the pads masked out)."""
+    items = l2_normalize(item_embs.float())
+    num_valid = items.shape[0]
+    items = pad_to_multiple(items, mesh_shape(mesh)[1])
+
+    def score(user_embs: torch.Tensor):
+        return distributed_topk(mesh, l2_normalize(user_embs.float()), items, topn,
+                                num_valid=num_valid)
+
+    return score
+
+
 def get_recall_predict(model, test_loader, topn: int = 200, user_emb_key: str = "user_emb",
                        mesh=None, approx_recall_target: Optional[float] = None
                        ) -> Dict[str, List[int]]:
     """{user: top-N item ids} for every batch of ``test_loader``, on the
-    device where ``model`` lies."""
-    if mesh is not None:
-        raise NotImplementedError(_MESH)
+    device where ``model`` lies; with ``mesh``, the distributed top-k over
+    the item table split across ``model`` (call it on every rank)."""
     dev = next(model.parameters()).device
     preds: Dict[str, List[int]] = {}
     with torch.inference_mode():
-        scorer = make_topn_scorer(model.output_items(), topn, approx_recall_target)
+        if mesh is None:
+            scorer = make_topn_scorer(model.output_items(), topn, approx_recall_target)
+        else:
+            scorer = make_mesh_topn_scorer(mesh, model.output_items(), topn)
         for batch in test_loader:
             user_embs = model(model.upload_batch(batch, dev), train=False)[user_emb_key]
             users = batch["user"]

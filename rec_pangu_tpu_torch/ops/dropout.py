@@ -52,15 +52,31 @@ def skip_seeds(generator: torch.Generator, n: int) -> None:
         n -= k
 
 
+class RowSeed(int):
+    """A step's dropout seed that also carries ``first_row``, the global
+    batch row of the block's first sample: under a mesh each ``data`` rank
+    runs its own block of the batch, and ``feature_dropout`` hashes sample
+    i of the block as row ``first_row + i``, so the ranks draw the masks the
+    single-device step draws on the whole batch (the JAX package folds the
+    shard index into its key instead).  Arithmetic on it gives a plain int."""
+
+    def __new__(cls, seed: int, first_row: int = 0):
+        obj = super().__new__(cls, seed)
+        obj.first_row = int(first_row)
+        return obj
+
+
 def feature_dropout(x: torch.Tensor, rate: float, seed: int, stream: Tuple[int, int]
                     ) -> torch.Tensor:
     """Inverted dropout of x [n, ...] at ``rate`` with the fused encoder's
     hash masks of ``stream`` (layer, site) for ``seed``: the same elements
-    on the card and the CPU."""
+    on the card and the CPU.  Sample i draws the mask of row i, or of row
+    ``seed.first_row + i`` for a ``RowSeed``."""
     if rate <= 0:
         return x
     layer, site = stream
-    return x * dropout_scale(seed, x.shape[0], layer, site, tuple(x.shape[1:]), rate, x.device)
+    return x * dropout_scale(seed, x.shape[0], layer, site, tuple(x.shape[1:]), rate, x.device,
+                             getattr(seed, "first_row", 0))
 
 
 def mlp_stream(stream: int, layer: int) -> Tuple[int, int]:

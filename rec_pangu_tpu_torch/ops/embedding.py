@@ -3,6 +3,9 @@ models' wide part, a ``[V, 1]`` table) and ``ItemEmbedding`` (sequence
 recall).
 
 ``FusedEmbedding``: one ``[padded_rows, D]`` table behind all sparse fields.
+Under a mesh whose ``model`` axis row-shards it, each rank keeps a block
+of its rows and the lookup sums the blocks' rows over that axis
+(``_sharded_lookup``).
 
 All F features share one table with static per-feature row offsets, so a
 batch lookup is a single ``[B, F]`` (+offsets) -> ``[B, F, D]`` gather, run
@@ -61,6 +64,10 @@ class FusedEmbedding(nn.Module):
             torch.empty(padded_rows(spec.total_rows), self.embedding_dim))
         self.register_buffer("offsets", torch.from_numpy(spec.offsets.copy()),
                              persistent=False)
+        # (first row, whole rows) of the rank's block once shard_state
+        # row-shards the table over a mesh's model axis, and the MeshState
+        self.row_shard: Optional[Tuple[int, int]] = None
+        self.mesh_state = None
         generator = generator if generator is not None else torch.Generator().manual_seed(0)
         with torch.no_grad():
             if init_mode == "xavier":
@@ -79,12 +86,30 @@ class FusedEmbedding(nn.Module):
         is appended to ``capture`` so that the step differentiates the loss
         by them and hands their gradient to this table's fused Adam.  The
         value is the same either way."""
+        if self.row_shard is not None:
+            return self._sharded_lookup(sparse_ids, capture)
         if capture is None:
             return fused_embedding_lookup(self.table, sparse_ids, self.offsets)
         rows = fused_embedding_lookup(self.table.detach(), sparse_ids, self.offsets)
         rows.requires_grad_(True)
         capture.append((self, rows))
         return rows
+
+    def _sharded_lookup(self, sparse_ids: torch.Tensor, capture) -> torch.Tensor:
+        """The lookup of a table row-sharded over the mesh's ``model`` axis
+        (``parallel/sharding.shard_state``): the kernel on the rank's rows
+        with the ids shifted by the block's first row (ids of other blocks
+        fall outside it and read zero rows), then the sum over ``model``
+        with an identity backward, so that the shard's gradient is the
+        table gradient kernel on the shifted ids from the rank's own
+        cotangent.  The fused step does not run on a sharded table."""
+        from ..parallel.comm import reduce_model  # here: the parallel package imports ops
+
+        if capture is not None:
+            raise ValueError("the fused step does not run on a row-sharded table: a mesh "
+                             "with a model axis takes the standard step")
+        rows = fused_embedding_lookup(self.table, sparse_ids, self.shard_offsets)
+        return reduce_model(rows, self.mesh_state.model_group)
 
     def jax_leaves(self) -> List[Tuple[str, tuple, torch.Tensor, bool]]:
         """(collection, flax path, tensor, transposed) of each weight."""

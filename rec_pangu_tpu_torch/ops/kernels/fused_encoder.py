@@ -147,14 +147,14 @@ def check_rate(rate: float) -> None:
 
 
 def dropout_scale(seed: int, n: int, layer: int, site: int, shape: Sequence[int], rate: float,
-                  device=None) -> torch.Tensor:
+                  device=None, first: int = 0) -> torch.Tensor:
     """The kernels' dropout factors [n, *shape] float32 (0 dropped, 1/(1-p)
-    kept) for samples 0..n-1 of one layer and site: element i of sample s
-    (row-major in ``shape``: (h, l, j) of the attention probabilities, (l, c)
-    of a hidden site) draws mix(key ^ mix(i)) with key = mix(mix(mix(seed ^
-    0x9e3779b9) ^ s) ^ (3 * layer + site))."""
+    kept) for samples first..first+n-1 of one layer and site: element i of
+    sample s (row-major in ``shape``: (h, l, j) of the attention
+    probabilities, (l, c) of a hidden site) draws mix(key ^ mix(i)) with key
+    = mix(mix(mix(seed ^ 0x9e3779b9) ^ s) ^ (3 * layer + site))."""
     base = int(mix32(torch.tensor([(int(seed) & _MASK32) ^ 0x9E3779B9], dtype=torch.int64))[0])
-    samples = torch.arange(n, dtype=torch.int64, device=device)
+    samples = torch.arange(first, first + n, dtype=torch.int64, device=device)
     key = mix32(mix32(samples ^ base) ^ (3 * layer + site))
     idx = torch.arange(int(np.prod(shape)), dtype=torch.int64, device=device)
     draw = mix32(key[:, None] ^ mix32(idx)[None, :])

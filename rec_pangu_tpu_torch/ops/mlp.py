@@ -12,6 +12,8 @@ BatchNorm is flax's (``flax_batch_norm``): ``momentum=0.9`` for the running
 averages (torch ``momentum=0.1``), ``epsilon=1e-5``, the batch variance
 E[x^2] - E[x]^2 clipped at 0, and the running variance updated with that
 **biased** batch variance (torch's own update uses the unbiased one).
+Under a mesh that splits the batch over ``data`` the statistics are the
+global batch's (``_batch_moments``).
 
 Weights: kaiming normal kernels and torch's uniform biases (the ranking
 family), or with ``init="xavier"`` xavier normal kernels and zero biases
@@ -38,6 +40,24 @@ BN_MOMENTUM = 0.1
 BN_EPS = 1e-5
 
 
+def _batch_moments(x: torch.Tensor, bn: nn.BatchNorm1d, dims: Tuple[int, ...]):
+    """E[x] and E[x^2] over ``dims``: of this batch, or, while a mesh step
+    runs a block of a batch split over ``data`` (``bn.mesh_state``, set by
+    ``parallel/sharding.shard_state``), of the global batch: the blocks'
+    sums added over ``data`` (a summing backward), as GSPMD computes the
+    statistics of a sharded batch."""
+    state = getattr(bn, "mesh_state", None)
+    if state is None or not state.split:
+        return x.mean(dim=dims), (x * x).mean(dim=dims)
+    from ..parallel.comm import reduce_data  # here: the parallel package imports ops
+
+    count = 1
+    for d in dims:
+        count *= x.shape[d]
+    sums = reduce_data(torch.stack([x.sum(dim=dims), (x * x).sum(dim=dims)]), state.data_group)
+    return sums[0] / (count * state.n_data), sums[1] / (count * state.n_data)
+
+
 def flax_batch_norm(x: torch.Tensor, bn: nn.BatchNorm1d, train: bool,
                     dims: Sequence[int] = (0,)) -> torch.Tensor:
     """flax ``BatchNorm`` over ``x`` with the features on the axis not in
@@ -50,8 +70,8 @@ def flax_batch_norm(x: torch.Tensor, bn: nn.BatchNorm1d, train: bool,
     feat = next(i for i in range(x.dim()) if i not in dims)
     shape[feat] = x.shape[feat]
     if train:
-        mean = x.mean(dim=dims)
-        var = ((x * x).mean(dim=dims) - mean * mean).clamp_min(0.0)
+        mean, mean_sq = _batch_moments(x, bn, dims)
+        var = (mean_sq - mean * mean).clamp_min(0.0)
         with torch.no_grad():
             bn.running_mean.mul_(1.0 - bn.momentum).add_(mean.detach(), alpha=bn.momentum)
             bn.running_var.mul_(1.0 - bn.momentum).add_(var.detach(), alpha=bn.momentum)

@@ -8,13 +8,17 @@ The columns are the JAX package's: ``model_name``, ``train_model_time(ms)``,
 time, set-up included), then ``valid_<metric>`` and ``test_<metric>`` (a
 multi-task model's metrics already start with ``test_``, so its columns
 read ``valid_test_task1_...``, as the reference's sweep writes them).
-pandas is imported by ``run`` only.
+pandas is imported by ``run`` only.  ``run(mesh=...)`` passes the mesh on
+to every ``fit``, as the JAX package's does: every rank runs the sweep,
+and global rank 0 alone writes the CSV.
 """
 from __future__ import annotations
 
 import os
 import time
 from typing import Dict, List, Optional
+
+import torch
 
 from ..models import get_model
 from ..utils.device import DeviceLike
@@ -35,8 +39,9 @@ class BenchmarkTrainer:
             epoch: int = 10, lr: float = 1e-3, device: DeviceLike = None,
             model_kwargs: Optional[Dict[str, dict]] = None, mesh=None):
         """Train and test every model of ``model_list`` on ``device`` (the
-        CUDA card by default); returns the results as a pandas DataFrame,
-        also written to ``benchmark_res_path`` after each model."""
+        CUDA card by default), under ``mesh`` when given; returns the
+        results as a pandas DataFrame, also written to
+        ``benchmark_res_path`` after each model."""
         import pandas as pd
 
         rows = []
@@ -61,6 +66,7 @@ class BenchmarkTrainer:
             row.update({f"valid_{k}": v for k, v in valid_metric.items()})
             row.update({f"test_{k}": v for k, v in test_metric.items()})
             rows.append(row)
-            pd.DataFrame(rows).to_csv(self.benchmark_res_path, index=False)
+            if mesh is None or torch.distributed.get_rank() == 0:
+                pd.DataFrame(rows).to_csv(self.benchmark_res_path, index=False)
             logger.info(f"Benchmark row: {row}")
         return pd.DataFrame(rows)

@@ -57,9 +57,11 @@ from ..ops.kernels.embedding_lookup import fused_ids
 from ..ops.kernels.fused_adam import adam_hyper, planned_adam_update, sort_for, update_sorted
 from ..ops.dropout import draw_seed
 from ..ops.softmax_ce import fused_ce_enabled
+from ..parallel.comm import all_reduce_grads, gather_rows
 from .ckpt import moment_arrays
 from .optim import ADAM_B1, ADAM_B2, ADAM_EPS, make_lr_schedule, make_optimizer, set_lr
-from .steps import OPT_STATE_LAYOUT, adam_entries, adam_moments, load_adam_state
+from .steps import (OPT_STATE_LAYOUT, adam_entries, adam_moments, draw_step_seed,
+                    load_adam_state)
 
 
 def _moment_dtype() -> torch.dtype:
@@ -93,13 +95,28 @@ class FusedStep:
     table up other than exactly once raises ``ValueError`` before any
     weight, moment or running statistic changes.  A step given a
     ``generator`` (``fit``'s, seeded by its ``seed``) draws the step's
-    dropout seed from it; otherwise from torch's default generator."""
+    dropout seed from it; otherwise from torch's default generator.
+
+    Under a data-parallel mesh (``model.mesh_state`` with a ``model`` axis of
+    1; the JAX package's ``planned_adam_update_mesh``), a step on a block of
+    a batch split over ``data`` all-reduces the dense gradients over
+    ``data`` and divides them by its size, scales each table's cotangent
+    rows by 1 / n_data (d(global mean loss)/d(rows)) and gathers them and
+    the fused ids over ``data`` in rank order, which is the global batch's
+    order; every rank then sorts the global ids and runs K3 on its whole
+    replica of the table, so the table and its moments move as the
+    single-device step on the global batch moves them, bit for bit.  A
+    batch every rank runs whole exchanges nothing."""
 
     fused = True
 
     def __init__(self, model, lr: float, steps_per_epoch: int, lr_scheduler_type: str = "",
                  scheduler_params=None, generator: Optional[torch.Generator] = None):
         self.model = model
+        self.mesh_state = getattr(model, "mesh_state", None)
+        if self.mesh_state is not None and self.mesh_state.n_model > 1:
+            raise ValueError("the fused step runs under a data-parallel mesh only: a model "
+                             "axis row-shards the tables, which takes the standard step")
         self.tables = fused_tables(model)
         if not self.tables:
             raise ValueError(f"{type(model).__name__} has no FusedEmbedding")
@@ -123,7 +140,8 @@ class FusedStep:
         raises with every running statistic as it was."""
         saved = [b.clone() for b in self.stats]
         captured: List[Tuple[FusedEmbedding, torch.Tensor]] = []
-        out = self.model(inputs, train=True, capture=captured, seed=draw_seed(self.generator))
+        out = self.model(inputs, train=True, capture=captured,
+                         seed=draw_step_seed(self.generator, self.mesh_state))
         counts = [sum(owner is m for owner, _ in captured) for _, m in self.tables]
         if any(c != 1 for c in counts):
             with torch.no_grad():
@@ -138,6 +156,10 @@ class FusedStep:
         lr = self.schedule(step)
         out, rows = self._forward(inputs)
         grads = torch.autograd.grad(out["loss"], self.dense + rows, allow_unused=True)
+        state = self.mesh_state
+        split = state is not None and state.split
+        if split:
+            all_reduce_grads(grads[:len(self.dense)], state.data_group)
         if self.optimizer is not None:
             set_lr(self.optimizer, lr)
             for p, g in zip(self.dense, grads):
@@ -145,11 +167,15 @@ class FusedStep:
             self.optimizer.step()
         hyper = adam_hyper(step + 1, lr, ADAM_B1, ADAM_B2, ADAM_EPS)
         ids = fused_ids(inputs["sparse"], self.tables[0][1].offsets)
+        if split:
+            ids = gather_rows(ids, state.data_group)
         sorted_ids = {}  # table height -> the ids sorted for it, once a step
         with torch.no_grad():
             for (_, emb), (mu, nu), r, g in zip(self.tables, self.moments, rows,
                                                 grads[len(self.dense):]):
                 g = torch.zeros_like(r) if g is None else g
+                if split:
+                    g = gather_rows(g.reshape(-1, g.shape[-1]) / state.n_data, state.data_group)
                 height = emb.table.shape[0]
                 if height not in sorted_ids:
                     sorted_ids[height] = sort_for(ids, height)
@@ -179,11 +205,15 @@ def maybe_enable_fused_update(model, lr: float, steps_per_epoch: int,
                               generator: Optional[torch.Generator] = None
                               ) -> Optional[FusedStep]:
     """The fused Adam step for ``model`` from a fresh state, or None when it
-    does not apply: the model has no ``FusedEmbedding``, or
-    ``REC_PANGU_TPU_FUSED_ADAM`` is set to something other than 1/on/true."""
+    does not apply: the model has no ``FusedEmbedding``, it lies on a mesh
+    with a ``model`` axis, or ``REC_PANGU_TPU_FUSED_ADAM`` is set to
+    something other than 1/on/true."""
     if not _fused_adam_on():
         return None
     if not any(isinstance(m, FusedEmbedding) for m in model.modules()):
+        return None
+    state = getattr(model, "mesh_state", None)
+    if state is not None and state.n_model > 1:  # the JAX gate's trivial-model-axis rule
         return None
     return FusedStep(model, lr, steps_per_epoch, lr_scheduler_type, scheduler_params,
                      generator)

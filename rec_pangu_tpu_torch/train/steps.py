@@ -35,9 +35,23 @@ import numpy as np
 import torch
 
 from ..convert import jax_tree
-from ..ops.dropout import draw_seed
+from ..ops.dropout import RowSeed, draw_seed
+from ..parallel.comm import all_reduce_grads
 from .ckpt import OPT_STATE_LAYOUT
 from .optim import make_lr_schedule, make_optimizer, set_lr
+
+
+def draw_step_seed(generator: Optional[torch.Generator], mesh_state=None,
+                   global_rows: bool = True) -> int:
+    """A step's dropout seed from ``generator``; while a mesh step runs a
+    block of a batch split over ``data``, a ``RowSeed`` that hashes the
+    block's samples as their global rows (``global_rows``: the model's
+    dropout is over the batch's rows; NGCF's is over the graph's nodes,
+    which every rank holds whole)."""
+    seed = draw_seed(generator)
+    if global_rows and mesh_state is not None and mesh_state.split:
+        return RowSeed(seed, mesh_state.first_row)
+    return seed
 
 
 def strip_host_keys(batch: Dict[str, Any]) -> Tuple[Dict[str, Any], Dict[str, Any]]:
@@ -140,28 +154,42 @@ def make_param_renorm(model, paths) -> Callable[[], None]:
 
 class StandardStep:
     """forward, ``loss.backward()``, one Adam step over every parameter;
-    the ``frozen`` (weight, rows) pairs put back after it."""
+    the ``frozen`` (weight, rows) pairs put back after it.
+
+    On a model under a mesh (``model.mesh_state``, ``parallel/sharding``),
+    a step on a block of a batch split over ``data`` all-reduces every
+    gradient over ``data`` and divides it by the axis' size before Adam:
+    the gradient of the global batch's mean loss (a row-sharded table's
+    gradient is its block's, from the lookup's identity backward over
+    ``model``).  A batch every rank runs whole exchanges nothing.
+    ``global_rows`` as ``draw_step_seed``'s."""
 
     fused = False
 
     def __init__(self, model, lr: float, steps_per_epoch: int, lr_scheduler_type: str = "",
                  scheduler_params=None, generator: Optional[torch.Generator] = None,
-                 frozen: Sequence[Tuple[torch.Tensor, slice]] = ()):
+                 frozen: Sequence[Tuple[torch.Tensor, slice]] = (), global_rows: bool = True):
         self.model = model
         self.schedule = make_lr_schedule(lr, steps_per_epoch, lr_scheduler_type,
                                          scheduler_params)
         self.optimizer = make_optimizer(model.parameters(), lr)
         self.generator = generator
         self.frozen = list(frozen)
+        self.mesh_state = getattr(model, "mesh_state", None)
+        self.global_rows = global_rows
 
     def __call__(self, inputs: Dict[str, torch.Tensor], step: int) -> Dict[str, torch.Tensor]:
         set_lr(self.optimizer, self.schedule(step))
         self.optimizer.zero_grad(set_to_none=True)
+        state = self.mesh_state
         if self.generator is None:
             out = self.model(inputs, train=True)
         else:
-            out = self.model(inputs, train=True, seed=draw_seed(self.generator))
+            out = self.model(inputs, train=True, seed=draw_step_seed(
+                self.generator, state, self.global_rows))
         out["loss"].backward()
+        if state is not None and state.split:
+            all_reduce_grads([p.grad for p in self.model.parameters()], state.data_group)
         kept = [w.detach()[rows].clone() for w, rows in self.frozen]
         self.optimizer.step()
         with torch.no_grad():

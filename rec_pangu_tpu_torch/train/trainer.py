@@ -31,7 +31,21 @@ Its options:
   counterpart of JAX's one dispatch for K steps would be a CUDA graph.
 * ``profile_dir``: ``torch.profiler`` (CPU, and CUDA on the card) over the
   first epoch, its Chrome trace written there (``trace_path``).
-* ``mesh`` raises ``NotImplementedError`` (ROADMAP Queue 1 item 10).
+* ``mesh``: a mesh from ``parallel.make_mesh``; every rank calls ``fit``
+  with the same loaders.  ``fit`` shards the model in place
+  (``parallel/sharding.shard_state``: the tables row-sharded over
+  ``model``), and each rank trains on its contiguous row block of every
+  batch (a batch that does not divide ``data`` runs whole on every rank,
+  as the JAX package places it replicated), or on the batches of a loader
+  built with ``shard_rank=<data rank>, num_shards=<n_data>`` as they come.
+  The fused step runs when the ``model`` axis is 1 (the cotangent rows
+  gathered over ``data``, K3 on every replica), else the standard step
+  (the sharded lookup, each block's gradient all-reduced over ``data``).
+  The step's outputs are the global batch's (predictions gathered, the
+  loss the global mean), so every rank logs the same metrics;
+  ``evaluate_model`` and ``predict_dataloader`` then run under the same
+  mesh, each rank predicting its block; only global rank 0 writes the
+  checkpoints, the whole tables gathered first, in the JAX layout.
 
 A kept difference from the JAX ``fit``: it trains the module's weights as
 they are (the PyTorch idiom: the module owns its weights, made by its
@@ -48,7 +62,8 @@ pending pretrained rows), then ``evaluate_model`` on the valid loader, a
 row of ``log.csv``, the ``model_e_{i}`` checkpoint and early stopping.
 ``seed`` seeds the generator the steps draw their dropout seeds (and
 sampled negatives) from; ``steps_per_call`` is RankTrainer's; ``mesh``
-raises.  A model with ``renorm_param_paths`` (CMI) trains projected:
+raises (the sequence mesh is ROADMAP Queue 1 item 12).  A model with
+``renorm_param_paths`` (CMI) trains projected:
 those rows are put back on the unit sphere at the start of ``fit`` and
 after every step.
 
@@ -57,7 +72,10 @@ from the dataset and takes the standard step; ``evaluate_model`` scores
 every test user against the whole item table in chunks of 1,024 users on
 the model's device, sets each user's train items to -inf and takes the
 top min(1000, items) (``masked_topk``), then recall/ndcg/hitrate at
-``topN``.
+``topN``.  Under a mesh (``fit(mesh=...)``) each rank takes its block of
+every BPR batch while the graph and its products stay whole on every rank,
+and ``evaluate_model`` ranks through ``distributed_masked_topk`` over the
+item table split across ``model``.
 
 Both RankTrainer and SequenceTrainer take ``wandb_config``: with the
 ``wandb`` package installed, ``fit`` logs in and starts a run with it,
@@ -77,7 +95,7 @@ from typing import Dict, Iterator, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..convert import jax_variables, load_jax_variables
+from ..convert import load_jax_variables
 from ..data.loader import DataLoader
 from ..eval.metrics import RollingMetricBuffer, compute_ranking_metrics
 from ..eval.retrieval import evaluate_recall, get_recall_predict
@@ -85,20 +103,31 @@ from ..models.pretrained import inject_pretrained
 from ..models.sequence.augment import host_augment_sequences
 from ..ops.dropout import skip_seeds
 from ..ops.graph import attach_session_graph
+from ..parallel.comm import gather_rows, mean_over
+from ..parallel.sharding import (shard_batch, shard_frozen, shard_opt_state, shard_state,
+                                 shard_variables, whole_opt_state, whole_variables)
+from ..parallel.topk import distributed_masked_topk, pad_to_multiple
 from ..utils.device import DeviceLike, resolve_device
 from ..utils.logging import HAS_WANDB, logger, wandb
 from .ckpt import load_checkpoint, read_opt_state, save_checkpoint
 from .fused_update import maybe_enable_fused_update, maybe_enable_seq_fused_update
 from .steps import StandardStep, make_param_renorm, strip_host_keys
 
-# fit's one argument the port does not run yet, with the ROADMAP item that ports it
-_MESH_NOT_PORTED = ("fit(mesh=...) is not ported yet: data-parallel and sharded training "
-                    "(ROADMAP Queue 1 item 10)")
+# the sequence trainer's mesh, with the ROADMAP item that ports it
+_MESH_NOT_PORTED = ("SequenceTrainer.fit(mesh=...) is not ported yet: the sequence fused "
+                    "step under a mesh (ROADMAP Queue 1 item 12)")
 
 
 def _refuse_mesh(mesh) -> None:
     if mesh is not None:
         raise NotImplementedError(_MESH_NOT_PORTED)
+
+
+def _check_mesh(mesh) -> None:
+    """A mesh argument must be ``parallel.make_mesh``'s (a DeviceMesh)."""
+    if mesh is not None and not hasattr(mesh, "get_group"):
+        raise TypeError(f"mesh must be a DeviceMesh from parallel.make_mesh, got "
+                        f"{type(mesh).__name__}")
 
 
 class _BaseTrainer:
@@ -118,6 +147,8 @@ class _BaseTrainer:
         self._aug_rng = None     # the host augmentations' and negatives' generator
         self._pending_pretrained: List[Tuple[str, dict, bool]] = []
         self.trace_path: Optional[str] = None  # fit(profile_dir=...)'s trace
+        self.mesh = None         # fit's mesh
+        self._presplit = False   # fit's loader gives each rank its own rows
 
     def _device(self, device: DeviceLike) -> torch.device:
         return self.device if device is None else resolve_device(device)
@@ -151,21 +182,58 @@ class _BaseTrainer:
             wandb.login(key=key)
         wandb.init(**cfg)
 
-    def _start_fit(self, model, device: DeviceLike) -> torch.device:
+    def _start_fit(self, model, device: DeviceLike, mesh=None) -> torch.device:
         dev = self._device(device)
+        if mesh is not None and mesh.device_type != dev.type:
+            raise ValueError(f"the mesh lies on {mesh.device_type}, the trainer trains on "
+                             f"{dev}")
         os.makedirs(self.model_ckpt_dir, exist_ok=True)
         self.model = model.to(dev)
         self._fit_device = dev
         self.step = 0
         return dev
 
+    def _shard(self, model, mesh, frozen=(), loader=None):
+        """Shard ``model`` over ``mesh`` (once: a model already sharded over
+        it is kept as it is) and translate the frozen rows to the rank's
+        blocks; note whether ``loader`` gives each rank its own rows.
+        Returns the frozen pairs."""
+        self.mesh, self._presplit = mesh, False
+        state = getattr(model, "mesh_state", None)
+        if mesh is None:
+            if state is not None:
+                raise ValueError("the model is sharded over a mesh: pass that mesh to fit")
+            return list(frozen)
+        if state is None:
+            whole = {id(t): "/".join(p) for _, p, t, _ in model.jax_leaves()}
+            state = shard_state(model, mesh)
+            frozen = shard_frozen(model, list(frozen), whole)
+        elif state.mesh is not mesh:
+            raise ValueError("the model is sharded over another mesh")
+        shards = int(getattr(loader, "num_shards", 1))
+        if shards > 1:
+            if shards != state.n_data or loader.shard_rank != state.data_rank:
+                raise ValueError(f"a sharded loader under a ({state.n_data}, {state.n_model}) "
+                                 f"mesh needs num_shards={state.n_data} and shard_rank=<data "
+                                 f"rank {state.data_rank}>, got {shards} and "
+                                 f"{loader.shard_rank}")
+            if len(loader.dataset) % shards:
+                raise ValueError(f"{len(loader.dataset)} rows do not split evenly over "
+                                 f"{shards} loader shards: the ranks' batches must match")
+            self._presplit = True
+        return list(frozen)
+
+    def _is_writer(self, model) -> bool:
+        state = getattr(model, "mesh_state", None)
+        return state is None or state.is_writer
+
     # ------------------------------------------------------------- ckpt api
     def load_model(self, model, path: str) -> dict:
         """Load a checkpoint (the JAX package's layout) into ``model``, move
         it to the trainer's device in eval mode, and return the checkpoint."""
         ckpt = load_checkpoint(path)
-        load_jax_variables(model, {"params": ckpt["params"],
-                                   "batch_stats": ckpt.get("batch_stats")})
+        load_jax_variables(model, shard_variables(model, {"params": ckpt["params"],
+                                                          "batch_stats": ckpt.get("batch_stats")}))
         model.to(self.device).eval()
         self.step = int(ckpt.get("step", 0))
         return ckpt
@@ -174,42 +242,53 @@ class _BaseTrainer:
         """Restore the weights, batch statistics, step counter and optimizer
         state of the checkpoint at ``path`` into the model and the step
         ``fit`` built; an optimizer state this port cannot read restores
-        the weights only, with a warning."""
+        the weights only, with a warning.  On a sharded model each rank reads
+        its blocks of the whole tables and their moments."""
         ckpt = load_checkpoint(path)
-        load_jax_variables(self.model, {"params": ckpt["params"],
-                                        "batch_stats": ckpt.get("batch_stats")})
+        load_jax_variables(self.model, shard_variables(
+            self.model, {"params": ckpt["params"], "batch_stats": ckpt.get("batch_stats")}))
         self.step = int(ckpt.get("step", 0))
         state = read_opt_state(ckpt.get("opt_state"), self.step)
         if state is not None:
-            self._train_step.load_opt_state(state)
+            self._train_step.load_opt_state(shard_opt_state(self.model, state))
         elif ckpt.get("opt_state") is not None:
             logger.warning("Checkpoint optimizer state is of an unknown structure: restoring "
                            "params only; optimizer restarts from scratch")
         logger.info(f"Resumed from {path} at step {self.step}")
         return ckpt
 
-    def save_model(self, model, model_ckpt_dir: str) -> str:
-        """Weights-only checkpoint ``model.ckpt``, readable by both packages."""
-        path = os.path.join(model_ckpt_dir, "model.ckpt")
-        save_checkpoint(path, **jax_variables(model), step=self.step)
-        return path
+    def _write(self, path: str, model, with_opt: bool, enc_dict: Optional[dict] = None) -> None:
+        """One checkpoint in the JAX layout.  On a sharded model every rank
+        gathers the whole tables and moments, global rank 0 writes, and the
+        others wait for it at a barrier."""
+        variables = whole_variables(model)
+        opt_state = whole_opt_state(model, self._opt_state()) if with_opt else None
+        if self._is_writer(model):
+            save_checkpoint(path, **variables, opt_state=opt_state, enc_dict=enc_dict,
+                            step=self.step)
+        if getattr(model, "mesh_state", None) is not None:
+            torch.distributed.barrier()
 
     def _opt_state(self):
         return None if self._train_step is None else self._train_step.opt_state(self.step)
 
+    def save_model(self, model, model_ckpt_dir: str) -> str:
+        """Weights-only checkpoint ``model.ckpt``, readable by both packages."""
+        path = os.path.join(model_ckpt_dir, "model.ckpt")
+        self._write(path, model, with_opt=False)
+        return path
+
     def save_all(self, model, enc_dict: dict, model_ckpt_dir: str) -> str:
         """Weights, optimizer state and enc_dict in ``model.ckpt``."""
         path = os.path.join(model_ckpt_dir, "model.ckpt")
-        save_checkpoint(path, **jax_variables(model), opt_state=self._opt_state(),
-                        enc_dict=enc_dict, step=self.step)
+        self._write(path, model, with_opt=True, enc_dict=enc_dict)
         logger.info(f"Model+enc_dict saved to {path}")
         return path
 
     def save_train_model(self, model, model_ckpt_dir: str, model_str: str) -> str:
         """Per-epoch checkpoint ``model_{model_str}.ckpt`` with optimizer state."""
         path = os.path.join(model_ckpt_dir, f"model_{model_str}.ckpt")
-        save_checkpoint(path, **jax_variables(model), opt_state=self._opt_state(),
-                        step=self.step)
+        self._write(path, model, with_opt=True)
         return path
 
     # ----------------------------------------------------------------- steps
@@ -220,13 +299,60 @@ class _BaseTrainer:
 
     def _step(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         """One train step on a host batch: the host keys, id check, upload,
-        the step, the projection."""
+        the step, the projection.  Under a mesh the step runs on the rank's
+        block (``_block``) and its outputs are the global batch's
+        (``_global``)."""
+        state = getattr(self.model, "mesh_state", None)
+        if state is None:
+            return self._step_on(batch)
+        block, split, first = self._block(batch, state, self._presplit)
+        with state.running(split, first):
+            out = self._step_on(block)
+        out = self._global(out, state, split, len(next(iter(block.values()))))
+        if self._presplit and "label" in block:  # the ranks' labels, in the predictions' order
+            out["label"] = gather_rows(torch.as_tensor(
+                np.asarray(block["label"], np.float32), device=self._fit_device),
+                state.data_group)
+        return out
+
+    def _step_on(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         out = self._train_step(self.model.upload_batch(self._host_inputs(batch),
                                                        self._fit_device, train=True), self.step)
         if self._renorm is not None:
             self._renorm()
         self.step += 1
         return out
+
+    @staticmethod
+    def _block(batch: Dict[str, np.ndarray], state, presplit: bool = False):
+        """(the rank's rows, split, their first global row) of a host batch:
+        the contiguous block of a batch that divides ``data`` (or the batch
+        itself when the loader already gave the rank its own rows), else
+        the whole batch, which every rank runs."""
+        rows = len(next(iter(batch.values())))
+        if presplit and state.n_data > 1:
+            return batch, True, state.data_rank * rows
+        if not state.splits(rows):
+            return batch, False, 0
+        return shard_batch(batch, state.mesh), True, state.data_rank * (rows // state.n_data)
+
+    @staticmethod
+    def _global(out: Dict[str, torch.Tensor], state, split: bool,
+                rows: int) -> Dict[str, torch.Tensor]:
+        """A block step's outputs as the global batch's: the loss the mean
+        of the blocks' losses, every output of the block's rows gathered
+        over ``data`` in rank order."""
+        if not split:
+            return out
+        glob = {}
+        for k, v in out.items():
+            if k == "loss":
+                glob[k] = mean_over(v, state.data_group)
+            elif torch.is_tensor(v) and v.dim() > 0 and v.shape[0] == rows:
+                glob[k] = gather_rows(v.detach(), state.data_group)
+            else:
+                glob[k] = v
+        return glob
 
     def _steps(self, train_loader) -> Iterator[Tuple[dict, Dict[str, torch.Tensor]]]:
         """(host batch, step outputs) of each step over ``train_loader``."""
@@ -261,13 +387,13 @@ class RankTrainer(_BaseTrainer):
             scheduler_params: Optional[dict] = None, seed: int = 1029,
             log_rounds: int = 100, mesh=None, resume_from: Optional[str] = None,
             profile_dir: Optional[str] = None, steps_per_call: int = 1) -> Dict[str, float]:
-        _refuse_mesh(mesh)
-        if self.use_wandb:
+        _check_mesh(mesh)
+        dev = self._start_fit(model, device, mesh)
+        frozen = self._shard(model, mesh, self._inject_pretrained(model), train_loader)
+        if self.use_wandb and self._is_writer(model):
             self._wandb_init()
-        dev = self._start_fit(model, device)
         generator = torch.Generator().manual_seed(seed)
         steps_per_epoch = len(train_loader)
-        frozen = self._inject_pretrained(model)
         self._train_step = None
         if not self._pending_pretrained:
             self._train_step = maybe_enable_fused_update(
@@ -290,12 +416,12 @@ class RankTrainer(_BaseTrainer):
         for i in range(1, epoch + 1):
             train_metric = self._train_one_epoch(train_loader, i, log_rounds)
             logger.info(f"Epoch {i} Train Metric:{train_metric}")
-            if self.use_wandb:
+            if self.use_wandb and self._is_writer(model):
                 wandb.log(train_metric)
             if valid_loader is not None:
                 valid_metric = self.evaluate_model(self.model, valid_loader, dev)
                 self.save_train_model(self.model, self.model_ckpt_dir, f"e_{i}")
-                if self.use_wandb:
+                if self.use_wandb and self._is_writer(model):
                     wandb.log(valid_metric)
                 if use_earlystopping:
                     if monitor_metric not in valid_metric:
@@ -351,34 +477,55 @@ class RankTrainer(_BaseTrainer):
                 pred = torch.cat([out[f"task{t + 1}_pred"].reshape(-1, 1)
                                   for t in range(self.num_task)], dim=1)
             preds.append(pred.detach())  # stays on the device until the epoch ends
-            labels.append(batch["label"])
-            n_seen += len(batch["label"])
+            label = out.get("label", batch["label"])  # a sharded loader's step: all ranks' labels
+            labels.append(label)
+            n_seen += len(label)
             self._log_iter(idx, out, max_iter, start, log_rounds)
         if prof is not None:
             self._stop_profile(prof)
         pred_arr = preds.concat()
         label_arr = labels.concat()
         elapsed = time.time() - start
-        logger.info(f"Epoch throughput: {n_seen / max(elapsed, 1e-9):,.0f} examples/s")
+        eps = n_seen / max(elapsed, 1e-9)
+        ranks = 1 if self.mesh is None else self.mesh.size()
+        logger.info(f"Epoch throughput: {eps:,.0f} examples/s ({eps / ranks:,.0f} "
+                    f"examples/s/rank)")
         return compute_ranking_metrics(label_arr, pred_arr, prefix="train_",
                                        num_task=self.num_task)
 
     # ------------------------------------------------------------- inference
     def _predict(self, model, batch, device: torch.device) -> np.ndarray:
-        """[B, num_task] predictions of one host batch."""
+        """[B, num_task] predictions of one host batch; on a sharded model
+        each rank predicts its block and every rank gets the whole batch's."""
+        state = getattr(model, "mesh_state", None)
+        if state is None:
+            return self._predict_rows(model, batch, device).cpu().numpy()
+        block, split, first = self._block(batch, state)
+        with state.running(split, first):
+            pred = self._predict_rows(model, block, device)
+        return (gather_rows(pred, state.data_group) if split else pred).cpu().numpy()
+
+    def _predict_rows(self, model, batch, device: torch.device) -> torch.Tensor:
         inputs = model.upload_batch(batch, device)
         with torch.inference_mode():
             out = model(inputs, train=False)
         if self.num_task == 1:
-            pred = out["pred"].reshape(-1, 1)
-        else:
-            pred = torch.cat([out[f"task{t + 1}_pred"].reshape(-1, 1)
-                              for t in range(self.num_task)], dim=1)
-        return pred.cpu().numpy()
+            return out["pred"].reshape(-1, 1)
+        return torch.cat([out[f"task{t + 1}_pred"].reshape(-1, 1)
+                          for t in range(self.num_task)], dim=1)
+
+    @staticmethod
+    def _check_eval_loader(model, loader) -> None:
+        if (getattr(model, "mesh_state", None) is not None
+                and int(getattr(loader, "num_shards", 1)) > 1):
+            raise ValueError("under a mesh, evaluation reads every row on every rank: pass an "
+                             "unsharded loader (each rank predicts its block of each batch)")
 
     def evaluate_model(self, model, test_loader: DataLoader,
                        device: DeviceLike = None) -> Dict[str, float]:
-        """'roc_auc_score'/'log_loss' for one task, 'test_task{i}_*' for several."""
+        """'roc_auc_score'/'log_loss' for one task, 'test_task{i}_*' for
+        several; under a mesh the same on every rank."""
+        self._check_eval_loader(model, test_loader)
         dev = self._device(device)
         model.to(dev).eval()
         preds, labels = [], []
@@ -391,6 +538,7 @@ class RankTrainer(_BaseTrainer):
 
     def predict_dataloader(self, model, test_loader: DataLoader,
                            device: DeviceLike = None) -> np.ndarray:
+        self._check_eval_loader(model, test_loader)
         dev = self._device(device)
         model.to(dev).eval()
         preds = [self._predict(model, batch, dev) for batch in test_loader]
@@ -569,12 +717,16 @@ class GraphTrainer(_BaseTrainer):
             device: DeviceLike = None, batch_size: int = 1024, seed: int = 1029,
             mesh=None) -> None:
         """``epoch`` epochs of ``len(train_dataset) // batch_size`` (at
-        least 1) standard steps, each on a fresh ``sample(batch_size)``."""
-        _refuse_mesh(mesh)
-        self._start_fit(model, device)
+        least 1) standard steps, each on a fresh ``sample(batch_size)``
+        (under a mesh every rank draws the same batch and trains on its
+        block of it)."""
+        _check_mesh(mesh)
+        self._start_fit(model, device, mesh)
+        self._shard(model, mesh)
         steps_per_epoch = max(1, len(train_dataset) // batch_size)
         generator = torch.Generator().manual_seed(seed)
-        self._train_step = StandardStep(model, lr, steps_per_epoch, generator=generator)
+        self._train_step = StandardStep(model, lr, steps_per_epoch, generator=generator,
+                                        global_rows=False)
         model.train()
         for i in range(1, epoch + 1):
             losses = [self._step(train_dataset.sample(batch_size))["loss"].detach()
@@ -588,8 +740,13 @@ class GraphTrainer(_BaseTrainer):
         of ``EVAL_CHUNK`` users with k = min(1000, items), each user's
         ``train_dataset`` items filtered out before the top-k (the same
         unseen items in the same order as the reference's filter after a
-        top-1000).  Only the first ``topN`` of each list leave the device."""
+        top-1000).  Only the first ``topN`` of each list leave the device.
+        Under a mesh (the model's ``mesh_state``) every rank scores every
+        user against its rows of the item table, padded to a multiple of the
+        ``model`` axis (``distributed_masked_topk``), and gets the same
+        metrics."""
         dev = next(model.parameters()).device
+        state = getattr(model, "mesh_state", None)
         model.eval()
         with torch.inference_mode():
             out = model({}, train=False)
@@ -598,6 +755,8 @@ class GraphTrainer(_BaseTrainer):
             users = np.fromiter(test_gd.keys(), dtype=np.int64)
             n_items = int(item_embs.shape[0])
             k = min(1000, n_items)
+            if state is not None:
+                items_p = pad_to_multiple(item_embs, state.n_model)
             max_seen = max([len(train_gd.get(int(u), [])) for u in users] or [0])
             seen = np.full((len(users), max(1, max_seen)), n_items, dtype=np.int64)
             for i, u in enumerate(users):
@@ -606,8 +765,13 @@ class GraphTrainer(_BaseTrainer):
             tops = []
             for s in range(0, len(users), self.EVAL_CHUNK):
                 chunk = slice(s, s + self.EVAL_CHUNK)
-                top = masked_topk(user_embs, item_embs, torch.from_numpy(users[chunk]).to(dev),
-                                  torch.from_numpy(seen[chunk]).to(dev), k)
+                chunk_users = torch.from_numpy(users[chunk]).to(dev)
+                chunk_seen = torch.from_numpy(seen[chunk]).to(dev)
+                if state is None:
+                    top = masked_topk(user_embs, item_embs, chunk_users, chunk_seen, k)
+                else:
+                    top = distributed_masked_topk(state.mesh, user_embs[chunk_users], items_p,
+                                                  chunk_seen, k, num_valid=n_items)[1]
                 tops.append(top[:, :topN].cpu().numpy())
         top = np.concatenate(tops) if tops else np.zeros((0, 0), np.int64)
         preds = {int(u): top[i].tolist() for i, u in enumerate(users)}

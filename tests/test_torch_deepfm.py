@@ -204,9 +204,9 @@ def test_jax_checkpoint_loads_without_jax(jax_trained, tmp_path):
 
 
 def test_fit_waits_for_training_slice():
-    """fit is ported; an option a later slice ports still raises, naming
-    its ROADMAP item, before it touches the model."""
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 10"):
+    """fit and all its options are ported; a mesh argument that is not a
+    mesh raises before fit touches the model."""
+    with pytest.raises(TypeError, match="DeviceMesh from parallel.make_mesh"):
         RankTrainer(device="cpu").fit(None, None, profile_dir="trace", mesh=object())
 
 

@@ -192,7 +192,9 @@ def test_graph_trainer_fit_and_evaluate(frames, tmp_path):
 
 
 def test_fit_refuses_a_mesh(frames, tmp_path):
+    """fit runs under a mesh (``tests/test_torch_trainer_mesh.py``); it
+    refuses one that ``parallel.make_mesh`` did not make, before any step."""
     ds = GeneralGraphDataset(frames[0], NUM_USER, NUM_ITEM)
     model = _port_model(ds.generate_graph(CPU))
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 10"):
+    with pytest.raises(TypeError, match="DeviceMesh from parallel.make_mesh"):
         GraphTrainer(model_ckpt_dir=str(tmp_path), device="cpu").fit(model, ds, mesh=object())

@@ -45,6 +45,7 @@ def test_imports_without_jax_flax_optax_or_pandas():
         import rec_pangu_tpu_torch.utils.logging, rec_pangu_tpu_torch.utils.seed
         import rec_pangu_tpu_torch.utils.json_utils
         import rec_pangu_tpu_torch.ops.field_graph, rec_pangu_tpu_torch.serving.export
+        import rec_pangu_tpu_torch.parallel, rec_pangu_tpu_torch.parallel.comm
         assert rec_pangu_tpu_torch.serving.export_program is (
             rec_pangu_tpu_torch.serving.export.export_program)
         assert rec_pangu_tpu_torch.GraphTrainer is rec_pangu_tpu_torch.train.GraphTrainer
@@ -76,6 +77,8 @@ def test_sources_import_nothing_of_jax():
     assert len(examples) == 10
     files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"] + examples
     assert PORT / "ops" / "field_graph.py" in files and PORT / "serving" / "export.py" in files
+    assert PORT / "parallel" / "mesh.py" in files and PORT / "parallel" / "topk.py" in files
+    files.append(REPO / "tests" / "_torch_mesh_ranks.py")  # what the mesh tests' ranks import
     bad = [f"{f.relative_to(REPO)}:{line} imports {root}"
            for f in files for root, line in _imported_roots(f)
            if root in FORBIDDEN_ROOTS]

@@ -267,10 +267,11 @@ def test_fit_on_the_bundled_data(seq_dfs, tmp_path, monkeypatch):
 @pytest.mark.parametrize("option,item", [({"mesh": object()}, "10"),
                                          ({"steps_per_call": 2}, "11")])
 def test_fit_raises_for_options_not_ported(option, item, tmp_path):
-    """mesh (item 10) raises before fit touches anything, alone or beside
-    steps_per_call, which item 11 ported."""
+    """mesh (item 12: the sequence trainer's mesh; item 10 ported the ranking
+    and graph trainers') raises before fit touches anything, alone or
+    beside steps_per_call, which item 11 ported."""
     trainer = SequenceTrainer(device="cpu", model_ckpt_dir=str(tmp_path))
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 10"):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 12"):
         trainer.fit(None, None, **{"mesh": object(), **option})
 
 

@@ -230,8 +230,10 @@ def test_fit_flow_on_the_ranking_csv(ranking_df, tmp_path):
 @pytest.mark.parametrize("option", [{"resume_from": "model.ckpt"}, {"mesh": object()},
                                     {"steps_per_call": 2}])
 def test_fit_raises_for_options_not_ported(option, tmp_path):
-    """mesh, the one option not ported, raises before fit touches anything,
-    alone or beside the options that are ported."""
+    """Every option is ported now; a mesh that is not one of
+    ``parallel.make_mesh`` raises before fit touches anything, alone or
+    beside the other options (``tests/test_torch_trainer_mesh.py`` runs
+    fit under real meshes)."""
     trainer = RankTrainer(device="cpu", model_ckpt_dir=str(tmp_path))
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 10"):
+    with pytest.raises(TypeError, match="DeviceMesh from parallel.make_mesh"):
         trainer.fit(None, None, **{"mesh": object(), **option})
