@@ -181,8 +181,20 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                1 x 2 row-sharded standard fit, each against the same fit on
                one rank, the sharded lookup bit-equal, and distributed_topk
                over two item shards against torch.topk.  K1, K2 and K3
-               counted on each leg (launches_mesh_*).  No collective is
-               timed: one card cannot show what they cost between cards.
+               counted on each leg (launches_mesh_*).  The sequence trainer
+               too: on the one rank SASRec's fused fit at bench.py's width
+               (1,000,000 items, D 64, L 50, batches of 1,024, dropout 0.1),
+               bit-equal to no mesh, K1, K4f, K4b and K3 once a step; on the
+               two ranks at 100,000 items SASRec's 2 x 1 fused fit, IOCRec's
+               2 x 1 fused fit (a rank's block of the three views at first
+               rows != 0: K4f, K4b, K6f, K6b a view a step, K5f and K5b
+               once) and SASRec's 1 x 2 standard fit over the row-sharded
+               item table, each against one rank's fit of the global batch
+               (seq_mesh_compare); and in this process K4f, K4b, K6f and K6b
+               at first = MESH_FIRST_ROW against their plain versions and
+               against the kernels on the whole batch's rows
+               (check_first_row_kernels).  No collective is timed: one card
+               cannot show what they cost between cards.
 
 Then the kernels line, the card's name and power limit as nvidia-smi gives
 them, and last {"ok": true, "device": {...}}.
@@ -1251,7 +1263,7 @@ def phase_card_vs_cpu(path: str, enc_dict: dict, batches, devices=("cuda", "cpu"
                "handful": HANDFUL}
     if (loss_rel > LOSS_RTOL or dense_err > DENSE_ATOL or max(beyond.values()) > HANDFUL
             or max(table_err.values()) > 2 * LR):
-        raise RuntimeError(f"the card's training differs from the CPU's: {summary}")
+        raise RuntimeError(f"{what}: {summary}")
     return summary
 
 
@@ -3305,7 +3317,8 @@ def phase_iocrec_card_vs_cpu(devices=("cuda", "cpu")) -> dict:
 
 def require_card_like_cpu(leg: dict, later_rtol: float, kink_rel_tol: float,
                           summary: dict, grad_rel_tol: float = IOC_GRAD_REL_TOL,
-                          dense_handful: int = IOC_DENSE_HANDFUL) -> None:
+                          dense_handful: int = IOC_DENSE_HANDFUL,
+                          what: str = "the card's training differs from the CPU's") -> None:
     """A card-against-CPU leg within its bounds: the step-1 loss within
     IOC_LOSS_RTOL and the later ones within ``later_rtol``; the first step's
     gradients within ``grad_rel_tol`` of each leaf's largest entry
@@ -3324,7 +3337,7 @@ def require_card_like_cpu(leg: dict, later_rtol: float, kink_rel_tol: float,
             or leg["dense_max_abs_diff"] > 2 * lr
             or leg["table_elements_beyond_atol"] > SEQ_HANDFUL
             or leg["table_max_abs_diff"] > 2 * lr):
-        raise RuntimeError(f"the card's training differs from the CPU's: {summary}")
+        raise RuntimeError(f"{what}: {summary}")
 
 
 @contextlib.contextmanager
@@ -5130,12 +5143,35 @@ MESH_SEED = SEED + 800
 MESH_STEPS = CPU_STEPS     # steps a leg (rank_cpu_batches' batches)
 MESH_BATCH = 4096          # two-rank legs: rows a step (2,048 a data rank)
 MESH_TOPK_ITEMS, MESH_TOPK_USERS, MESH_TOPK_K = 100_000, 512, 200
-MESH_TIMEOUT_S = 240       # the two ranks' deadline, spawn included
+MESH_TIMEOUT_S = 300       # the two ranks' deadline, spawn included
 # the two-rank legs against one rank on the same card: the same gates as the
 # card against the CPU (the blocks' GEMMs and the all-reduce sum in other
 # orders; Adam's first step moves an element with a gradient near 0 by up
 # to 2 lr)
 MESH_DENSE_HANDFUL, MESH_TABLE_HANDFUL = RANK_DENSE_HANDFUL, RANK_TABLE_HANDFUL
+# the sequence legs: SASRec's fused fit at bench.py's width on one rank
+# (MESH_SEQ_STEPS steps, bit-equal to no mesh); on two ranks SASRec (2 x 1
+# fused, 1 x 2 standard over the row-sharded item table) and IOCRec (2 x 1
+# fused) at MESH_SEQ_VOCAB items, global batches of MESH_SEQ_BATCH and
+# MESH_IOC_BATCH histories, each against one rank's fit of the global batch
+# within the CPU tests' bounds (tests/test_torch_seq_mesh.py: losses rtol
+# 1e-5, weights within 1e-5 of each leaf's largest entry, the leaves of zero
+# gradient within 2 lr a step) but for a handful of elements each within 2
+# lr a step, as the DeepFM legs' gates allow.  IOCRec as its card against
+# the CPU (seq_mesh_first_step): over three steps Adam moves thousands of
+# its elements whose gradients lie near rounding whenever the sums run in
+# another order (on an H100: the mesh against one rank's fit 4,761 dense
+# and 1,664 table elements past the relative bound; one rank's fit with its
+# views apart, as a block runs them, against its fit over the stack, no
+# mesh at all, 23,097 and 2,852; PERF.md), so its first step is held and
+# its later weights recorded
+MESH_SEQ_STEPS = 3
+MESH_SEQ_VOCAB, MESH_SEQ_BATCH, MESH_IOC_BATCH = 100_000, 512, 128
+MESH_SEQ_WEIGHT_REL = 1e-5
+MESH_ZERO_GRADIENT = ("key/bias", "K_linear/bias", "ln2/bias", "layer_norm_2/bias")
+MESH_FIRST_ROW = 777       # the kernels' first row in the first_row checks
+MESH_TWO_RANK_LEGS = ("dp_fused", "dp_standard", "tp_standard", "seq_dp_fused",
+                      "seq_dp_iocrec", "seq_tp_standard")
 
 
 def free_port() -> int:
@@ -5257,6 +5293,258 @@ def mesh_expected(step: str, steps: int) -> dict:
     return {"embedding_lookup": steps, kernel: steps}
 
 
+def seq_mesh_batches(steps: int, seed: int, vocab: int, batch: int) -> list:
+    """``steps`` host batches of bench.py's sequence shape (seq_train_loader)."""
+    return [dict(b) for b in seq_train_loader(steps, seed, vocab, batch)]
+
+
+def seq_mesh_fit(name: str, config: dict, initial, batches, mesh, device: str,
+                 ckpt_dir: str, first_step: bool = False) -> dict:
+    """A copy of the sequence model ``initial`` fitted one epoch over
+    ``batches`` (under ``mesh`` when given), its launches counted from 0 just
+    before the fit and read just after: the losses and the weights after the
+    last step in the JAX layout (whole tables); with ``first_step``, also
+    the first step's gradients (the dense leaves' as the step leaves them,
+    all-reduced under a mesh; the table's as recording_table_grad records
+    it, the rows gathered) and the weights after it, on the CPU."""
+    model = copy.deepcopy(initial)
+    trainer = SequenceTrainer(device=device, model_ckpt_dir=ckpt_dir)
+    losses, inner, first, table_grads = [], trainer._step, {}, []
+
+    def step(b):
+        out = inner(b)
+        losses.append(out["loss"].detach())
+        if first_step and not first:
+            first["grads"] = {k: p.grad.detach().cpu().clone()
+                              for k, p in model.named_parameters() if p.grad is not None}
+            first["after_one"] = {k: v.detach().cpu().clone()
+                                  for k, v in model.state_dict().items()}
+        return out
+
+    trainer._step = step
+    if device == "cuda":
+        torch.cuda.synchronize()
+    reset_launches()
+    with recording_table_grad(table_grads) if first_step else contextlib.nullcontext():
+        trainer.fit(model, batches, epoch=1, lr=LR, mesh=mesh, log_rounds=10 ** 9,
+                    seed=MESH_SEED)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    launches = read_launches()
+    del trainer._step
+    if first_step:
+        first["grads"]["item_emb.table"] = table_grads[0]
+    return {"name": name, "launches": launches, "losses": [float(x) for x in losses],
+            "step": type(trainer._train_step).__name__, "first": first,
+            "params": {"/".join(k): v for k, v in ckpt_leaves(
+                whole_variables(model)["params"]).items()}}
+
+
+def seq_mesh_first_step(got: dict, want: dict, what: str) -> dict:
+    """IOCRec's mesh fit against one rank's, held as its card against the
+    CPU is (require_card_like_cpu): the step-1 loss within IOC_LOSS_RTOL,
+    the later ones within IOC_LATER_LOSS_RTOL; the first step's gradients
+    of every leaf within IOC_GRAD_REL_TOL of its largest entry (no relu
+    allowance: both fits run the same forward bits), the exact zeros of
+    their weight's; after one step at most IOC_DENSE_HANDFUL dense elements
+    past SEQ_DENSE_ATOL and SEQ_HANDFUL table elements past SEQ_TABLE_ATOL,
+    none past 2 lr."""
+    diffs = {k: (got["first"]["after_one"][k] - v).abs()
+             for k, v in want["first"]["after_one"].items()}
+    zero = [k for k in diffs if k.endswith(IOC_ZERO_GRAD)]
+    dense = torch.cat([torch.zeros(1)] + [d.reshape(-1) for k, d in diffs.items()
+                                          if k != "item_emb.table" and k not in zero])
+    table = diffs["item_emb.table"]
+    leg = {"lr": LR, "losses": got["losses"], "one_rank_losses": want["losses"],
+           "loss_rel_diffs": [abs(a - b) / abs(b) for a, b in zip(got["losses"],
+                                                                 want["losses"])],
+           **grad_comparison(got["first"]["grads"], want["first"]["grads"], lambda k: False),
+           "dense_max_abs_diff": dense.max().item(),
+           "dense_elements_beyond_atol": int((dense > SEQ_DENSE_ATOL).sum().item()),
+           "zero_grad_max_abs_diff": max((diffs[k].max().item() for k in zero), default=0.0),
+           "table_max_abs_diff": table.max().item(),
+           "table_elements_beyond_atol": int((table > SEQ_TABLE_ATOL).sum().item()),
+           "launches": got["launches"]}
+    del leg["grad_rel_err_by_leaf"]
+    require_card_like_cpu(leg, IOC_LATER_LOSS_RTOL, IOC_GRAD_REL_TOL, leg,
+                          what=f"{what}: the mesh's first step differs from one rank's")
+    return leg
+
+
+@contextlib.contextmanager
+def one_rank_view_seeds(rows: int):
+    """One device's fused-step seeds as RowSeeds of the whole batch of
+    ``rows`` (first row 0): IOCRec's stack of three views then runs its
+    encoders view by view, as a data rank's block runs them, each view
+    hashed at the rows the stack gives it (the same masks)."""
+    from rec_pangu_tpu_torch.ops.dropout import RowSeed
+    from rec_pangu_tpu_torch.train import fused_update
+
+    draw = fused_update.draw_step_seed
+    fused_update.draw_step_seed = lambda gen, state=None: RowSeed(draw(gen, state), 0, rows)
+    try:
+        yield
+    finally:
+        fused_update.draw_step_seed = draw
+
+
+def seq_mesh_compare(got: dict, want: dict, what: str, loss_rtol: float = SEQ_LOSS_RTOL,
+                     handfuls: bool = True) -> dict:
+    """A sequence mesh fit against one rank's fit of the global batches: the
+    losses within ``loss_rtol``; each weight within MESH_SEQ_WEIGHT_REL of
+    its leaf's largest entry, the leaves of zero gradient within 2 lr a
+    step, on all but MESH_DENSE_HANDFUL dense and MESH_TABLE_HANDFUL table
+    elements (counted, not held, without ``handfuls``), none past 2 lr a
+    step; also whether every array is bit-equal."""
+    if got["step"] != want["step"]:
+        raise RuntimeError(f"{what}: the mesh fit took the {got['step']}, the one-rank fit "
+                           f"the {want['step']}")
+    steps = len(want["losses"])
+    move = 2 * LR * steps
+    beyond = {"dense": 0, "table": 0}
+    by_leaf = {}
+    worst = 0.0
+    for key, ref in want["params"].items():
+        diff = np.abs(got["params"][key].astype(np.float64) - ref)
+        worst = max(worst, float(diff.max()))
+        if key.endswith(MESH_ZERO_GRADIENT):
+            bound = move
+        else:
+            bound = MESH_SEQ_WEIGHT_REL * max(float(np.abs(ref).max()), 1e-30)
+        count = int((diff > bound).sum())
+        beyond["table" if key.endswith("table") else "dense"] += count
+        if count:
+            by_leaf[key] = count
+    loss_rel = [abs(a - b) / abs(b) for a, b in zip(got["losses"], want["losses"])]
+    summary = {"step": got["step"], "losses": got["losses"], "one_rank_losses": want["losses"],
+               "loss_rel_diffs": loss_rel, "max_abs_diff": worst,
+               "dense_elements_beyond": beyond["dense"],
+               "table_elements_beyond": beyond["table"], "beyond_by_leaf": by_leaf,
+               "bit_equal": bool(worst == 0 and got["losses"] == want["losses"]),
+               "launches": got["launches"]}
+    if (len(loss_rel) != steps or max(loss_rel) > loss_rtol or worst > move
+            or (handfuls and (beyond["dense"] > MESH_DENSE_HANDFUL
+                              or beyond["table"] > MESH_TABLE_HANDFUL))):
+        raise RuntimeError(f"{what}: the mesh fit differs from the one-rank fit: {summary}")
+    return summary
+
+
+def seq_mesh_expected(name: str, step: str, steps: int) -> dict:
+    """Launches of a sequence fit of ``steps`` steps on a data rank's block:
+    K1 once a step; SASRec's K4f and K4b once a step; IOCRec's K4f, K4b, K6f
+    and K6b once a view a step (a block's three views run apart, each at its
+    rows of the global stack) and K5f, K5b once; K3 (fused) or K2 (standard)
+    once a step."""
+    views = 3 if name == "IOCRec" else 1
+    want = {"embedding_lookup": steps, "fused_encoder": views * steps,
+            "fused_encoder_bwd": views * steps,
+            ("fused_adam" if step == "SeqFusedStep" else "embedding_grad"): steps}
+    if name == "IOCRec":
+        want.update({"global_attn": views * steps, "global_attn_bwd": views * steps,
+                     "multimax_ce": steps, "multimax_ce_bwd": steps})
+    return want
+
+
+def seq_mesh_legs(rank: int, dp, tp, device: str, tmp: str) -> dict:
+    """The sequence legs of a spawned rank (see MESH_SEQ_STEPS)."""
+    out = {}
+    enc = {"item_id": {"vocab_size": MESH_SEQ_VOCAB}}
+    sasrec = port.get_model("SASRec")(enc_dict=enc, config=SEQ_CONFIG, seed=MESH_SEED + 20)
+    iocrec = port.get_model("IOCRec")(enc_dict=enc, config=IOC_CONFIG, seed=MESH_SEED + 21)
+    legs = (("seq_dp_fused", "SASRec", SEQ_CONFIG, sasrec, dp, True, MESH_SEQ_BATCH),
+            ("seq_dp_iocrec", "IOCRec", IOC_CONFIG, iocrec, dp, True, MESH_IOC_BATCH),
+            ("seq_tp_standard", "SASRec", SEQ_CONFIG, sasrec, tp, False, MESH_SEQ_BATCH))
+    ckpt = os.path.join(tmp, f"seq_rank{rank}")
+    for i, (leg, name, config, initial, mesh, fused, batch) in enumerate(legs):
+        t0 = time.perf_counter()
+        batches = seq_mesh_batches(MESH_SEQ_STEPS, MESH_SEED + 30 + i, MESH_SEQ_VOCAB, batch)
+        ioc = name == "IOCRec"
+        what = f"mesh {leg} (rank {rank})"
+        with fused_adam_env(fused):
+            got = seq_mesh_fit(name, config, initial, batches, mesh, device, ckpt, ioc)
+            want = seq_mesh_fit(name, config, initial, batches, None, device, ckpt, ioc)
+            if ioc:  # the witness: one rank's fit with its views apart, as a block runs them
+                with one_rank_view_seeds(batch):
+                    views = seq_mesh_fit(name, config, initial, batches, None, device, ckpt)
+        if device == "cuda":
+            require_launches(got["launches"], seq_mesh_expected(name, got["step"],
+                                                                MESH_SEQ_STEPS), what)
+        if ioc:
+            out[leg] = seq_mesh_first_step(got, want, what)
+            # recorded, after MESH_SEQ_STEPS steps: the mesh and one rank's views-apart
+            # fit, each against one rank's fit (losses within IOC_LATER_LOSS_RTOL)
+            out[leg]["after_steps"] = seq_mesh_compare(got, want, what, IOC_LATER_LOSS_RTOL,
+                                                       handfuls=False)
+            out[leg]["one_rank_views_after_steps"] = seq_mesh_compare(
+                views, want, f"{what}: one rank's views apart", IOC_LATER_LOSS_RTOL,
+                handfuls=False)
+        else:
+            out[leg] = seq_mesh_compare(got, want, what)
+        out[leg]["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def check_first_row_kernels(device: str) -> dict:
+    """K4f, K4b, K6f and K6b at ``first`` = MESH_FIRST_ROW (dropout 0.5)
+    against their plain versions with the same first row: the forwards as
+    check_encoder and the global attention rows hold them, the backwards
+    within 1e-5 of each array's largest entry (every key valid, gelu: no
+    row without a key, no relu kink; K6b's key bias as ga_grad_errs holds
+    it); and the forwards on a block bit-equal to the kernels on a whole
+    batch of which it is rows MESH_FIRST_ROW.. (the hash of a global row)."""
+    g = torch.Generator().manual_seed(MESH_SEED + 40)
+    n, F = 64, MESH_FIRST_ROW
+    rate, seed = 0.5, 11
+    enc = TransformerEncoder(SEQ_DIM, 2, 4, 32, rate, rate, "gelu", 1e-3, g).to(device)
+    packed = [t.detach() for t in enc.packed()]
+    x_all = (torch.randn(F + n, SEQ_L, SEQ_DIM, generator=g) * 0.3).to(device)
+    x = x_all[F:].contiguous()
+    kv = torch.ones(n, SEQ_L, device=device)
+    opts = (4, True, "gelu", 1e-3, rate, rate, seed)
+    dy = (torch.randn(n, SEQ_L, SEQ_DIM, generator=g) * 0.1).to(device)
+    out = {}
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+    # K4f and K4b
+    y, saved = encoder.launch_train(x, kv, packed, *opts, save=True, first=F)
+    dx, grads = encoder.launch_backward(saved, kv, dy, packed, *opts, first=F)
+    whole_y, _ = encoder.launch_train(x_all, torch.ones(F + n, SEQ_L, device=device), packed,
+                                      *opts, save=False)
+    xr = x.clone().requires_grad_()
+    pr = [t.clone().requires_grad_() for t in packed]
+    ref = encoder.fused_encoder_reference(xr, kv, pr, 4, True, "gelu", 1e-3, True, rate, rate,
+                                          seed, first=F)
+    ref_grads = torch.autograd.grad(ref, [xr] + pr, dy)
+    out["k4f"] = {"max_abs_err": float((y - ref.detach()).abs().max()),
+                  "whole_batch_bit_equal": bool(torch.equal(y, whole_y[F:]))}
+    out["k4b"] = {"grad_rel_errs": [rel(a, b) for a, b in zip((dx,) + tuple(grads), ref_grads)]}
+    # K6f and K6b
+    params = [(torch.randn(*shape, generator=g) * 0.18).to(device)
+              for shape in ((SEQ_DIM, SEQ_DIM), (SEQ_DIM,), (SEQ_DIM, SEQ_DIM), (SEQ_DIM,),
+                            (SEQ_L, SEQ_DIM))]
+    gy = gattn.launch_forward(x, params, rate, seed, first=F)
+    gdx, ggrads = gattn.launch_backward(x, params, dy, rate, seed, first=F)
+    whole_gy = gattn.launch_forward(x_all, params, rate, seed)
+    xr = x.clone().requires_grad_()
+    pr = [t.clone().requires_grad_() for t in params]
+    gref = gattn.global_attn_reference(xr, pr, True, rate, seed, first=F)
+    gref_grads = torch.autograd.grad(gref, [xr] + pr, dy)
+    out["k6f"] = {"max_abs_err": float((gy - gref.detach()).abs().max()),
+                  "whole_batch_bit_equal": bool(torch.equal(gy, whole_gy[F:]))}
+    # (the key bias's exact gradient is 0: held over the value bias's, ga_grad_errs)
+    out["k6b"] = {"grad_rel_errs": ga_grad_errs((gdx,) + tuple(ggrads), gref_grads)}
+    ok = (out["k4f"]["max_abs_err"] <= ENCODER_ATOL and out["k6f"]["max_abs_err"] <= ENCODER_ATOL
+          and max(out["k4b"]["grad_rel_errs"] + list(out["k6b"]["grad_rel_errs"].values()))
+          <= 1e-5
+          and out["k4f"]["whole_batch_bit_equal"] and out["k6f"]["whole_batch_bit_equal"])
+    if not ok:
+        raise RuntimeError(f"first_row: a kernel at first = {F} differs from its plain version "
+                           f"or from the whole batch's rows: {out}")
+    return {"first": F, "samples": n, "dropout": rate, **out}
+
+
 def mesh_rank_legs(rank: int, store: str, tmp: str, device: str) -> dict:
     """One rank of phase_mesh's two-rank legs (see there)."""
     t0 = time.perf_counter()
@@ -5280,6 +5568,9 @@ def mesh_rank_legs(rank: int, store: str, tmp: str, device: str) -> dict:
         out[name] = mesh_compare(got, want, f"mesh {name} (rank {rank})")
         out[name]["seconds"] = time.perf_counter() - t0
         t0 = time.perf_counter()
+
+    out.update(seq_mesh_legs(rank, dp, tp, device, tmp))
+    t0 = time.perf_counter()
 
     # the 1 x 2 row-sharded lookup, bit-equal to the whole table's
     whole = whole.to(device)
@@ -5399,20 +5690,48 @@ def phase_mesh(device: str = "cuda") -> dict:
                         raise RuntimeError(f"mesh {name}: one rank's mesh fit is not bit-equal "
                                            f"to the fit without a mesh: {world1[name]}")
                     world1[name]["seconds"] = time.perf_counter() - t0
+                del initial
+                # SASRec's fused fit at bench.py's width (SEQ_CONFIG, dropout 0.1)
+                t0 = time.perf_counter()
+                seq_initial = port.get_model("SASRec")(
+                    enc_dict={"item_id": {"vocab_size": SEQ_VOCAB}}, config=SEQ_CONFIG,
+                    seed=MESH_SEED + 10)
+                seq_batches = seq_mesh_batches(MESH_SEQ_STEPS, MESH_SEED + 11, SEQ_VOCAB,
+                                               SEQ_BATCH)
+                got = seq_mesh_fit("SASRec", SEQ_CONFIG, seq_initial, seq_batches, mesh, device,
+                                   tmp)
+                want = seq_mesh_fit("SASRec", SEQ_CONFIG, seq_initial, seq_batches, None,
+                                    device, tmp)
+                del seq_initial
+                if device == "cuda":
+                    require_launches(got["launches"],
+                                     seq_mesh_expected("SASRec", got["step"], MESH_SEQ_STEPS),
+                                     "mesh world1_seq_fused")
+                world1["world1_seq_fused"] = seq_mesh_compare(got, want, "mesh world1_seq_fused")
+                if device == "cuda" and not world1["world1_seq_fused"]["bit_equal"]:
+                    raise RuntimeError(f"mesh world1_seq_fused: one rank's mesh fit is not "
+                                       f"bit-equal to the fit without a mesh: "
+                                       f"{world1['world1_seq_fused']}")
+                world1["world1_seq_fused"]["seconds"] = time.perf_counter() - t0
                 backend = torch.distributed.get_backend()
             finally:
                 torch.distributed.destroy_process_group()
-            del initial
             if device == "cuda":
                 torch.cuda.empty_cache()
             world1_s = time.perf_counter() - t_start
+            # the kernels' first row, while the ranks run
+            t0 = time.perf_counter()
+            first_row = (check_first_row_kernels(device) if device == "cuda"
+                         else {"skipped": "the kernels run on the card only"})
+            first_row["seconds"] = time.perf_counter() - t0
             # (b) the two ranks on the one card over gloo
             ranks = join_mesh_ranks(procs, tmp, deadline)
         finally:
             stop_processes(procs)
-    legs = {name: ranks[0][name] for name in ("dp_fused", "dp_standard", "tp_standard")}
+    legs = {name: ranks[0][name] for name in MESH_TWO_RANK_LEGS}
     return {"phase": "mesh", "world1_backend": backend, **world1,
-            "world1_seconds": world1_s, "two_ranks_backend": "gloo", **legs,
+            "world1_seconds": world1_s, "first_row": first_row, "two_ranks_backend": "gloo",
+            **legs,
             "rank_launches": {name: [r[name]["launches"] for r in ranks] for name in legs},
             "tp_lookup_rows": ranks[0]["tp_lookup_rows"],
             "topk_near_tie_positions": [r["topk_near_tie_positions"] for r in ranks],
@@ -5731,8 +6050,10 @@ def main() -> int:
                 line[f"launches_{leg}"] = counts[line["name"]]
         # the mesh legs: K1 once a step of every leg, K3 of the fused ones,
         # K2 of the standard ones (the two-rank legs' counts are rank 0's)
-        for leg in ("world1_fused", "world1_standard", "dp_fused", "dp_standard",
-                    "tp_standard"):
+        # K1, K4f, K4b and K3 once a step of SASRec's legs (K2 for K3 on the
+        # 1 x 2 standard leg); IOCRec's K4f, K4b, K6f, K6b once a view a step
+        # and K5f, K5b once
+        for leg in ("world1_fused", "world1_standard", "world1_seq_fused") + MESH_TWO_RANK_LEGS:
             if mesh[leg]["launches"].get(line["name"]):
                 line[f"launches_mesh_{leg}"] = mesh[leg]["launches"][line["name"]]
         if line["name"] == "embedding_lookup":  # the exported program's requests

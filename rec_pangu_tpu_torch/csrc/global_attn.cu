@@ -16,8 +16,10 @@
 // Dropout draws the fused encoder's counter hash (csrc/kernel_common.cuh and
 // ops/kernels/fused_encoder.dropout_scale): element (l, c) of sample n is kept
 // when mix(key ^ mix(l * D + c)) >= threshold, key = mix(mix(mix(seed ^
-// 0x9e3779b9) ^ n) ^ stream), with `stream` chosen by the caller apart from
-// the encoder's 3 * layer + site.  The backward draws the same masks again.
+// 0x9e3779b9) ^ (first + n)) ^ stream), with `stream` chosen by the caller
+// apart from the encoder's 3 * layer + site and `first` the block's first
+// row in the global batch (0 outside a data-parallel mesh).  The backward
+// draws the same masks again.
 //
 // The backward (K6b) recomputes each sample's k, v and P from x and then
 //   dctx = dy * drop, dv = P^T dctx, dP = dctx v^T,
@@ -120,6 +122,7 @@ struct Dropout {
   uint32_t seed, stream, threshold;
   float scale;
   int on;
+  uint32_t first;  // the hash's sample index of sample 0 (a block's first global row)
 };
 
 // The factor of element `index` of the sample whose key is `key`: scale when
@@ -129,7 +132,7 @@ __device__ __forceinline__ float drop_factor(const Dropout& d, uint32_t key, uin
 }
 
 __device__ __forceinline__ uint32_t sample_key(const Dropout& d, uint32_t n) {
-  return dropout_key(d.seed, n, d.stream);
+  return dropout_key(d.seed, d.first + n, d.stream);
 }
 
 struct Params {
@@ -881,7 +884,7 @@ cudaError_t launch_bwd(const BwdParams& B, const BwdPlan& plan, cudaStream_t st)
 
 Params make_params(const void* x, const void* wk, const void* bk, const void* wv,
                    const void* bv, const void* q, int L, int D, unsigned seed, unsigned stream,
-                   unsigned threshold, float scale, int drop_on) {
+                   unsigned threshold, float scale, int drop_on, unsigned first) {
   Params P;
   P.x = static_cast<const float*>(x);
   P.wk = static_cast<const float*>(wk);
@@ -891,7 +894,7 @@ Params make_params(const void* x, const void* wk, const void* bk, const void* wv
   P.q = static_cast<const float*>(q);
   P.L = L;
   P.D = D;
-  P.drop = Dropout{seed, stream, threshold, scale, drop_on};
+  P.drop = Dropout{seed, stream, threshold, scale, drop_on, first};
   return P;
 }
 
@@ -924,13 +927,14 @@ extern "C" int rp_global_attn_fwd_f32(const void* x, const void* wk, const void*
                                       const void* wv, const void* bv, const void* q, void* y,
                                       void* workspace, long long workspace_words, long long n,
                                       int L, int D, unsigned seed, unsigned stream,
-                                      unsigned threshold, float scale, int drop_on, int variant,
-                                      void* stream_ptr) {
+                                      unsigned threshold, float scale, int drop_on,
+                                      unsigned first, int variant, void* stream_ptr) {
   const FwdPlan plan = fwd_plan(n, L, D, variant, sm_count());
   if (!plan.ok || workspace_words < plan.wpad_words) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream_ptr);
   FwdParams F;
-  F.p = make_params(x, wk, bk, wv, bv, q, L, D, seed, stream, threshold, scale, drop_on);
+  F.p = make_params(x, wk, bk, wv, bv, q, L, D, seed, stream, threshold, scale, drop_on,
+                    first);
   F.y = static_cast<float*>(y);
   F.wpad = static_cast<const float*>(workspace);
   F.n = n;
@@ -969,13 +973,15 @@ extern "C" int rp_global_attn_bwd_f32(const void* x, const void* wk, const void*
                                       const void* dy, void* dx, void* grads, void* workspace,
                                       long long workspace_words, long long n, int L, int D,
                                       unsigned seed, unsigned stream, unsigned threshold,
-                                      float scale, int drop_on, int variant, void* stream_ptr) {
+                                      float scale, int drop_on, unsigned first, int variant,
+                                      void* stream_ptr) {
   const BwdPlan plan = bwd_plan(n, L, D, variant);
   if (!plan.ok || workspace_words < rp_global_attn_bwd_workspace_words(n, L, D, variant))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream_ptr);
   BwdParams B;
-  B.p = make_params(x, wk, bk, wv, bv, q, L, D, seed, stream, threshold, scale, drop_on);
+  B.p = make_params(x, wk, bk, wv, bv, q, L, D, seed, stream, threshold, scale, drop_on,
+                    first);
   B.dy = static_cast<const float*>(dy);
   B.dx = static_cast<float*>(dx);
   B.wpad = static_cast<const float*>(workspace);

@@ -14,7 +14,9 @@ package; here every top-k is exact, which meets any recall target.
 ``get_recall_predict(mesh=...)`` scores through the distributed top-k
 (``parallel/topk.distributed_topk``): every rank runs every batch, each
 ``model`` rank scores its rows of the normalized item table (padded to a
-multiple of the axis), and every rank gets the same lists.
+multiple of the axis; on a model whose item table is row-sharded, the
+rank's own rows, ``output_item_block``), and every rank gets the same
+lists.
 """
 from __future__ import annotations
 
@@ -87,18 +89,22 @@ def batched_merge_multi_interest_np(ids: np.ndarray, scores: np.ndarray, topn: i
     return merged, counts
 
 
-def make_mesh_topn_scorer(mesh, item_embs: torch.Tensor, topn: int
+def make_mesh_topn_scorer(mesh, item_embs: torch.Tensor, topn: int,
+                          first: Optional[int] = None, num_valid: Optional[int] = None
                           ) -> Callable[[torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]:
     """``make_topn_scorer`` over a mesh: the normalized items padded to a
     multiple of the ``model`` axis, each rank scoring its own rows
-    (``distributed_topk``, the pads masked out)."""
+    (``distributed_topk``, the pads masked out).  With ``first``,
+    ``item_embs`` is the rank's own block of a row-sharded corpus from
+    global id ``first``, of which ids below ``num_valid`` are items."""
     items = l2_normalize(item_embs.float())
-    num_valid = items.shape[0]
-    items = pad_to_multiple(items, mesh_shape(mesh)[1])
+    if first is None:
+        num_valid = items.shape[0]
+        items = pad_to_multiple(items, mesh_shape(mesh)[1])
 
     def score(user_embs: torch.Tensor):
         return distributed_topk(mesh, l2_normalize(user_embs.float()), items, topn,
-                                num_valid=num_valid)
+                                num_valid=num_valid, first=first)
 
     return score
 
@@ -114,6 +120,10 @@ def get_recall_predict(model, test_loader, topn: int = 200, user_emb_key: str = 
     with torch.inference_mode():
         if mesh is None:
             scorer = make_topn_scorer(model.output_items(), topn, approx_recall_target)
+        elif getattr(getattr(model, "item_emb", None), "row_shard", None) is not None:
+            block, first = model.output_item_block()
+            scorer = make_mesh_topn_scorer(mesh, block, topn, first=first,
+                                           num_valid=model.item_emb.vocab_size)
         else:
             scorer = make_mesh_topn_scorer(mesh, model.output_items(), topn)
         for batch in test_loader:

@@ -26,7 +26,7 @@ from torch import nn
 from ..data.encoder import OOV_SENTINEL, FeatureSpec
 from ..ops.embedding import ItemEmbedding, check_ids, check_item_ids, padded_rows
 from ..ops.softmax_ce import (_FUSED_MIN_VOCAB, fused_ce_enabled, fused_softmax_ce_captured,
-                              fused_softmax_ce_padded, full_softmax_ce)
+                              fused_softmax_ce_padded, full_softmax_ce, sharded_softmax_ce)
 
 MODEL_REGISTRY: Dict[str, type] = {}
 
@@ -156,6 +156,46 @@ class SequenceModelBase(nn.Module):
         """The item corpus [vocab, D], row 0 zeroed."""
         return self.item_emb.all_items()
 
+    def output_item_block(self) -> Tuple[torch.Tensor, int]:
+        """(the rank's rows of the item corpus, row 0 zeroed, the global id
+        of the first; the whole padded table on an unsharded model): what
+        the mesh retrieval scores (``eval/retrieval.make_mesh_topn_scorer``).
+        Rows at or past the vocabulary are the table's padding."""
+        return self.item_emb.local_items()
+
+    def _split(self):
+        """The MeshState while each ``data`` rank runs its block of a batch,
+        else None."""
+        state = getattr(self, "mesh_state", None)
+        return state if state is not None and state.split else None
+
+    def global_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """A block's rows [b, ...] as the global batch's [B, ...] while the
+        batch is split over ``data`` (``parallel/comm.gather_data``: a loss
+        term over the whole batch sees every rank's rows, and the gradient
+        of each rank's rows is summed over the ranks), else ``x``."""
+        state = self._split()
+        if state is None:
+            return x
+        from ..parallel.comm import gather_data  # here: the parallel package imports ops
+
+        return gather_data(x, state.data_group)
+
+    def block_rows(self, x: torch.Tensor, rows: int) -> torch.Tensor:
+        """The rank's ``rows`` rows of a ``global_rows`` result."""
+        state = self._split()
+        if state is None:
+            return x
+        r = state.data_rank * rows
+        return x[r:r + rows]
+
+    def _item_rows(self, ids: torch.Tensor) -> torch.Tensor:
+        """``output_items()[ids]``; on a row-sharded table the sharded lookup
+        of the ids (the same rows: id 0 reads zero)."""
+        if self.item_emb.row_shard is not None:
+            return self.item_emb(ids.to(torch.int32))
+        return self.output_items()[ids]
+
     def calculate_loss(self, user_emb: torch.Tensor, pos_item: torch.Tensor,
                        capture: Optional[List[torch.Tensor]] = None,
                        seed: Optional[int] = None) -> torch.Tensor:
@@ -165,7 +205,10 @@ class SequenceModelBase(nn.Module):
         gradient there; the table gets none), the sampled softmax for
         ``config['loss_type'] == 'sampled'``, else the full softmax CE,
         streamed over the raw table from 65,536 items (unless
-        ``REC_PANGU_TPU_FUSED_CE=0``), over ``output_items()`` below."""
+        ``REC_PANGU_TPU_FUSED_CE=0``), over ``output_items()`` below.  On a
+        table row-sharded over the mesh's ``model`` axis the full softmax is
+        ``sharded_softmax_ce`` over the rank's rows at every vocabulary size
+        (the padded variant's semantics, which the naive path's are)."""
         table = self.item_emb.table
         vocab = self.item_emb.vocab_size
         if capture is not None:
@@ -176,6 +219,9 @@ class SequenceModelBase(nn.Module):
                 gen = torch.Generator(device=user_emb.device).manual_seed(int(seed) + 1)
             return self.calculate_sampled_loss(
                 user_emb, pos_item, int(self.config.get("num_negatives", 1024)), gen)
+        if self.item_emb.row_shard is not None:
+            return sharded_softmax_ce(user_emb, table, pos_item, self.item_emb.row_shard[0],
+                                      vocab, self.item_emb.mesh_state.model_group)
         if fused_ce_enabled() and vocab >= _FUSED_MIN_VOCAB:
             return fused_softmax_ce_padded(user_emb, table, pos_item, vocab)
         return full_softmax_ce(user_emb, self.output_items(), pos_item)
@@ -189,14 +235,13 @@ class SequenceModelBase(nn.Module):
         ``generator`` (on ``user_emb``'s device; torch's default generator
         when None), or the given ``neg_ids``.  The JAX package falls back to
         a constant key here; the port always draws."""
-        all_items = self.output_items()
-        v = all_items.shape[0]
+        v = self.item_emb.vocab_size
         if neg_ids is None:
             neg_ids = torch.randint(1, v, (num_negatives,), generator=generator,
                                     device=user_emb.device)
         pos = pos_item.reshape(-1).long()
-        pos_scores = (user_emb * all_items[pos]).sum(dim=-1, keepdim=True)
-        neg_scores = torch.matmul(user_emb, all_items[neg_ids.long()].t())
+        pos_scores = (user_emb * self._item_rows(pos)).sum(dim=-1, keepdim=True)
+        neg_scores = torch.matmul(user_emb, self._item_rows(neg_ids.long()).t())
         logits = torch.cat([pos_scores, neg_scores], dim=1)
         return -torch.log_softmax(logits, dim=-1)[:, 0].mean()
 
@@ -208,16 +253,15 @@ class SequenceModelBase(nn.Module):
         candidate's logit is its best over the interests, the positive
         against ``num_negatives`` shared negatives drawn as in
         ``calculate_sampled_loss`` (or the given ``neg_ids``)."""
-        all_items = self.output_items()
-        v = all_items.shape[0]
+        v = self.item_emb.vocab_size
         if neg_ids is None:
             neg_ids = torch.randint(1, v, (num_negatives,), generator=generator,
                                     device=user_embs.device)
         pos = pos_item.reshape(-1).long()
-        pos_scores = (user_embs * all_items[pos][:, None, :]).sum(dim=-1).amax(dim=1,
-                                                                               keepdim=True)
+        pos_scores = (user_embs * self._item_rows(pos)[:, None, :]).sum(dim=-1).amax(
+            dim=1, keepdim=True)
         neg_scores = torch.einsum("bkd,nd->bkn", user_embs,
-                                  all_items[neg_ids.long()]).amax(dim=1)
+                                  self._item_rows(neg_ids.long())).amax(dim=1)
         logits = torch.cat([pos_scores, neg_scores], dim=1)
         return -torch.log_softmax(logits, dim=-1)[:, 0].mean()
 

@@ -53,7 +53,7 @@ class CLRec(SequenceModelBase):
                 target_emb = self.item_emb(item, capture.get("hist"))
             features = safe_l2norm(torch.stack([user_emb, target_emb], dim=1))
             out["loss"] = (self.calculate_loss(user_emb, item, capture.get("ce"), seed)
-                           + clrec_contra_loss(features, self.temp))
+                           + clrec_contra_loss(self.global_rows(features), self.temp))
         return out
 
     def jax_leaves(self):

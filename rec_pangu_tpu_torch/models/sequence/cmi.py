@@ -30,8 +30,8 @@ from torch import nn
 from ...ops.initializers import flax_fan_in_normal_
 from ...ops.kernels.fused_encoder import check_rate
 from ...ops.numerics import safe_l2norm
-from ...ops.sequence_enc import (CMI_EMB_DROPOUT, GRU, _dense, _linear_leaves, draw_seed,
-                                 feature_dropout)
+from ...ops.sequence_enc import (CMI_EMB_DROPOUT, GRU, _dense, _linear_leaves,
+                                 feature_dropout, step_seed)
 from ..base import SequenceModelBase, register_model
 
 
@@ -69,6 +69,10 @@ class CMI(SequenceModelBase):
     def output_items(self) -> torch.Tensor:
         return stopgrad_norm(self.item_emb.all_items())
 
+    def output_item_block(self):
+        block, first = self.item_emb.local_items()
+        return stopgrad_norm(block), first
+
     def forward(self, batch, train: bool = False, capture=None, seed=None):
         """``capture``: the fused step's {"hist": [...]} list; ``seed``: the
         step's seed (see SequenceModelBase)."""
@@ -87,7 +91,7 @@ class CMI(SequenceModelBase):
             seq_emb = stopgrad_norm(self.item_emb(item_seq))
         if train and self.dropout_prob > 0:
             seq_emb = feature_dropout(seq_emb, self.dropout_prob,
-                                      draw_seed() if seed is None else int(seed),
+                                      step_seed(seed),
                                       CMI_EMB_DROPOUT)
 
         # one soft assignment to the bank
@@ -111,14 +115,16 @@ class CMI(SequenceModelBase):
                  neg_emb: torch.Tensor) -> torch.Tensor:
         """The best interest's score of the target against every history's
         negative (the max over the interests), an InfoNCE at ``temp``; plus
-        ``w_clloss`` times ``multi_interest_clloss`` when B is even."""
-        B = interests.shape[0]
+        ``w_clloss`` times ``multi_interest_clloss`` when B is even.  Under a
+        data-parallel mesh both read the whole batch's negatives and
+        interests (``global_rows``)."""
         pos_scores = (interests * pos_emb[:, None, :]).sum(dim=-1)              # [B, K]
-        neg_scores = torch.matmul(interests, neg_emb.T)                         # [B, K, B]
+        neg_scores = torch.matmul(interests, self.global_rows(neg_emb).T)       # [B, K, B]
         scores = torch.cat([pos_scores[..., None], neg_scores], dim=-1).amax(dim=1)
         loss = -torch.log_softmax(scores / self.temp, dim=-1)[:, 0].mean()
-        if B % 2 == 0:
-            loss = loss + self.w_clloss * self.multi_interest_clloss(interests)
+        every = self.global_rows(interests)
+        if every.shape[0] % 2 == 0:
+            loss = loss + self.w_clloss * self.multi_interest_clloss(every)
         return loss
 
     def multi_interest_clloss(self, interests: torch.Tensor) -> torch.Tensor:

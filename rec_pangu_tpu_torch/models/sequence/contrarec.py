@@ -24,7 +24,7 @@ from __future__ import annotations
 import torch
 
 from ...ops.numerics import safe_l2norm
-from ...ops.sequence_enc import BERT4RecEncoder, CaserEncoder, GRU4RecEncoder, draw_seed
+from ...ops.sequence_enc import BERT4RecEncoder, CaserEncoder, GRU4RecEncoder, step_seed
 from ..base import SequenceModelBase, register_model
 from .augment import augment_sequences
 from .contra_losses import contrarec_contra_loss
@@ -70,7 +70,7 @@ class ContraRec(SequenceModelBase):
         if not train:
             return {"user_emb": self._encode(self.item_emb(item_seq, capture.get("hist")),
                                              lengths, False)}
-        seed = draw_seed() if seed is None else int(seed)
+        seed = step_seed(seed)
         all_seq = batch.get("aug_all")
         if all_seq is None:
             gen = torch.Generator(device=item_seq.device).manual_seed(seed + 2)
@@ -82,7 +82,8 @@ class ContraRec(SequenceModelBase):
         item = batch["target_item"]
         features = safe_l2norm(torch.stack([enc[B:2 * B], enc[2 * B:]], dim=1))
         loss = (self.calculate_loss(user_emb, item, capture.get("ce"), seed)
-                + self.gamma * contrarec_contra_loss(features, item, self.ccc_temp))
+                + self.gamma * contrarec_contra_loss(self.global_rows(features),
+                                                     self.global_rows(item), self.ccc_temp))
         return {"user_emb": user_emb, "loss": loss}
 
     def _encode(self, seq_emb: torch.Tensor, lengths: torch.Tensor, train: bool) -> torch.Tensor:

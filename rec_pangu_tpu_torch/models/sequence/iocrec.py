@@ -21,6 +21,14 @@ dropout and the global encoder's output each draw the fused encoder's hash
 masks from the step's seed on their own stream
 (``global_attn.DROPOUT_LAYER`` with ``INPUT_SITE`` and ``OUTPUT_SITE``), so
 the card and the CPU drop the same elements.
+
+Under a data-parallel mesh each rank's block stacks its rows of the three
+views, [hist_b; aug1_b; aug2_b]: the encoders then run view by view, each
+with the view's rows of the global stack as its dropout rows
+(``ops/dropout.view_seeds``, the kernels' ``first``), and the InfoNCE reads
+the whole batch's views (``global_rows``).  Under a ``model`` axis the K-max
+CE runs over the rank's rows of the item table
+(``softmax_ce.sharded_multimax_softmax_ce``).
 """
 from __future__ import annotations
 
@@ -33,10 +41,11 @@ from torch import nn
 from ...ops.initializers import kaiming_normal_
 from ...ops.kernels.fused_encoder import check_rate
 from ...ops.kernels.global_attn import DROPOUT_LAYER, INPUT_SITE, global_attn
-from ...ops.sequence_enc import TransformerEncoder, _dense, draw_seed, feature_dropout
+from ...ops.sequence_enc import (TransformerEncoder, _dense, feature_dropout, step_seed,
+                                 view_seeds)
 from ...ops.softmax_ce import (fused_multimax_softmax_ce_captured,
                                fused_multimax_softmax_ce_padded, naive_multimax_softmax_ce,
-                               streamed_ce_applies)
+                               sharded_multimax_softmax_ce, streamed_ce_applies)
 from ..base import SequenceModelBase, register_model
 from .augment import augment_sequences
 
@@ -89,7 +98,10 @@ class GlobalSeqEncoder(nn.Module):
                 self.V_linear.bias, self.Q_s)
 
     def forward(self, x: torch.Tensor, train: bool = False, seed: int = 0) -> torch.Tensor:
-        return global_attn(x, self.params(), seed, self.dropout, train)
+        """Sample i draws the dropout mask of row ``seed.first_row + i`` for a
+        ``RowSeed``."""
+        return global_attn(x, self.params(), seed, self.dropout, train,
+                           getattr(seed, "first_row", 0))
 
     def jax_leaves(self):
         return [("params", ("Q_s",), self.Q_s, False)] + [
@@ -234,8 +246,15 @@ class IOCRec(SequenceModelBase):
                            ) -> DisentangleFactors:
         # one lookup serves both encoders
         emb = self.item_emb(item_seq, capture)
-        local = self._local_from_emb(emb, item_seq, train, seed)
-        glob = self.global_seq_encoder(emb, train, seed)
+        seeds = view_seeds(seed, 3) if train else None
+        if seeds is None:
+            local = self._local_from_emb(emb, item_seq, train, seed)
+            glob = self.global_seq_encoder(emb, train, seed)
+        else:  # a data-parallel block of the three views: each view at its global rows
+            parts = [(self._local_from_emb(e, s, train, v), self.global_seq_encoder(e, train, v))
+                     for e, s, v in zip(emb.chunk(3), item_seq.chunk(3), seeds)]
+            local = torch.cat([p[0] for p in parts])
+            glob = torch.cat([p[1] for p in parts])
         return self.disentangle_encoder(local, glob, seq_len)
 
     def forward(self, batch, train: bool = False, capture=None, seed=None):
@@ -248,7 +267,7 @@ class IOCRec(SequenceModelBase):
         B, L = item_seq.shape
         capture = capture or {}
         if train:
-            seed = draw_seed() if seed is None else int(seed)
+            seed = step_seed(seed)
             all_seq = batch.get("aug_all")
             if all_seq is None:
                 gen = torch.Generator(device=item_seq.device).manual_seed(seed + 2)
@@ -281,15 +300,21 @@ class IOCRec(SequenceModelBase):
         if capture is not None:
             return fused_multimax_softmax_ce_captured(user_emb, table.detach(), pos_item,
                                                       capture, vocab)
+        if self.item_emb.row_shard is not None:
+            return sharded_multimax_softmax_ce(user_emb, table, pos_item,
+                                               self.item_emb.row_shard[0], vocab,
+                                               self.item_emb.mesh_state.model_group)
         if streamed_ce_applies(vocab):
             return fused_multimax_softmax_ce_padded(user_emb, table, pos_item, vocab)
         return naive_multimax_softmax_ce(user_emb, self.output_items(), pos_item)
 
     def _cl_loss(self, factors3: DisentangleFactors, B: int) -> torch.Tensor:
         # the contrastive views are the one consumer of the dense tensor
+        # (the whole batch's views under a data-parallel mesh)
         aug = factors3.slice_rows(B, 3 * B).dense()
-        d1 = aug[:B].reshape(B * self.k_intention, -1)
-        d2 = aug[B:].reshape(B * self.k_intention, -1)
+        v1, v2 = self.global_rows(aug[:B]), self.global_rows(aug[B:])
+        d1 = v1.reshape(v1.shape[0] * self.k_intention, -1)
+        d2 = v2.reshape(v2.shape[0] * self.k_intention, -1)
         return info_nce_loss(d1, d2, self.tao)
 
     def jax_leaves(self):

@@ -16,7 +16,7 @@ import torch
 
 from ...ops.kernels.fused_encoder import check_rate
 from ...ops.sequence_enc import (GRU, NARM_CT_DROPOUT, NARM_EMB_DROPOUT, _dense,
-                                 _linear_leaves, draw_seed, feature_dropout)
+                                 _linear_leaves, feature_dropout, step_seed)
 from ..base import SequenceModelBase, register_model
 
 
@@ -47,7 +47,7 @@ class NARM(SequenceModelBase):
         lengths = batch["hist_mask_list"].sum(dim=-1).to(torch.int64)
         capture = capture or {}
         if train:
-            seed = draw_seed() if seed is None else int(seed)
+            seed = step_seed(seed)
         seq_emb = self.item_emb(item_seq, capture.get("hist"))
         if train:
             seq_emb = feature_dropout(seq_emb, self.dropout_probs[0], seed, NARM_EMB_DROPOUT)

@@ -9,7 +9,7 @@ from __future__ import annotations
 import torch
 
 from ...ops.conv import NextItNetLayer
-from ...ops.sequence_enc import draw_seed
+from ...ops.sequence_enc import step_seed
 from ..base import SequenceModelBase, register_model
 
 
@@ -34,7 +34,7 @@ class NextItNet(SequenceModelBase):
         lengths = batch["hist_mask_list"].sum(dim=-1).to(torch.int64)
         seq_emb = self.item_emb(batch["hist_item_list"], capture.get("hist"))
         if train:
-            seed = draw_seed() if seed is None else int(seed)
+            seed = step_seed(seed)
         user_emb = self.nextit_layer(seq_emb, lengths, train, seed or 0)
         out = {"user_emb": user_emb}
         if train:

@@ -94,8 +94,12 @@ class Re4(SequenceModelBase):
         mask_cos = torch.where(pad[:, None, :], -1e9, cos_sim)
         eye = torch.eye(K, dtype=torch.bool, device=ni.device)
         in2in = torch.where(eye[None], -1e9, torch.matmul(ni, ni.transpose(1, 2)))
-        in2i = torch.matmul(ni, torch.roll(ne, 1, dims=0).transpose(1, 2))
-        in2i = torch.where(torch.roll(item_seq == 0, 1, dims=0)[:, None, :], -1e9, in2i)
+        # each history against the previous history's items (the batch's
+        # rows rolled by one: across the data ranks' blocks under a mesh)
+        prev = self.block_rows(torch.roll(self.global_rows(ne), 1, dims=0), B)
+        prev_pad = self.block_rows(torch.roll(self.global_rows(item_seq), 1, dims=0), B) == 0
+        in2i = torch.matmul(ni, prev.transpose(1, 2))
+        in2i = torch.where(prev_pad[:, None, :], -1e9, in2i)
         # -log(exp(pos / t) / sum(exp(neg / t))) as log-sum-exp minus pos / t:
         # the same function as the JAX package's ratio of exponentials, whose
         # float32 gradient drops the negatives' terms once the sum nears e^50

@@ -21,7 +21,7 @@ for the users and (..., 1) for the items.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -54,16 +54,40 @@ def skip_seeds(generator: torch.Generator, n: int) -> None:
 
 class RowSeed(int):
     """A step's dropout seed that also carries ``first_row``, the global
-    batch row of the block's first sample: under a mesh each ``data`` rank
-    runs its own block of the batch, and ``feature_dropout`` hashes sample
-    i of the block as row ``first_row + i``, so the ranks draw the masks the
+    batch row of the block's first sample, and ``batch_rows``, the global
+    batch's rows: under a mesh each ``data`` rank runs its own block of the
+    batch, and ``feature_dropout`` and the encoder kernels hash sample i of
+    the block as row ``first_row + i``, so the ranks draw the masks the
     single-device step draws on the whole batch (the JAX package folds the
-    shard index into its key instead).  Arithmetic on it gives a plain int."""
+    shard index into its key instead).  A model that stacks views of the
+    batch ([hist; aug1; aug2], IOCRec) hashes view v's block at ``v *
+    batch_rows + first_row`` (``view_seeds``).  Arithmetic on it gives a
+    plain int."""
 
-    def __new__(cls, seed: int, first_row: int = 0):
+    def __new__(cls, seed: int, first_row: int = 0, batch_rows: int = 0):
         obj = super().__new__(cls, seed)
         obj.first_row = int(first_row)
+        obj.batch_rows = int(batch_rows)
         return obj
+
+
+def step_seed(seed: Optional[int]) -> int:
+    """A forward's dropout seed: ``draw_seed()`` for None, a ``RowSeed`` as
+    it is (its rows kept), any other value as an int."""
+    if seed is None:
+        return draw_seed()
+    return seed if isinstance(seed, RowSeed) else int(seed)
+
+
+def view_seeds(seed: int, views: int) -> Optional[List[RowSeed]]:
+    """The seeds of ``views`` stacked views of a block's rows, view v at
+    global row ``v * batch_rows + first_row``, as the single-device step
+    hashes the stacked whole batch; None for a seed that is no ``RowSeed``
+    (the whole batch: one call over the stack draws the same masks)."""
+    if not isinstance(seed, RowSeed):
+        return None
+    return [RowSeed(int(seed), v * seed.batch_rows + seed.first_row, seed.batch_rows)
+            for v in range(views)]
 
 
 def feature_dropout(x: torch.Tensor, rate: float, seed: int, stream: Tuple[int, int]

@@ -5,7 +5,8 @@ recall).
 ``FusedEmbedding``: one ``[padded_rows, D]`` table behind all sparse fields.
 Under a mesh whose ``model`` axis row-shards it, each rank keeps a block
 of its rows and the lookup sums the blocks' rows over that axis
-(``_sharded_lookup``).
+(``sharded_lookup``); ``ItemEmbedding`` does the same with its item
+table.
 
 All F features share one table with static per-feature row offsets, so a
 batch lookup is a single ``[B, F]`` (+offsets) -> ``[B, F, D]`` gather, run
@@ -87,7 +88,7 @@ class FusedEmbedding(nn.Module):
         by them and hands their gradient to this table's fused Adam.  The
         value is the same either way."""
         if self.row_shard is not None:
-            return self._sharded_lookup(sparse_ids, capture)
+            return sharded_lookup(self, sparse_ids, capture)
         if capture is None:
             return fused_embedding_lookup(self.table, sparse_ids, self.offsets)
         rows = fused_embedding_lookup(self.table.detach(), sparse_ids, self.offsets)
@@ -95,25 +96,26 @@ class FusedEmbedding(nn.Module):
         capture.append((self, rows))
         return rows
 
-    def _sharded_lookup(self, sparse_ids: torch.Tensor, capture) -> torch.Tensor:
-        """The lookup of a table row-sharded over the mesh's ``model`` axis
-        (``parallel/sharding.shard_state``): the kernel on the rank's rows
-        with the ids shifted by the block's first row (ids of other blocks
-        fall outside it and read zero rows), then the sum over ``model``
-        with an identity backward, so that the shard's gradient is the
-        table gradient kernel on the shifted ids from the rank's own
-        cotangent.  The fused step does not run on a sharded table."""
-        from ..parallel.comm import reduce_model  # here: the parallel package imports ops
-
-        if capture is not None:
-            raise ValueError("the fused step does not run on a row-sharded table: a mesh "
-                             "with a model axis takes the standard step")
-        rows = fused_embedding_lookup(self.table, sparse_ids, self.shard_offsets)
-        return reduce_model(rows, self.mesh_state.model_group)
-
     def jax_leaves(self) -> List[Tuple[str, tuple, torch.Tensor, bool]]:
         """(collection, flax path, tensor, transposed) of each weight."""
         return [("params", ("table",), self.table, False)]
+
+
+def sharded_lookup(emb: nn.Module, ids: torch.Tensor, capture) -> torch.Tensor:
+    """The lookup of an embedding whose table is row-sharded over the mesh's
+    ``model`` axis (``parallel/sharding.shard_state``): the kernel on the
+    rank's rows with the ids shifted by the block's first row (ids of other
+    blocks fall outside it and read zero rows), then the sum over ``model``
+    with an identity backward, so that the shard's gradient is the table
+    gradient kernel on the shifted ids from the rank's own cotangent.  The
+    fused steps do not run on a sharded table."""
+    from ..parallel.comm import reduce_model  # here: the parallel package imports ops
+
+    if capture is not None:
+        raise ValueError("the fused step does not run on a row-sharded table: a mesh "
+                         "with a model axis takes the standard step")
+    rows = fused_embedding_lookup(emb.table, ids, emb.shard_offsets)
+    return reduce_model(rows, emb.mesh_state.model_group)
 
 
 class LRLayer(nn.Module):
@@ -162,6 +164,10 @@ class ItemEmbedding(nn.Module):
         self.table = nn.Parameter(torch.empty(padded_rows(self.vocab_size),
                                               self.embedding_dim))
         self.register_buffer("offsets", torch.zeros(1, dtype=torch.int32), persistent=False)
+        # (first row, whole rows) of the rank's block once shard_state
+        # row-shards the table over a mesh's model axis, and the MeshState
+        self.row_shard: Optional[Tuple[int, int]] = None
+        self.mesh_state = None
         generator = generator if generator is not None else torch.Generator().manual_seed(0)
         with torch.no_grad():
             if init_std is None:
@@ -170,9 +176,23 @@ class ItemEmbedding(nn.Module):
                 self.table.normal_(0.0, float(init_std), generator=generator)
 
     def all_items(self) -> torch.Tensor:
-        """[vocab, D]: the table without its pad rows, row 0 zeroed."""
+        """[vocab, D]: the table without its pad rows, row 0 zeroed.  A
+        row-sharded table has no whole corpus on a rank: it raises
+        (``local_items`` is the rank's block)."""
+        if self.row_shard is not None:
+            raise ValueError("the item table is row-sharded over the mesh's model axis: read "
+                             "the rank's rows with local_items")
         keep = torch.arange(self.vocab_size, device=self.table.device) != 0
         return self.table[:self.vocab_size] * keep[:, None]
+
+    def local_items(self) -> Tuple[torch.Tensor, int]:
+        """(the rank's rows of the corpus [rows, D] with row 0 zeroed, the
+        global id of its first row): the whole table's on an unsharded
+        table.  Rows at or past ``vocab_size`` (the table's padding) are
+        kept for the caller to mask."""
+        first = 0 if self.row_shard is None else self.row_shard[0]
+        keep = torch.arange(first, first + self.table.shape[0], device=self.table.device) != 0
+        return self.table * keep[:, None], first
 
     def forward(self, ids: torch.Tensor,
                 capture: Optional[List[torch.Tensor]] = None) -> torch.Tensor:
@@ -181,8 +201,11 @@ class ItemEmbedding(nn.Module):
         ``capture`` (a list) is the sequence fused step's capture mode, as
         ``FusedEmbedding.forward``'s: the table is held out of autograd, the
         gathered rows [N, D] become a leaf appended to ``capture``, and the
-        output is still those rows times ``ids != 0``."""
-        if capture is None:
+        output is still those rows times ``ids != 0``.  A row-sharded table
+        takes ``sharded_lookup``."""
+        if self.row_shard is not None:
+            rows = sharded_lookup(self, ids.reshape(-1, 1), capture)
+        elif capture is None:
             rows = fused_embedding_lookup(self.table, ids.reshape(-1, 1), self.offsets)
         else:
             rows = fused_embedding_lookup(self.table.detach(), ids.reshape(-1, 1), self.offsets)

@@ -276,7 +276,7 @@ def bind(lib: ctypes.CDLL) -> dict:
     """name -> the stage entry points of a built ``fused_encoder`` library."""
     p, i, u, f, ll = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float,
                       ctypes.c_longlong)
-    drop = [u, u, u, f, f, i, i]
+    drop = [u, u, u, f, f, i, i, u]
     sig = {"rp_encoder_bwd_transpose_f32": [p] * 4 + [i] * 3 + [p],
            "rp_encoder_bwd_rows_f32": [p] * 11 + [ll] + [i] * 6 + drop + [p],
            "rp_encoder_bwd_attention_f32": [p] * 6 + [ll] + [i] * 7 + drop + [p],

@@ -167,16 +167,17 @@ def fused_encoder_reference(x: torch.Tensor, key_valid: torch.Tensor,
                             causal: bool = True, act: str = "relu",
                             eps: float = 1e-12, train: bool = False,
                             hidden_dropout: float = 0.0, attn_dropout: float = 0.0,
-                            seed: int = 0) -> torch.Tensor:
+                            seed: int = 0, first: int = 0) -> torch.Tensor:
     """Plain PyTorch version over the packed weights: [N, L, D] -> [N, L, D];
-    with ``train``, the kernels' dropout masks (``dropout_scale``)."""
+    with ``train``, the kernels' dropout masks (``dropout_scale``), sample i
+    with row ``first + i``'s."""
     wqkvo, bqkvo, w1, b1, w2, b2, ln_g, ln_b = packed
     N, L, D = x.shape
     heads = (N, L, n_heads, D // n_heads)
     add_mask = additive_mask(key_valid, causal)
     for li in range(wqkvo.shape[0]):
         masks = layer_masks(seed, N, li, L, D, n_heads, hidden_dropout if train else 0.0,
-                            attn_dropout if train else 0.0, x.device)
+                            attn_dropout if train else 0.0, x.device, first)
         q, k, v = (torch.matmul(x, wqkvo[li, i]) + bqkvo[li, i] for i in range(3))
         probs = torch.softmax(attention_scores(q.view(heads), k.view(heads), add_mask), dim=-1)
         if masks[ATTN_SITE] is not None:
@@ -195,13 +196,14 @@ def fused_encoder_reference(x: torch.Tensor, key_valid: torch.Tensor,
 
 
 def layer_masks(seed: int, n: int, layer: int, L: int, D: int, n_heads: int,
-                hidden_dropout: float, attn_dropout: float, device=None) -> tuple:
-    """One layer's dropout factors by site (None where the rate is 0): the
-    attention probabilities [n, heads, L, L], the attention output and the
-    FFN output [n, L, D]."""
-    attn = (dropout_scale(seed, n, layer, ATTN_SITE, (n_heads, L, L), attn_dropout, device)
-            if attn_dropout > 0 else None)
-    hidden = [dropout_scale(seed, n, layer, site, (L, D), hidden_dropout, device)
+                hidden_dropout: float, attn_dropout: float, device=None,
+                first: int = 0) -> tuple:
+    """One layer's dropout factors by site (None where the rate is 0) of
+    samples first..first+n-1: the attention probabilities [n, heads, L, L],
+    the attention output and the FFN output [n, L, D]."""
+    attn = (dropout_scale(seed, n, layer, ATTN_SITE, (n_heads, L, L), attn_dropout, device,
+                          first) if attn_dropout > 0 else None)
+    hidden = [dropout_scale(seed, n, layer, site, (L, D), hidden_dropout, device, first)
               if hidden_dropout > 0 else None for site in (ATTN_OUT_SITE, FFN_OUT_SITE)]
     return (attn, *hidden)
 
@@ -353,7 +355,7 @@ def launch(x: torch.Tensor, key_valid: torch.Tensor, packed: Sequence[torch.Tens
 
 
 _DROP_ARGS = [ctypes.c_uint, ctypes.c_uint, ctypes.c_uint, ctypes.c_float, ctypes.c_float,
-              ctypes.c_int, ctypes.c_int]
+              ctypes.c_int, ctypes.c_int, ctypes.c_uint]
 
 
 def _train_kernel():
@@ -384,10 +386,11 @@ def _bwd_kernel():
     return _BWD_FN
 
 
-def _dropout_args(seed: int, hidden_dropout: float, attn_dropout: float) -> tuple:
+def _dropout_args(seed: int, hidden_dropout: float, attn_dropout: float,
+                  first: int = 0) -> tuple:
     return (int(seed) & _MASK32, drop_threshold(hidden_dropout), drop_threshold(attn_dropout),
             drop_scale(hidden_dropout), drop_scale(attn_dropout), int(hidden_dropout > 0),
-            int(attn_dropout > 0))
+            int(attn_dropout > 0), int(first) & _MASK32)
 
 
 def _shape_args(x, packed, n_heads, causal, act, eps) -> tuple:
@@ -407,9 +410,10 @@ def saved_floats(rows: int, D: int, inner: int) -> int:
 
 def launch_train(x: torch.Tensor, key_valid: torch.Tensor, packed: Sequence[torch.Tensor],
                  n_heads: int, causal: bool, act: str, eps: float, hidden_dropout: float,
-                 attn_dropout: float, seed: int, save: bool):
+                 attn_dropout: float, seed: int, save: bool, first: int = 0):
     """One launch of the training forward on checked CUDA inputs: (y, the
-    activations K4b reads [layers, saved_floats] when ``save``, else None)."""
+    activations K4b reads [layers, saved_floats] when ``save``, else None);
+    sample i draws the dropout masks of row ``first + i``."""
     global LAUNCHES
     shape = _shape_args(x, packed, n_heads, causal, act, eps)
     N, L, D, layers, inner = shape[0], shape[1], shape[2], shape[3], shape[5]
@@ -423,7 +427,7 @@ def launch_train(x: torch.Tensor, key_valid: torch.Tensor, packed: Sequence[torc
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(x.data_ptr(), kv.data_ptr(), *(t.data_ptr() for t in packed), y.data_ptr(),
                  saved.data_ptr() if save else None, *shape,
-                 *_dropout_args(seed, hidden_dropout, attn_dropout), stream)
+                 *_dropout_args(seed, hidden_dropout, attn_dropout, first), stream)
     if err != 0:
         raise RuntimeError(f"fused_encoder training kernel launch failed: CUDA error {err}")
     LAUNCHES += 1
@@ -432,9 +436,10 @@ def launch_train(x: torch.Tensor, key_valid: torch.Tensor, packed: Sequence[torc
 
 def launch_backward(saved: torch.Tensor, key_valid: torch.Tensor, dy: torch.Tensor,
                     packed: Sequence[torch.Tensor], n_heads: int, causal: bool, act: str,
-                    eps: float, hidden_dropout: float, attn_dropout: float, seed: int):
+                    eps: float, hidden_dropout: float, attn_dropout: float, seed: int,
+                    first: int = 0):
     """K4b on CUDA inputs, from the training forward's ``saved``: (dx [N, L,
-    D], the 8 packed arrays' gradients)."""
+    D], the 8 packed arrays' gradients); ``first`` as ``launch_train``'s."""
     global BACKWARD_LAUNCHES
     dy = dy.to(torch.float32).contiguous()
     shape = _shape_args(dy, packed, n_heads, causal, act, eps)
@@ -455,7 +460,7 @@ def launch_backward(saved: torch.Tensor, key_valid: torch.Tensor, dy: torch.Tens
             err = fn(saved.data_ptr(), kv.data_ptr(), dy.data_ptr(),
                      *(t.data_ptr() for t in packed), dx.data_ptr(), grads.data_ptr(),
                      work.data_ptr(), work.numel(), *shape,
-                     *_dropout_args(seed, hidden_dropout, attn_dropout), stream)
+                     *_dropout_args(seed, hidden_dropout, attn_dropout, first), stream)
         if err != 0:
             raise RuntimeError(f"fused_encoder backward kernel launch failed: CUDA error {err}")
         BACKWARD_LAUNCHES += 1
@@ -467,10 +472,10 @@ class _TrainingEncoder(torch.autograd.Function):
     """The training forward kernel; its backward is K4b."""
 
     @staticmethod
-    def forward(ctx, x, key_valid, options, *packed):
+    def forward(ctx, x, key_valid, options, first, *packed):
         y, saved = launch_train(x, key_valid, packed, *options,
-                                save=any(ctx.needs_input_grad))
-        ctx.options = options
+                                save=any(ctx.needs_input_grad), first=first)
+        ctx.options, ctx.first = options, first
         if saved is not None:
             ctx.save_for_backward(saved, key_valid, *packed)
         return y
@@ -478,20 +483,23 @@ class _TrainingEncoder(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         saved, key_valid, *packed = ctx.saved_tensors
-        dx, grads = launch_backward(saved, key_valid, dy, packed, *ctx.options)
-        return (dx, None, None, *grads)
+        dx, grads = launch_backward(saved, key_valid, dy, packed, *ctx.options,
+                                    first=ctx.first)
+        return (dx, None, None, None, *grads)
 
 
 def fused_encoder(x: torch.Tensor, key_valid: torch.Tensor, packed: Sequence[torch.Tensor],
                   n_heads: int, causal: bool = True, act: str = "relu",
                   eps: float = 1e-12, train: bool = False, hidden_dropout: float = 0.0,
-                  attn_dropout: float = 0.0, seed: int = 0) -> torch.Tensor:
+                  attn_dropout: float = 0.0, seed: int = 0, first: int = 0) -> torch.Tensor:
     """x [N, L, D] f32, key_valid [N, L] (nonzero = valid key), the 8 packed
     weight arrays -> y [N, L, D]: the kernels on the card for a shape they
     take (``kernel_takes``), else the plain version.  ``train`` applies
-    dropout at the given rates with the masks of ``seed``; on the card, a
-    call autograd may differentiate runs the training kernel, whose backward
-    is K4b."""
+    dropout at the given rates with the masks of ``seed``, sample i with row
+    ``first + i``'s (a data-parallel block's first global row; the JAX
+    package's ``fused_encoder_dp`` folds the shard index into the seed
+    instead); on the card, a call autograd may differentiate runs the
+    training kernel, whose backward is K4b."""
     check_inputs(x, key_valid, packed, n_heads, act)
     check_rate(hidden_dropout)
     check_rate(attn_dropout)
@@ -502,10 +510,10 @@ def fused_encoder(x: torch.Tensor, key_valid: torch.Tensor, packed: Sequence[tor
     layers, _, inner = packed[2].shape
     if not routes_to_kernel(x.device, x.shape[1], x.shape[2], inner, layers):
         return fused_encoder_reference(x, key_valid, packed, n_heads, causal, act, eps, train,
-                                       hidden_dropout, attn_dropout, seed)
+                                       hidden_dropout, attn_dropout, seed, first)
     wants_grad = torch.is_grad_enabled() and (x.requires_grad
                                               or any(t.requires_grad for t in packed))
     if not wants_grad and hidden_dropout == 0.0 and attn_dropout == 0.0:
         return launch(x, key_valid, packed, n_heads, causal, act, eps)
     options = (n_heads, causal, act, eps, hidden_dropout, attn_dropout, seed)
-    return _TrainingEncoder.apply(x, key_valid, options, *packed)
+    return _TrainingEncoder.apply(x, key_valid, options, first, *packed)

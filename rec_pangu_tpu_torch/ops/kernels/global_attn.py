@@ -62,14 +62,17 @@ _FWD_FN = None
 _BWD_FN = None
 
 
-def output_mask(seed: int, n: int, L: int, D: int, rate: float, device=None) -> torch.Tensor:
-    """The output's dropout factors [n, L, D] (0 dropped, 1/(1-p) kept)."""
-    return dropout_scale(seed, n, DROPOUT_LAYER, OUTPUT_SITE, (L, D), rate, device)
+def output_mask(seed: int, n: int, L: int, D: int, rate: float, device=None,
+                first: int = 0) -> torch.Tensor:
+    """The output's dropout factors [n, L, D] (0 dropped, 1/(1-p) kept) of
+    samples first..first+n-1."""
+    return dropout_scale(seed, n, DROPOUT_LAYER, OUTPUT_SITE, (L, D), rate, device, first)
 
 
 def global_attn_reference(x: torch.Tensor, params: Sequence[torch.Tensor], train: bool = False,
-                          rate: float = 0.0, seed: int = 0) -> torch.Tensor:
-    """Plain PyTorch version (the flax path of ``GlobalSeqEncoder``)."""
+                          rate: float = 0.0, seed: int = 0, first: int = 0) -> torch.Tensor:
+    """Plain PyTorch version (the flax path of ``GlobalSeqEncoder``); sample
+    i draws the dropout mask of row ``first + i``."""
     wk, bk, wv, bv, q_s = params
     k = torch.matmul(x, wk) + bk
     v = torch.matmul(x, wv) + bv
@@ -77,7 +80,7 @@ def global_attn_reference(x: torch.Tensor, params: Sequence[torch.Tensor], train
     y = torch.einsum("blm,bmd->bld", probs, v)
     if train and rate > 0:
         N, L, D = x.shape
-        y = y * output_mask(seed, N, L, D, rate, x.device)
+        y = y * output_mask(seed, N, L, D, rate, x.device, first)
     return y
 
 
@@ -125,8 +128,8 @@ def _bind_forward(lib):
     """(forward, its workspace words, its groups) of a loaded library."""
     fwd = lib.rp_global_attn_fwd_f32
     fwd.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 2
-                    + [ctypes.c_uint] * 3 + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                                             ctypes.c_void_p])
+                    + [ctypes.c_uint] * 3 + [ctypes.c_float, ctypes.c_int, ctypes.c_uint,
+                                             ctypes.c_int, ctypes.c_void_p])
     fwd.restype = ctypes.c_int
     words = lib.rp_global_attn_fwd_workspace_words
     words.argtypes = [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int]
@@ -147,7 +150,8 @@ def _functions():
         bwd = lib.rp_global_attn_bwd_f32
         bwd.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_longlong] * 2
                         + [ctypes.c_int, ctypes.c_int] + [ctypes.c_uint] * 3
-                        + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+                        + [ctypes.c_float, ctypes.c_int, ctypes.c_uint, ctypes.c_int,
+                           ctypes.c_void_p])
         bwd.restype = ctypes.c_int
         words = lib.rp_global_attn_bwd_workspace_words
         words.argtypes = [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int]
@@ -161,9 +165,9 @@ def _variant(resident: Optional[bool]) -> int:
     return -1 if resident is None else int(resident)
 
 
-def _dropout_args(seed: int, rate: float) -> tuple:
+def _dropout_args(seed: int, rate: float, first: int = 0) -> tuple:
     return (int(seed) & _MASK32, 3 * DROPOUT_LAYER + OUTPUT_SITE, drop_threshold(rate),
-            drop_scale(rate), int(rate > 0))
+            drop_scale(rate), int(rate > 0), int(first) & _MASK32)
 
 
 def _checked(x: torch.Tensor, params: Sequence[torch.Tensor]):
@@ -183,9 +187,10 @@ def forward_groups(n: int, L: int, D: int) -> int:
 
 
 def launch_forward(x: torch.Tensor, params: Sequence[torch.Tensor], rate: float, seed: int,
-                   resident: Optional[bool] = None) -> torch.Tensor:
-    """K6f on checked CUDA inputs: y [N, L, D] (dropout at ``rate``).
-    ``resident`` picks the kernel's variant as in ``launch_backward``."""
+                   resident: Optional[bool] = None, first: int = 0) -> torch.Tensor:
+    """K6f on checked CUDA inputs: y [N, L, D] (dropout at ``rate``, sample i
+    with the mask of row ``first + i``).  ``resident`` picks the kernel's
+    variant as in ``launch_backward``."""
     global LAUNCHES
     N, L, D = _checked(x, params)
     y = torch.empty_like(x)
@@ -202,7 +207,7 @@ def launch_forward(x: torch.Tensor, params: Sequence[torch.Tensor], rate: float,
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fwd(x.data_ptr(), *(t.data_ptr() for t in params), y.data_ptr(),
                   0 if work is None else work.data_ptr(), need, N, L, D,
-                  *_dropout_args(seed, rate), variant, stream)
+                  *_dropout_args(seed, rate, first), variant, stream)
     if err != 0:
         raise RuntimeError(f"global_attn kernel launch failed: CUDA error {err}")
     LAUNCHES += 1
@@ -210,8 +215,9 @@ def launch_forward(x: torch.Tensor, params: Sequence[torch.Tensor], rate: float,
 
 
 def launch_backward(x: torch.Tensor, params: Sequence[torch.Tensor], dy: torch.Tensor,
-                    rate: float, seed: int, resident: Optional[bool] = None):
-    """K6b on CUDA inputs: (dx [N, L, D], the 5 params' gradients).
+                    rate: float, seed: int, resident: Optional[bool] = None, first: int = 0):
+    """K6b on CUDA inputs: (dx [N, L, D], the 5 params' gradients); ``first``
+    as ``launch_forward``'s.
     ``resident`` picks the kernel's variant: wk and wv kept in shared memory
     (True, where they fit) or streamed from device memory (False); None lets
     the kernel pick from the shape, as training does."""
@@ -234,7 +240,7 @@ def launch_backward(x: torch.Tensor, params: Sequence[torch.Tensor], dy: torch.T
             stream = torch.cuda.current_stream(x.device).cuda_stream
             err = bwd(x.data_ptr(), *(t.data_ptr() for t in params), dy.data_ptr(),
                       dx.data_ptr(), grads.data_ptr(), work.data_ptr(), work.numel(), N, L, D,
-                      *_dropout_args(seed, rate), variant, stream)
+                      *_dropout_args(seed, rate, first), variant, stream)
         if err != 0:
             raise RuntimeError(f"global_attn backward kernel launch failed: CUDA error {err}")
         BACKWARD_LAUNCHES += 1
@@ -246,23 +252,26 @@ class _GlobalAttn(torch.autograd.Function):
     """K6f; its backward is K6b, which recomputes the forward from x."""
 
     @staticmethod
-    def forward(ctx, x, rate, seed, *params):
+    def forward(ctx, x, rate, seed, first, *params):
         ctx.options = (rate, seed)
+        ctx.first = first
         ctx.save_for_backward(x, *params)
-        return launch_forward(x, params, rate, seed)
+        return launch_forward(x, params, rate, seed, first=first)
 
     @staticmethod
     def backward(ctx, dy):
         x, *params = ctx.saved_tensors
-        dx, grads = launch_backward(x, params, dy, *ctx.options)
-        return (dx, None, None, *grads)
+        dx, grads = launch_backward(x, params, dy, *ctx.options, first=ctx.first)
+        return (dx, None, None, None, *grads)
 
 
 def global_attn(x: torch.Tensor, params: Sequence[torch.Tensor], seed: int = 0,
-                rate: float = 0.0, train: bool = False) -> torch.Tensor:
+                rate: float = 0.0, train: bool = False, first: int = 0) -> torch.Tensor:
     """x [N, L, D] f32 and (wk, bk, wv, bv, q_s) -> y [N, L, D]: the kernels
     on the card for a shape they take, else the plain version.  ``train`` applies dropout at
-    ``rate`` with the masks of ``seed``."""
+    ``rate`` with the masks of ``seed``, sample i with row ``first + i``'s
+    (a data-parallel block's first global row; the JAX package's
+    ``global_attn_dp`` folds the shard index into the seed instead)."""
     check_inputs(x, params)
     check_rate(rate)
     if not train:
@@ -270,7 +279,7 @@ def global_attn(x: torch.Tensor, params: Sequence[torch.Tensor], seed: int = 0,
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no global attention kernel for device {x.device}")
     if not routes_to_kernel(x.device, x.shape[1], x.shape[2]):
-        return global_attn_reference(x, params, train, rate, seed)
+        return global_attn_reference(x, params, train, rate, seed, first)
     if torch.is_grad_enabled() and (x.requires_grad or any(t.requires_grad for t in params)):
-        return _GlobalAttn.apply(x, rate, seed, *params)
-    return launch_forward(x, params, rate, seed)
+        return _GlobalAttn.apply(x, rate, seed, first, *params)
+    return launch_forward(x, params, rate, seed, first=first)

@@ -82,11 +82,18 @@ def draw_routing_logits(shape, seed: Optional[int], device: torch.device) -> tor
     """MIND's gaussian routing logits [B, K, L]: with a train step's
     ``seed``, drawn on ``device`` from its generator seeded by ``seed`` plus
     ROUTING_SEED_OFFSET; with None, the serving draw (SERVING_ROUTING_SEED,
-    on the CPU, kept for each shape and device)."""
+    on the CPU, kept for each shape and device).  A ``RowSeed`` of a
+    data-parallel block draws the global batch's logits and takes the
+    block's rows, so each rank starts from the single-device step's."""
     device = torch.device(device)
     if seed is None:
         return _serving_routing_logits(tuple(int(n) for n in shape), device)
     gen = torch.Generator(device=device).manual_seed(int(seed) + ROUTING_SEED_OFFSET)
+    rows = getattr(seed, "batch_rows", 0)
+    if rows:
+        first = seed.first_row
+        return torch.randn((rows,) + tuple(shape[1:]), generator=gen,
+                           device=device)[first:first + shape[0]]
     return torch.randn(shape, generator=gen, device=device)
 
 

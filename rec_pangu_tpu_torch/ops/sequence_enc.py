@@ -43,7 +43,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from .activations import get_activation
-from .dropout import draw_seed, feature_dropout  # noqa: F401 (the sequence models' import)
+from .dropout import (draw_seed, feature_dropout,  # noqa: F401 (the sequence models' import)
+                      step_seed, view_seeds)
 from .initializers import flax_fan_in_normal_, kaiming_normal_, xavier_normal_
 from .kernels.fused_encoder import (ATTN_OUT_SITE, ATTN_SITE, FFN_OUT_SITE, additive_mask,
                                     attention_scores, check_rate, fused_encoder, layer_masks,
@@ -175,21 +176,24 @@ class TransformerEncoder(nn.Module):
         """x [B, L, D], key_valid [B, L] (nonzero = a valid key) -> [B, L, D].
         Query l may see key j when j is valid and, if ``causal``, j <= l.
         ``train`` applies dropout with the masks of ``seed`` (drawn from
-        torch's default generator when None)."""
+        torch's default generator when None), sample i with row
+        ``seed.first_row + i``'s for a ``RowSeed``."""
         hidden = self.hidden_dropout_prob if train else 0.0
         attn = self.attn_dropout_prob if train else 0.0
         if (hidden > 0 or attn > 0) and seed is None:
             seed = draw_seed()
+        first = getattr(seed, "first_row", 0)
         seed = 0 if seed is None else int(seed)
         B, L, D = x.shape
         inner = self.blocks[0].ffn_1.weight.shape[0]
         if routes_to_kernel(x.device, L, D, inner, len(self.blocks)):
             return fused_encoder(x, key_valid, self.packed(), self.n_heads, causal,
-                                 self.hidden_act, self.layer_norm_eps, train, hidden, attn, seed)
+                                 self.hidden_act, self.layer_norm_eps, train, hidden, attn, seed,
+                                 first)
         add_mask = additive_mask(key_valid, causal)
         for li, block in enumerate(self.blocks):
             x = block(x, add_mask, layer_masks(seed, B, li, L, D, self.n_heads, hidden, attn,
-                                               x.device))
+                                               x.device, first))
         return x
 
     def jax_leaves(self) -> List[Tuple[str, tuple, torch.Tensor, bool]]:

@@ -39,6 +39,12 @@ JAX applies them.  The positives' item gradient is added with
 ``index_put_(accumulate=True)``, which sums repeated positives in a fixed
 order.  ``fused_multimax_softmax_ce_padded`` runs over the raw table with
 the padded variant's semantics, with no copy of it.
+
+``sharded_softmax_ce`` and ``sharded_multimax_softmax_ce`` are the same two
+autograd Functions over a table row-sharded over the mesh's ``model`` axis,
+given the block's first row and the axis's group: the per-rank logsumexps
+are log-added over the group and the user gradient is summed over it.
+Without a group they compute the whole table's CE.
 """
 from __future__ import annotations
 
@@ -69,14 +75,17 @@ def _chunks(num_rows: int, chunk: int):
     return range(0, num_rows, chunk)
 
 
-def _lse_pos(user, items, pos, valid_v: int, zero_row0: bool, chunk: int):
+def _lse_pos(user, items, pos, valid_v: int, zero_row0: bool, chunk: int, first: int = 0):
     """(logsumexp [B], positive logit [B]) in one pass over the corpus: each
-    chunk's logsumexp, combined across chunks as a running logsumexp."""
+    chunk's logsumexp, combined across chunks as a running logsumexp.
+    ``items`` are the rows from global id ``first`` on (a row-sharded
+    table's block; the positive logit is 0 where the block lacks it)."""
     B = user.shape[0]
     lse = torch.full((B,), -torch.inf, dtype=torch.float32, device=user.device)
     ps = torch.zeros(B, dtype=torch.float32, device=user.device)
-    for base in _chunks(items.shape[0], chunk):
-        c = items[base:base + chunk]
+    for local in _chunks(items.shape[0], chunk):
+        c = items[local:local + chunk]
+        base = first + local
         logits = _chunk_logits(user, c, base, valid_v, zero_row0)
         loc = pos - base
         hit = (loc >= 0) & (loc < c.shape[0])
@@ -86,13 +95,16 @@ def _lse_pos(user, items, pos, valid_v: int, zero_row0: bool, chunk: int):
     return lse, ps
 
 
-def _grads(user, items, pos, lse, g, valid_v: int, zero_row0: bool, chunk: int):
-    """(d_user [B, D], d_items [rows, D]), both scaled by g / B."""
+def _grads(user, items, pos, lse, g, valid_v: int, zero_row0: bool, chunk: int,
+           first: int = 0):
+    """(d_user [B, D] unscaled, d_items [rows, D] scaled by g / B);
+    ``first`` as ``_lse_pos``'s."""
     scale = g / user.shape[0]
     d_user = torch.zeros_like(user)
     d_items = torch.empty_like(items)
-    for base in _chunks(items.shape[0], chunk):
-        c = items[base:base + chunk]
+    for local in _chunks(items.shape[0], chunk):
+        c = items[local:local + chunk]
+        base = first + local
         p = _chunk_logits(user, c, base, valid_v, zero_row0)
         p.sub_(lse[:, None]).exp_()  # in place: the chunk's passes are its bytes
         loc = pos - base
@@ -103,38 +115,84 @@ def _grads(user, items, pos, lse, g, valid_v: int, zero_row0: bool, chunk: int):
         if zero_row0 and base == 0:
             p[:, 0] = 0.0  # row 0 reads as a zero vector: no gradient either way
         d_user += torch.matmul(p, c)
-        d_items[base:base + c.shape[0]] = torch.matmul(p.t(), user) * scale
-    return d_user * scale, d_items
+        d_items[local:local + c.shape[0]] = torch.matmul(p.t(), user) * scale
+    return d_user, d_items
+
+
+def _log_add(lse_r: torch.Tensor, group) -> torch.Tensor:
+    """The logsumexp over ``group`` of each rank's partial logsumexp: the
+    max, then the log of the summed exponentials (a rank whose rows are all
+    masked adds exp(-inf) = 0)."""
+    from ..parallel.comm import all_reduce_max, all_reduce_sum
+
+    m = all_reduce_max(lse_r, group)
+    safe = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    return safe + torch.log(all_reduce_sum(torch.exp(lse_r - safe), group))
+
+
+def _sum_over(x: torch.Tensor, group) -> torch.Tensor:
+    if group is None:
+        return x
+    from ..parallel.comm import all_reduce_sum
+
+    return all_reduce_sum(x, group)
 
 
 class _StreamingCE(torch.autograd.Function):
+    """The streamed CE over ``items``, the table's rows from global id
+    ``first`` on.  With a ``group`` (the mesh's ``model`` axis, over which
+    the table is row-sharded: every rank holds the same users and its own
+    block) each rank's logsumexp is log-added over the group and the
+    positive logit comes from the rank whose block holds it (the others add
+    0).  The backward recomputes the block's softmax from the global
+    logsumexp, which gives the block's own gradient and its share of the
+    user gradient; the shares are summed over the group, so every rank
+    hands the same, whole user gradient to the layers below (each rank runs
+    them on the same users: neither a summing nor a dividing rule in their
+    backward).  Without a group it is the whole table's CE."""
+
     @staticmethod
-    def forward(ctx, user, items, pos, valid_v, zero_row0, chunk, sink):
+    def forward(ctx, user, items, pos, first, valid_v, zero_row0, chunk, sink, group):
         pos = pos.reshape(-1).long()
-        lse, ps = _lse_pos(user, items, pos, valid_v, zero_row0, chunk)
+        lse, ps = _lse_pos(user, items, pos, valid_v, zero_row0, chunk, first)
+        if group is not None:
+            lse, ps = _log_add(lse, group), _sum_over(ps, group)
         ctx.save_for_backward(user, items, pos, lse)
-        ctx.options = (valid_v, zero_row0, chunk, sink)
+        ctx.options = (first, valid_v, zero_row0, chunk, sink, group)
         return (lse - ps).mean()
 
     @staticmethod
     def backward(ctx, g):
         user, items, pos, lse = ctx.saved_tensors
-        valid_v, zero_row0, chunk, sink = ctx.options
-        d_user, d_items = _grads(user, items, pos, lse, g, valid_v, zero_row0, chunk)
+        first, valid_v, zero_row0, chunk, sink, group = ctx.options
+        d_user, d_items = _grads(user, items, pos, lse, g, valid_v, zero_row0, chunk, first)
+        d_user = _sum_over(d_user, group) * (g / user.shape[0])
         if sink is not None:
             sink.append(d_items)
             d_items = None
         elif not ctx.needs_input_grad[1]:
             d_items = None
-        return d_user, d_items, None, None, None, None, None
+        return d_user, d_items, None, None, None, None, None, None, None
 
 
-def _streaming(user, items, pos, valid_v, zero_row0, chunk, sink=None):
+def _streaming(user, items, pos, valid_v, zero_row0, chunk, sink=None, first=0, group=None):
     if user.dim() != 2 or items.dim() != 2 or user.shape[1] != items.shape[1]:
         raise ValueError(f"user_emb [B, D] and items [V, D] expected, got "
                          f"{tuple(user.shape)} and {tuple(items.shape)}")
     chunk = CHUNK_V if chunk is None else int(chunk)
-    return _StreamingCE.apply(user, items, pos, int(valid_v), bool(zero_row0), chunk, sink)
+    return _StreamingCE.apply(user, items, pos, int(first), int(valid_v), bool(zero_row0),
+                              chunk, sink, group)
+
+
+def sharded_softmax_ce(user_emb: torch.Tensor, block: torch.Tensor, pos_item: torch.Tensor,
+                       first: int, valid_v: int, group, zero_row0: bool = True,
+                       chunk: Optional[int] = None) -> torch.Tensor:
+    """``fused_softmax_ce_padded`` over a table row-sharded over ``group``
+    (the ``model`` axis): ``block`` the rank's rows, from global id
+    ``first``.  No rank holds or gathers the whole table; the loss and the
+    user gradient are the same on every rank of the group."""
+    return _streaming(user_emb, block, pos_item, valid_v, zero_row0, chunk, first=first,
+                      group=group)
 
 
 def fused_softmax_ce(user_emb: torch.Tensor, items: torch.Tensor, pos_item: torch.Tensor,
@@ -184,56 +242,96 @@ def full_softmax_ce(user_emb: torch.Tensor, items: torch.Tensor,
     return -logprobs.gather(1, pos[:, None])[:, 0].mean()
 
 
-def _pos_max(user_embs: torch.Tensor, items: torch.Tensor, pos: torch.Tensor,
-             zero_row0: bool):
-    """(positive rows [B, D], their best score [B], the interest that wins it
-    [B]: the first on a tie)."""
-    rows = items[pos]
+def _pos_rows(items: torch.Tensor, pos: torch.Tensor, first: int, zero_row0: bool,
+              group) -> torch.Tensor:
+    """The positives' rows [B, D] of ``items``, the table's rows from global
+    id ``first`` on: each rank's rows of the positives it holds (zero
+    elsewhere), summed over ``group``."""
+    local = pos - first
+    owned = (local >= 0) & (local < items.shape[0])
+    rows = _sum_over(items[local.clamp(0, items.shape[0] - 1)]
+                     * owned.to(items.dtype)[:, None], group)
     if zero_row0:
         rows = rows * (pos != 0).to(rows.dtype)[:, None]
-    scores = torch.einsum("bkd,bd->bk", user_embs, rows)
-    k_pos = torch.argmax(scores, dim=-1)
-    return rows, scores.gather(1, k_pos[:, None])[:, 0], k_pos
+    return rows
 
 
 class _MultimaxCE(torch.autograd.Function):
+    """The K-max CE over ``items``, the table's rows from global id
+    ``first`` on; with a ``group`` (the ``model`` axis) as
+    ``_StreamingCE``'s: K5f on the rank's block gives a partial logsumexp
+    (the block's own valid rows; a block of padding only adds nothing), the
+    partials are log-added over the group, and K5b on the global logsumexp
+    gives the block's item gradient and its share of du, summed over the
+    group before the positive term is applied once.  The positives' rows
+    come from the ranks that own them; the interest that wins a positive is
+    the first on a tie."""
+
     @staticmethod
-    def forward(ctx, user_embs, items, pos, valid_v, zero_row0, sink):
+    def forward(ctx, user_embs, items, pos, first, valid_v, zero_row0, sink, group):
         pos = pos.reshape(-1).long()
-        lse = multimax_lse(user_embs, items, valid_v, zero_row0)
-        _, z_pos, _ = _pos_max(user_embs, items, pos, zero_row0)
-        ctx.save_for_backward(user_embs, items, pos, lse)
-        ctx.options = (valid_v, zero_row0, sink)
+        local_v = min(max(valid_v - first, 0), items.shape[0])
+        local_zero = zero_row0 and first == 0
+        if local_v > 0:
+            lse = multimax_lse(user_embs, items, local_v, local_zero)
+        else:
+            lse = torch.full((user_embs.shape[0],), -torch.inf, dtype=torch.float32,
+                             device=user_embs.device)
+        if group is not None:
+            lse = _log_add(lse, group)
+        rows = _pos_rows(items, pos, first, zero_row0, group)
+        scores = torch.einsum("bkd,bd->bk", user_embs, rows)
+        k_pos = torch.argmax(scores, dim=-1)
+        z_pos = scores.gather(1, k_pos[:, None])[:, 0]
+        ctx.save_for_backward(user_embs, items, pos, lse, rows, k_pos)
+        ctx.options = (first, local_v, local_zero, sink, group)
         return (lse - z_pos).mean()
 
     @staticmethod
     def backward(ctx, g):
-        user_embs, items, pos, lse = ctx.saved_tensors
-        valid_v, zero_row0, sink = ctx.options
+        user_embs, items, pos, lse, rows, k_pos = ctx.saved_tensors
+        first, local_v, local_zero, sink, group = ctx.options
         B, K, _ = user_embs.shape
         scale = g / B
-        du, d_items = multimax_grads(user_embs, items, lse, valid_v, zero_row0)
-        rows, _, k_pos = _pos_max(user_embs, items, pos, zero_row0)
+        if local_v > 0:
+            du, d_items = multimax_grads(user_embs, items, lse, local_v, local_zero)
+        else:
+            du, d_items = torch.zeros_like(user_embs), torch.zeros_like(items)
+        du = _sum_over(du, group)
         onehot = torch.nn.functional.one_hot(k_pos, K).to(du.dtype)  # [B, K]
         du = (du - onehot[..., None] * rows[:, None, :]) * scale
         u_star = torch.einsum("bk,bkd->bd", onehot, user_embs)
         d_items.mul_(scale)
-        d_items.index_put_((pos,), -u_star * scale, accumulate=True)
-        if zero_row0:
+        # the positives' term on the rows this block holds (the others add 0)
+        local = pos - first
+        owned = (local >= 0) & (local < items.shape[0])
+        d_items.index_put_((local.clamp(0, items.shape[0] - 1),),
+                           -u_star * scale * owned.to(u_star.dtype)[:, None], accumulate=True)
+        if local_zero:
             d_items[0] = 0.0  # row 0 read as a zero vector: no gradient either way
         if sink is not None:
             sink.append(d_items)
             d_items = None
         elif not ctx.needs_input_grad[1]:
             d_items = None
-        return du, d_items, None, None, None, None
+        return du, d_items, None, None, None, None, None, None
 
 
-def _multimax(user_embs, items, pos, valid_v, zero_row0, sink=None):
+def _multimax(user_embs, items, pos, valid_v, zero_row0, sink=None, first=0, group=None):
     if user_embs.dim() != 3 or items.dim() != 2 or user_embs.shape[2] != items.shape[1]:
         raise ValueError(f"user_embs [B, K, D] and items [V, D] expected, got "
                          f"{tuple(user_embs.shape)} and {tuple(items.shape)}")
-    return _MultimaxCE.apply(user_embs, items, pos, int(valid_v), bool(zero_row0), sink)
+    return _MultimaxCE.apply(user_embs, items, pos, int(first), int(valid_v), bool(zero_row0),
+                             sink, group)
+
+
+def sharded_multimax_softmax_ce(user_embs: torch.Tensor, block: torch.Tensor,
+                                pos_item: torch.Tensor, first: int, valid_v: int, group,
+                                zero_row0: bool = True) -> torch.Tensor:
+    """``fused_multimax_softmax_ce_padded`` over a table row-sharded over
+    ``group`` (the ``model`` axis): ``block`` the rank's rows, from global id
+    ``first``; no rank holds or gathers the whole table."""
+    return _multimax(user_embs, block, pos_item, valid_v, zero_row0, first=first, group=group)
 
 
 def fused_multimax_softmax_ce(user_embs: torch.Tensor, items: torch.Tensor,

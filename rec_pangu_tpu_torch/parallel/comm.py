@@ -13,6 +13,13 @@ times its gradient.  So:
   (BatchNorm's batch sums);
 * ``gather_rows``: the ranks' ``[n, ...]`` blocks of a group, concatenated in
   rank order (the fused update's cotangent rows and ids, predictions);
+* ``gather_data``: ``gather_rows`` over ``data`` with autograd, for a loss
+  term that couples the rows of the global batch (a contrastive loss over
+  the batch, CMI's shared negatives, Re4's rolled rows): the backward sums
+  the ranks' cotangents of the gathered rows and hands each rank its own
+  rows' sum.  Each rank's loss then holds the term of the whole batch, and
+  the summed, averaged gradients (``all_reduce_grads``) are the global
+  batch's, as for ``reduce_data``;
 * ``all_reduce_grads``: each gradient summed over ``data`` and divided by
   the group's size, in place.
 
@@ -84,6 +91,47 @@ def gather_rows(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
     return torch.cat(parts, dim=dim)
 
 
+class _GatherData(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, group) -> torch.Tensor:
+        ctx.group, ctx.rows = group, x.shape[0]
+        return gather_rows(x, group)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        out = grad.contiguous().clone()
+        dist.all_reduce(out, group=ctx.group)
+        r = dist.get_group_rank(ctx.group, dist.get_rank())
+        return out[r * ctx.rows:(r + 1) * ctx.rows], None
+
+
+def gather_data(x: torch.Tensor, group) -> torch.Tensor:
+    """The ranks' equal-shaped ``x`` [n, ...] concatenated on axis 0 in rank
+    order; the backward sums the cotangents over ``group`` and takes the
+    rank's rows."""
+    if _size(group) == 1:
+        return x
+    return _GatherData.apply(x, group)
+
+
+def all_reduce_max(x: torch.Tensor, group) -> torch.Tensor:
+    """The elementwise max of ``x`` over ``group`` (no autograd)."""
+    if _size(group) == 1:
+        return x
+    out = x.detach().contiguous().clone()
+    dist.all_reduce(out, op=dist.ReduceOp.MAX, group=group)
+    return out
+
+
+def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """The elementwise sum of ``x`` over ``group`` (no autograd)."""
+    if _size(group) == 1:
+        return x
+    out = x.detach().contiguous().clone()
+    dist.all_reduce(out, group=group)
+    return out
+
+
 def all_reduce_grads(grads: Iterable[Optional[torch.Tensor]], group) -> None:
     """Each gradient summed over ``group`` and divided by its size, in
     place; None gradients are skipped (the same ones on every rank: the
@@ -92,9 +140,15 @@ def all_reduce_grads(grads: Iterable[Optional[torch.Tensor]], group) -> None:
     if n == 1:
         return
     for g in grads:
-        if g is not None:
+        if g is None:
+            continue
+        if g.is_contiguous():
             dist.all_reduce(g, group=group)
-            g.div_(n)
+        else:  # autograd.grad may hand back a transposed view: reduce a copy
+            flat = g.contiguous()
+            dist.all_reduce(flat, group=group)
+            g.copy_(flat)
+        g.div_(n)
 
 
 def mean_over(value: torch.Tensor, group) -> torch.Tensor:

@@ -1,19 +1,21 @@
 """Sharding policy: which weight goes where on the mesh, and the rank's
 share of a batch, as the JAX package's ``parallel/sharding.py``.
 
-Policy (``state_shardings``): the table of a ``FusedEmbedding`` (a 2-D
-weight at a flax path ending in ``table``) whose rows divide the ``model``
-axis is row-sharded over it; every other weight and optimizer moment is
-replicated; batches are split over ``data`` on their leading axis.  The
-sequence models' item tables stay whole (their mesh path is ROADMAP Queue 1
-item 12).
+Policy (``state_shardings``): the table of a ``FusedEmbedding`` or an
+``ItemEmbedding`` (a 2-D weight at a flax path ending in ``table``: the
+ranking models' fused table, the sequence models' item tables) whose rows
+divide the ``model`` axis is row-sharded over it; every other weight and
+optimizer moment is replicated; batches are split over ``data`` on their
+leading axis.
 
 ``shard_state(model, mesh)`` applies the policy in place, on every rank:
 each sharded table keeps the rank's ``[V / n_model, D]`` block of rows
 (``row_shard`` = (first row, whole rows) on the module, its lookup on ids
 shifted by the first row), and every module whose forward reads the mesh
-(``FusedEmbedding``, the BatchNorms of ``mlp.flax_batch_norm``) gets the
-returned ``MeshState`` as ``mesh_state``; the model gets it too.  Moments
+(the embeddings, the BatchNorms of ``mlp.flax_batch_norm``) gets the
+returned ``MeshState`` as ``mesh_state``; the model gets it too (the
+sequence models' losses read it: the row-sharded softmax CE, the loss
+terms over the whole batch).  Moments
 follow their weights: an optimizer built after ``shard_state`` holds the
 block's.  ``whole_variables`` and ``whole_opt_state`` gather the sharded
 tables back over ``model`` (the checkpoint writers: a checkpoint holds the
@@ -32,7 +34,7 @@ import torch.distributed as dist
 from torch import nn
 
 from ..convert import jax_variables
-from ..ops.embedding import FusedEmbedding
+from ..ops.embedding import FusedEmbedding, ItemEmbedding
 from .comm import gather_rows
 from .mesh import DATA_AXIS, MODEL_AXIS, mesh_shape
 
@@ -44,7 +46,8 @@ class MeshState:
     or an evaluation runs now: ``split`` True while each ``data`` rank runs
     its own block of the batch (False for a batch every rank runs whole),
     ``first_row`` that block's first row in the global batch (the dropout
-    hash's sample index, ``ops/dropout.RowSeed``)."""
+    hash's sample index, ``ops/dropout.RowSeed``) and ``batch_rows`` the
+    global batch's rows."""
 
     def __init__(self, mesh):
         self.mesh = mesh
@@ -55,7 +58,8 @@ class MeshState:
         self.model_group = mesh.get_group(MODEL_AXIS)
         self.split = False
         self.first_row = 0
-        self.tables: List[Tuple[str, FusedEmbedding]] = []  # (flax path, module) sharded
+        self.batch_rows = 0
+        self.tables: List[Tuple[str, nn.Module]] = []  # (flax path, embedding) sharded
 
     @property
     def is_writer(self) -> bool:
@@ -69,18 +73,22 @@ class MeshState:
         return self.n_data > 1 and rows % self.n_data == 0
 
     @contextlib.contextmanager
-    def running(self, split: bool, first_row: int = 0):
-        """The modules read ``split`` and ``first_row`` inside."""
-        prev = (self.split, self.first_row)
-        self.split, self.first_row = bool(split), int(first_row)
+    def running(self, split: bool, first_row: int = 0, batch_rows: int = 0):
+        """The modules read ``split``, ``first_row`` and ``batch_rows``
+        inside."""
+        prev = (self.split, self.first_row, self.batch_rows)
+        self.split, self.first_row, self.batch_rows = bool(split), int(first_row), int(batch_rows)
         try:
             yield self
         finally:
-            self.split, self.first_row = prev
+            self.split, self.first_row, self.batch_rows = prev
+
+
+_EMBEDDINGS = (FusedEmbedding, ItemEmbedding)
 
 
 def _sharded_table(module: nn.Module, n_model: int) -> bool:
-    return (isinstance(module, FusedEmbedding) and n_model > 1
+    return (isinstance(module, _EMBEDDINGS) and n_model > 1
             and module.table.shape[0] % n_model == 0)
 
 
@@ -111,7 +119,7 @@ def shard_state(model, mesh) -> MeshState:
                                    (module.offsets.long() - first).to(torch.int32),
                                    persistent=False)
             state.tables.append((path, module))
-        if isinstance(module, (FusedEmbedding, nn.BatchNorm1d)):
+        if isinstance(module, _EMBEDDINGS + (nn.BatchNorm1d,)):
             module.mesh_state = state
     model.mesh_state = state
     return state
@@ -157,7 +165,7 @@ def _whole(state: MeshState, arr: np.ndarray, device: torch.device) -> np.ndarra
     return gather_rows(t, state.model_group).cpu().numpy().view(arr.dtype)
 
 
-def _block(state: MeshState, module: FusedEmbedding, arr) -> np.ndarray:
+def _block(state: MeshState, module: nn.Module, arr) -> np.ndarray:
     first, whole = module.row_shard
     arr = np.asarray(arr)
     if arr.shape[0] != whole:

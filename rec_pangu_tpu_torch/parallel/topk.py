@@ -8,7 +8,10 @@ candidates and their global ids are gathered over ``model``; a last
 ``torch.topk`` over the gathered candidates picks the global top-k, the
 same on every rank.  The collective carries ``k`` candidates a shard
 instead of a ``[B, V]`` score matrix.  Every rank calls it with the same
-queries; ranks that differ only in ``data`` do the same work.
+queries; ranks that differ only in ``data`` do the same work.  A caller
+whose table is already row-sharded (a sequence model's item table under
+``shard_state``) passes its own block and the block's first global id
+(``first``) instead of the whole table.
 """
 from __future__ import annotations
 
@@ -53,13 +56,19 @@ def _masked_padding(scores: torch.Tensor, first: int, num_valid: int) -> torch.T
 
 
 def distributed_topk(mesh, user_embs: torch.Tensor, item_embs: torch.Tensor, k: int,
-                     num_valid: Optional[int] = None):
+                     num_valid: Optional[int] = None, first: Optional[int] = None):
     """user_embs [B, D] x the whole item_embs [V, D] (V divisible by the
     ``model`` axis; each rank scores its own rows) -> (scores [B, k], global
     item ids [B, k]).  ``num_valid`` masks the padding rows appended to make
-    V divisible."""
-    items, first, _ = _shard(mesh, item_embs)
-    num_valid = item_embs.shape[0] if num_valid is None else int(num_valid)
+    V divisible.  With ``first``, ``item_embs`` is the rank's own block of
+    rows from global id ``first`` (``num_valid`` then required)."""
+    if first is None:
+        items, first, _ = _shard(mesh, item_embs)
+        num_valid = item_embs.shape[0] if num_valid is None else int(num_valid)
+    elif num_valid is None:
+        raise ValueError("a block of rows (first=...) needs num_valid, the corpus' size")
+    else:
+        items, num_valid = item_embs, int(num_valid)
     scores = torch.matmul(user_embs.float(), items.float().t())
     return _merge(mesh, _masked_padding(scores, first, num_valid), first, k)
 

@@ -41,6 +41,16 @@ Adam with both: the history rows as the summed stream and the CE's
 (histories and targets) for CLRec, whose one lookup reads those.  The step
 checks the key and the captures before it changes any state.
 
+Under a data-parallel mesh (a ``model`` axis of 1; the JAX package's
+``_seq_fused_step_fn`` under ``shard_map``) the sequence step runs on the
+rank's block and exchanges what the one K3 launch on every replica needs:
+the dense gradients all-reduced and averaged over ``data``; the history
+rows' cotangents scaled by 1 / n_data and gathered over ``data`` with
+their ids in the global batch's order (a stack of views, IOCRec's and
+ContraRec's ``[hist; aug1; aug2]``, view by view, so the stable sort meets
+the single-device sums); the CE's dense ``[V_pad, D]`` stream scaled by 1 /
+n_data and summed over ``data``.
+
 ``REC_PANGU_TPU_MOMENT_DTYPE=bf16`` stores both steps' table moments as
 bfloat16 (``_moment_dtype``), as in the JAX package.
 """
@@ -55,9 +65,8 @@ from ..convert import jax_path
 from ..ops.embedding import FusedEmbedding, ItemEmbedding
 from ..ops.kernels.embedding_lookup import fused_ids
 from ..ops.kernels.fused_adam import adam_hyper, planned_adam_update, sort_for, update_sorted
-from ..ops.dropout import draw_seed
 from ..ops.softmax_ce import fused_ce_enabled
-from ..parallel.comm import all_reduce_grads, gather_rows
+from ..parallel.comm import all_reduce_grads, all_reduce_sum, gather_rows
 from .ckpt import moment_arrays
 from .optim import ADAM_B1, ADAM_B2, ADAM_EPS, make_lr_schedule, make_optimizer, set_lr
 from .steps import (OPT_STATE_LAYOUT, adam_entries, adam_moments, draw_step_seed,
@@ -222,13 +231,19 @@ def maybe_enable_fused_update(model, lr: float, steps_per_epoch: int,
 class SeqFusedStep:
     """The sequence fused step: autograd for the dense parameters, the
     captured history rows and the captured CE gradient; Adam on the dense
-    parameters; one fused Adam launch on the item table with both streams."""
+    parameters; one fused Adam launch on the item table with both streams.
+    Under a data-parallel mesh, see the module's docstring."""
 
     fused = True
 
     def __init__(self, model, lr: float, steps_per_epoch: int, lr_scheduler_type: str = "",
                  scheduler_params=None, generator: Optional[torch.Generator] = None):
         self.model = model
+        self.mesh_state = getattr(model, "mesh_state", None)
+        if self.mesh_state is not None and self.mesh_state.n_model > 1:
+            raise ValueError("the sequence fused step runs under a data-parallel mesh only: a "
+                             "model axis row-shards the item table, which takes the standard "
+                             "step")
         self.uses_ce = bool(getattr(model, "fused_uses_ce", True))
         table = model.item_emb.table
         self.schedule = make_lr_schedule(lr, steps_per_epoch, lr_scheduler_type,
@@ -252,7 +267,10 @@ class SeqFusedStep:
         capture: Dict[str, List[torch.Tensor]] = {"hist": []}
         if self.uses_ce:
             capture["ce"] = []
-        out = self.model(inputs, train=True, capture=capture, seed=draw_seed(self.generator))
+        state = self.mesh_state
+        split = state is not None and state.split
+        out = self.model(inputs, train=True, capture=capture,
+                         seed=draw_step_seed(self.generator, state))
         if len(capture["hist"]) != 1:  # the rows' ids are inputs[key]
             raise ValueError(f"the sequence fused step needs exactly one lookup of the item "
                              f"table in the forward, got {len(capture['hist'])}")
@@ -264,6 +282,10 @@ class SeqFusedStep:
                 raise ValueError(f"the sequence fused step needs exactly one captured softmax "
                                  f"CE in the loss, got {len(capture['ce'])}")
             dense = capture["ce"][0]
+            if split:  # d(global mean loss) / d(table): the blocks' streams summed
+                dense = all_reduce_sum(dense / state.n_data, state.data_group)
+        if split:
+            all_reduce_grads(grads[:len(self.dense)], state.data_group)
         if self.optimizer is not None:
             set_lr(self.optimizer, lr)
             for p, g in zip(self.dense, grads):
@@ -271,10 +293,13 @@ class SeqFusedStep:
             self.optimizer.step()
         rows = grads[-1]
         table = self.model.item_emb.table
-        ids = inputs[key]
+        ids = inputs[key].reshape(-1).to(torch.int32)
+        rows = rows.reshape(-1, rows.shape[-1])
+        if split:
+            views = inputs[key].shape[0] // inputs["hist_item_list"].shape[0]
+            ids, rows = _gather_views(ids, rows / state.n_data, views, state.data_group)
         with torch.no_grad():
-            planned_adam_update(ids.reshape(-1).to(torch.int32),
-                                rows.reshape(-1, rows.shape[-1]), table, self.mu, self.nu,
+            planned_adam_update(ids, rows, table, self.mu, self.nu,
                                 adam_hyper(step + 1, lr, ADAM_B1, ADAM_B2, ADAM_EPS), dense)
         return out
 
@@ -283,6 +308,13 @@ class SeqFusedStep:
         return {"layout": OPT_STATE_LAYOUT, "step": int(step),
                 "params": adam_moments(self.model, self.optimizer),
                 "tables": {key: moment_arrays(self.mu, self.nu)}}
+
+
+def _gather_views(ids: torch.Tensor, rows: torch.Tensor, views: int, group):
+    """A block's ids [N] and rows [N, D], ``views`` stacked views of its
+    rows, gathered over ``group`` view by view: the global batch's stack."""
+    return (torch.cat([gather_rows(part, group) for part in ids.chunk(views)]),
+            torch.cat([gather_rows(part, group) for part in rows.chunk(views)]))
 
 
 def seq_fused_applicable(model) -> bool:
@@ -306,9 +338,13 @@ def maybe_enable_seq_fused_update(model, lr: float, steps_per_epoch: int,
     """The sequence fused step from a fresh state, or None when it does not
     apply: an optimizer other than Adam, a state past step 0,
     ``REC_PANGU_TPU_FUSED_ADAM`` other than 1/on/true,
-    ``REC_PANGU_TPU_FUSED_CE`` 0/off/false, or a model
-    ``seq_fused_applicable`` refuses."""
+    ``REC_PANGU_TPU_FUSED_CE`` 0/off/false, a model
+    ``seq_fused_applicable`` refuses, or a model on a mesh with a ``model``
+    axis (the JAX gate's rule)."""
     if optimizer.lower() != "adam" or int(step) != 0:
+        return None
+    state = getattr(model, "mesh_state", None)
+    if state is not None and state.n_model > 1:
         return None
     if not _fused_adam_on() or not fused_ce_enabled():
         return None

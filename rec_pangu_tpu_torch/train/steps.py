@@ -50,7 +50,7 @@ def draw_step_seed(generator: Optional[torch.Generator], mesh_state=None,
     which every rank holds whole)."""
     seed = draw_seed(generator)
     if global_rows and mesh_state is not None and mesh_state.split:
-        return RowSeed(seed, mesh_state.first_row)
+        return RowSeed(seed, mesh_state.first_row, mesh_state.batch_rows)
     return seed
 
 

@@ -61,11 +61,22 @@ fresh state, or the standard step with ``REC_PANGU_TPU_FUSED_ADAM=0`` or
 pending pretrained rows), then ``evaluate_model`` on the valid loader, a
 row of ``log.csv``, the ``model_e_{i}`` checkpoint and early stopping.
 ``seed`` seeds the generator the steps draw their dropout seeds (and
-sampled negatives) from; ``steps_per_call`` is RankTrainer's; ``mesh``
-raises (the sequence mesh is ROADMAP Queue 1 item 12).  A model with
+sampled negatives) from; ``steps_per_call`` is RankTrainer's.  A model with
 ``renorm_param_paths`` (CMI) trains projected:
 those rows are put back on the unit sphere at the start of ``fit`` and
-after every step.
+after every step.  ``mesh`` is RankTrainer's: ``fit`` shards the model (the
+item tables row-sharded over ``model``), and each rank runs its block of
+every batch.  The host keys (the views, CMI's negatives, ``lookup_all``,
+the session graph) are drawn from the whole batch on every rank, the same
+draws as the single device's, and then cut to the rank's rows (each view's
+block of ``aug_all``; under a loader sharded over the data ranks, the views
+and negatives are drawn for the ranks' batches gathered in rank order and
+each rank keeps its rows).  Under a ``model`` axis of 1 the sequence
+fused step runs on the block (``fused_update.SeqFusedStep``); under a
+``model`` axis the standard step, the lookups and the softmax CE on the
+rank's rows of the table.  ``evaluate_model`` ranks through the
+distributed top-k over the mesh, and checkpoints hold the whole tables,
+written by global rank 0.
 
 GraphTrainer drives graph CF (NGCF): ``fit`` samples a BPR batch a step
 from the dataset and takes the standard step; ``evaluate_model`` scores
@@ -104,7 +115,7 @@ from ..models.sequence.augment import host_augment_sequences
 from ..ops.dropout import skip_seeds
 from ..ops.graph import attach_session_graph
 from ..parallel.comm import gather_rows, mean_over
-from ..parallel.sharding import (shard_batch, shard_frozen, shard_opt_state, shard_state,
+from ..parallel.sharding import (shard_frozen, shard_opt_state, shard_state,
                                  shard_variables, whole_opt_state, whole_variables)
 from ..parallel.topk import distributed_masked_topk, pad_to_multiple
 from ..utils.device import DeviceLike, resolve_device
@@ -113,16 +124,6 @@ from .ckpt import load_checkpoint, read_opt_state, save_checkpoint
 from .fused_update import maybe_enable_fused_update, maybe_enable_seq_fused_update
 from .steps import StandardStep, make_param_renorm, strip_host_keys
 
-# the sequence trainer's mesh, with the ROADMAP item that ports it
-_MESH_NOT_PORTED = ("SequenceTrainer.fit(mesh=...) is not ported yet: the sequence fused "
-                    "step under a mesh (ROADMAP Queue 1 item 12)")
-
-
-def _refuse_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(_MESH_NOT_PORTED)
-
-
 def _check_mesh(mesh) -> None:
     """A mesh argument must be ``parallel.make_mesh``'s (a DeviceMesh)."""
     if mesh is not None and not hasattr(mesh, "get_group"):
@@ -130,9 +131,21 @@ def _check_mesh(mesh) -> None:
                         f"{type(mesh).__name__}")
 
 
+def _view_rows(v, views: int, lo: int, b: int):
+    """Rows ``lo .. lo + b`` of each of the ``views`` views stacked in ``v``
+    ([view 0; view 1; ...]), stacked in the same order."""
+    if views == 1:
+        return v[lo:lo + b]
+    v = np.asarray(v)
+    return v.reshape(views, -1, *v.shape[1:])[:, lo:lo + b].reshape(views * b, *v.shape[1:])
+
+
 class _BaseTrainer:
     """Checkpoints, the device, resume, pretrained rows, wandb and the
     train steps' calls, shared by the trainers."""
+
+    #: batch keys that stack several views of the batch's rows, and how many
+    _STACKED_VIEWS: Dict[str, int] = {}
 
     def __init__(self, model_ckpt_dir: str = "./model_ckpt", device: DeviceLike = None,
                  wandb_config: Optional[dict] = None):
@@ -306,9 +319,10 @@ class _BaseTrainer:
         if state is None:
             return self._step_on(batch)
         block, split, first = self._block(batch, state, self._presplit)
-        with state.running(split, first):
+        rows = self._rows(block)
+        with state.running(split, first, rows * state.n_data if split else rows):
             out = self._step_on(block)
-        out = self._global(out, state, split, len(next(iter(block.values()))))
+        out = self._global(out, state, split, rows)
         if self._presplit and "label" in block:  # the ranks' labels, in the predictions' order
             out["label"] = gather_rows(torch.as_tensor(
                 np.asarray(block["label"], np.float32), device=self._fit_device),
@@ -324,17 +338,25 @@ class _BaseTrainer:
         return out
 
     @staticmethod
-    def _block(batch: Dict[str, np.ndarray], state, presplit: bool = False):
+    def _rows(batch: Dict[str, np.ndarray]) -> int:
+        return len(next(iter(batch.values())))
+
+    @classmethod
+    def _block(cls, batch: Dict[str, np.ndarray], state, presplit: bool = False):
         """(the rank's rows, split, their first global row) of a host batch:
         the contiguous block of a batch that divides ``data`` (or the batch
         itself when the loader already gave the rank its own rows), else
-        the whole batch, which every rank runs."""
-        rows = len(next(iter(batch.values())))
+        the whole batch, which every rank runs.  A key of
+        ``_STACKED_VIEWS`` stacks its block's rows of each view."""
+        rows = cls._rows(batch)
         if presplit and state.n_data > 1:
             return batch, True, state.data_rank * rows
         if not state.splits(rows):
             return batch, False, 0
-        return shard_batch(batch, state.mesh), True, state.data_rank * (rows // state.n_data)
+        b = rows // state.n_data
+        lo = state.data_rank * b
+        return ({k: _view_rows(v, cls._STACKED_VIEWS.get(k, 1), lo, b) for k, v in batch.items()},
+                True, lo)
 
     @staticmethod
     def _global(out: Dict[str, torch.Tensor], state, split: bool,
@@ -571,6 +593,8 @@ def _write_log_csv(path: str, rows: List[Dict[str, float]]) -> None:
 class SequenceTrainer(_BaseTrainer):
     """Sequence-recall models: training, checkpoints, evaluation."""
 
+    _STACKED_VIEWS = {"aug_all": 3}  # [hist; aug1; aug2]
+
     def fit(self, model, train_loader: DataLoader, valid_loader: Optional[DataLoader] = None,
             epoch: int = 50, lr: float = 1e-3, device: DeviceLike = None,
             use_earlystopping: bool = False, max_patience: int = 999,
@@ -578,14 +602,15 @@ class SequenceTrainer(_BaseTrainer):
             topk_list: Optional[List[int]] = None, lr_scheduler_type: str = "",
             scheduler_params: Optional[dict] = None, seed: int = 1029, mesh=None,
             steps_per_call: int = 1) -> None:
-        _refuse_mesh(mesh)
+        _check_mesh(mesh)
         topk_list = topk_list or [20, 50, 100]
-        if self.use_wandb:
+        dev = self._start_fit(model, device, mesh)
+        frozen = self._shard(model, mesh, self._inject_pretrained(model), train_loader)
+        writer = self._is_writer(model)
+        if self.use_wandb and writer:
             self._wandb_init()
-        dev = self._start_fit(model, device)
         generator = torch.Generator().manual_seed(seed)
         steps_per_epoch = len(train_loader)
-        frozen = self._inject_pretrained(model)
         self._train_step = None
         if not self._pending_pretrained:  # K3's whole-table pass would move frozen rows
             self._train_step = maybe_enable_seq_fused_update(
@@ -614,10 +639,11 @@ class SequenceTrainer(_BaseTrainer):
             valid_metric = self.evaluate_model(self.model, valid_loader, dev,
                                                topk_list=topk_list)
             logger.info(f"Epoch {i} Valid Metric:{valid_metric}")
-            if self.use_wandb:
+            if self.use_wandb and writer:
                 wandb.log(valid_metric)
             log_rows.append({"epoch": i, **valid_metric})
-            _write_log_csv(os.path.join(self.model_ckpt_dir, "log.csv"), log_rows)
+            if writer:
+                _write_log_csv(os.path.join(self.model_ckpt_dir, "log.csv"), log_rows)
             self.save_train_model(self.model, self.model_ckpt_dir, f"e_{i}")
             if use_earlystopping:
                 if monitor_metric not in valid_metric:
@@ -631,9 +657,25 @@ class SequenceTrainer(_BaseTrainer):
                     break
 
     def _host_inputs(self, batch: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+        if getattr(self.model, "mesh_state", None) is not None:
+            return batch  # ``_step`` drew the keys from the whole batch
         return self._attach_host_keys(batch)
 
-    def _attach_host_keys(self, batch: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    def _step(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+        """Under a mesh the host keys are drawn from the whole batch first
+        (from a sharded loader's, the data ranks' batches gathered in rank
+        order), then cut to the rank's block with the rest (``_block``)."""
+        state = getattr(self.model, "mesh_state", None)
+        if state is not None:
+            batch = self._attach_host_keys(batch, state if self._presplit else None)
+        return super()._step(batch)
+
+    @staticmethod
+    def _rows(batch: Dict[str, np.ndarray]) -> int:
+        return len(batch["hist_item_list"])
+
+    def _attach_host_keys(self, batch: Dict[str, np.ndarray],
+                          presplit=None) -> Dict[str, np.ndarray]:
         """The training batch with the keys the model's one table lookup
         reads, made on the host as the JAX trainer makes them:
 
@@ -649,20 +691,30 @@ class SequenceTrainer(_BaseTrainer):
           graph's ``graph_nodes`` and ``graph_alias`` [B, L] int32
           (``ops/graph.attach_session_graph``).
 
-        Keys the batch already holds are kept."""
+        Keys the batch already holds are kept.  ``presplit``, the mesh state
+        of a fit whose loader gives each data rank its own rows: the views
+        and negatives are drawn for the data ranks' batches gathered in rank
+        order, every rank from the same generator, and each rank keeps its
+        rows of them."""
         model = self.model
         hist = np.asarray(batch["hist_item_list"])
-        if getattr(model, "host_aug", False) and "aug_all" not in batch:
+        aug = getattr(model, "host_aug", False) and "aug_all" not in batch
+        neg = getattr(model, "host_negatives", False) and "neg_items" not in batch
+        if aug or neg:
+            whole, mine = hist, slice(0, len(hist))
+            if presplit is not None:
+                whole = gather_rows(torch.as_tensor(hist, device=self._fit_device),
+                                    presplit.data_group).cpu().numpy()
+                mine = slice(presplit.data_rank * len(hist), (presplit.data_rank + 1) * len(hist))
             if self._aug_rng is None:
                 self._aug_rng = np.random.default_rng(10_301)
-            views = [host_augment_sequences(self._aug_rng, hist, model.beta_a, model.beta_b,
-                                            model.mask_token) for _ in range(2)]
+        if aug:
+            views = [host_augment_sequences(self._aug_rng, whole, model.beta_a, model.beta_b,
+                                            model.mask_token)[mine] for _ in range(2)]
             batch = {**batch, "aug_all": np.concatenate([hist] + views, axis=0)}
-        if getattr(model, "host_negatives", False) and "neg_items" not in batch:
-            if self._aug_rng is None:
-                self._aug_rng = np.random.default_rng(10_301)
+        if neg:
             high = max(model.item_emb.vocab_size - 1, 2)
-            batch = {**batch, "neg_items": self._aug_rng.integers(1, high, hist.shape[0])
+            batch = {**batch, "neg_items": self._aug_rng.integers(1, high, len(whole))[mine]
                      .astype(np.int32)}
         extras = getattr(model, "lookup_extra", ())
         if extras and "lookup_all" not in batch and all(k in batch for k in extras):
@@ -679,11 +731,17 @@ class SequenceTrainer(_BaseTrainer):
         """Top-200 retrieval for every user of ``test_loader`` (a sequence
         loader of the valid or test phase), then 'recall@k', 'ndcg@k' and
         'hitrate@k' for each k of ``topk_list`` (20, 50, 100 by default),
-        rounded to 4 dp.  ``approx_recall_target`` is answered exactly."""
+        rounded to 4 dp.  ``approx_recall_target`` is answered exactly.  On a
+        model sharded over a mesh every rank runs every batch and ranks
+        through the distributed top-k over its rows (the JAX trainer passes
+        its mesh to ``get_recall_predict`` too); every rank gets the same
+        metrics."""
         topk_list = topk_list or [20, 50, 100]
         model.to(self._device(device)).eval()
         test_gd = test_loader.dataset.get_test_gd()
+        state = getattr(model, "mesh_state", None)
         preds = get_recall_predict(model, test_loader, topn=200,
+                                   mesh=None if state is None else state.mesh,
                                    approx_recall_target=approx_recall_target)
         metric_dict: Dict[str, float] = {}
         for k in topk_list:

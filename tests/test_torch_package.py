@@ -78,7 +78,8 @@ def test_sources_import_nothing_of_jax():
     files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"] + examples
     assert PORT / "ops" / "field_graph.py" in files and PORT / "serving" / "export.py" in files
     assert PORT / "parallel" / "mesh.py" in files and PORT / "parallel" / "topk.py" in files
-    files.append(REPO / "tests" / "_torch_mesh_ranks.py")  # what the mesh tests' ranks import
+    files += [REPO / "tests" / "_torch_mesh_ranks.py",  # what the mesh tests' ranks import
+              REPO / "tests" / "_torch_seq_mesh_ranks.py"]
     bad = [f"{f.relative_to(REPO)}:{line} imports {root}"
            for f in files for root, line in _imported_roots(f)
            if root in FORBIDDEN_ROOTS]

@@ -171,16 +171,16 @@ def test_checkpoints_round_trip_both_ways(jax_sasrec, tmp_path, monkeypatch):
 
 def test_training_waits_for_the_training_slice(jax_sasrec, monkeypatch):
     """Training arrived with the training slice: the training batch, the
-    loss and the dropout forward work; what still raises is fit's mesh
-    (ROADMAP Queue 1 item 12), beside the K-step option too."""
+    loss and the dropout forward work; fit's mesh is ported too, and what
+    raises is a mesh that is no DeviceMesh, beside the K-step option too."""
     monkeypatch.setenv("REC_PANGU_TPU_FUSED_ENCODER", "0")
     model, params, enc = jax_sasrec
     tmodel = _port(params, enc)
     batch, _ = _batch(5)
     batch["target_item"] = np.arange(1, B + 1, dtype=np.int32)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
+    with pytest.raises(TypeError, match="mesh must be a DeviceMesh"):
         SequenceTrainer(device="cpu").fit(tmodel, [batch], mesh=object())
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
+    with pytest.raises(TypeError, match="mesh must be a DeviceMesh"):
         SequenceTrainer(device="cpu").fit(tmodel, [batch], steps_per_call=4, mesh=object())
     inputs = tmodel.upload_batch(batch, torch.device("cpu"), train=True)
     out = tmodel(inputs, train=True, seed=3)  # the default dropout rates are 0.1

@@ -267,11 +267,11 @@ def test_fit_on_the_bundled_data(seq_dfs, tmp_path, monkeypatch):
 @pytest.mark.parametrize("option,item", [({"mesh": object()}, "10"),
                                          ({"steps_per_call": 2}, "11")])
 def test_fit_raises_for_options_not_ported(option, item, tmp_path):
-    """mesh (item 12: the sequence trainer's mesh; item 10 ported the ranking
-    and graph trainers') raises before fit touches anything, alone or
-    beside steps_per_call, which item 11 ported."""
+    """A mesh that is no DeviceMesh from parallel.make_mesh (the sequence
+    trainer's mesh is ported now, as the ranking and graph trainers' are)
+    raises before fit touches anything, alone or beside steps_per_call."""
     trainer = SequenceTrainer(device="cpu", model_ckpt_dir=str(tmp_path))
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 12"):
+    with pytest.raises(TypeError, match="mesh must be a DeviceMesh from parallel.make_mesh"):
         trainer.fit(None, None, **{"mesh": object(), **option})
 
 
