@@ -27,8 +27,24 @@ from ..data.encoder import OOV_SENTINEL, FeatureSpec
 from ..ops.embedding import ItemEmbedding, check_ids, check_item_ids, padded_rows
 from ..ops.softmax_ce import (_FUSED_MIN_VOCAB, fused_ce_enabled, fused_softmax_ce_captured,
                               fused_softmax_ce_padded, full_softmax_ce, sharded_softmax_ce)
+from ..utils.trace import span
 
 MODEL_REGISTRY: Dict[str, type] = {}
+
+
+def copy_to_device(batch: Dict[str, np.ndarray], dtypes: Dict[str, type],
+                   device: torch.device) -> Dict[str, torch.Tensor]:
+    """Copy ``batch[k]`` as ``dtypes[k]`` to ``device`` for each key of
+    ``dtypes``.  A copy from pageable host memory to the card first waits for
+    the work queued on the stream; that wait is made here, before the copies,
+    in its own span ``batch.wait``, so that the copies' host time is their
+    own."""
+    device = torch.device(device)
+    with span("batch.wait"):
+        if device.type == "cuda":
+            torch.cuda.current_stream(device).synchronize()
+    return {k: torch.from_numpy(np.ascontiguousarray(batch[k], dtype=dt)).to(device)
+            for k, dt in dtypes.items()}
 
 
 def register_model(name: str) -> Callable[[type], type]:
@@ -90,10 +106,11 @@ class RankModelBase(nn.Module):
         ``padded_rows(spec.total_rows)`` rows (ValueError before any upload),
         and copy the keys the model reads to ``device``; a training
         batch (``train``) also uploads its float32 ``label``."""
-        check_ids(self.spec, batch["sparse"], padded_rows(self.spec.total_rows))
-        dtypes = dict(self.input_dtypes, label=np.float32) if train else self.input_dtypes
-        return {k: torch.from_numpy(np.ascontiguousarray(batch[k], dtype=dt)).to(device)
-                for k, dt in dtypes.items()}
+        with span("batch.upload"):
+            with span("batch.check"):
+                check_ids(self.spec, batch["sparse"], padded_rows(self.spec.total_rows))
+            dtypes = dict(self.input_dtypes, label=np.float32) if train else self.input_dtypes
+            return copy_to_device(batch, dtypes, device)
 
 
 class SequenceModelBase(nn.Module):
@@ -289,14 +306,15 @@ class SequenceModelBase(nn.Module):
         views ``aug_all`` [3B, L] and the joint lookup ids ``lookup_all``
         [B, L + extras] (int32)."""
         dtypes = dict(self.input_dtypes)
-        check_item_ids(batch["hist_item_list"], self.item_emb.vocab_size)
+        checked = ["hist_item_list"]
         if train:
-            keys = ("target_item",) + tuple(k for k in ("aug_all", "lookup_all") if k in batch)
-            for key in keys:
-                check_item_ids(batch[key], self.item_emb.vocab_size)
-                dtypes[key] = np.int32
-        return {k: torch.from_numpy(np.ascontiguousarray(batch[k], dtype=dt)).to(device)
-                for k, dt in dtypes.items()}
+            checked += ["target_item"] + [k for k in ("aug_all", "lookup_all") if k in batch]
+            dtypes.update((k, np.int32) for k in checked[1:])
+        with span("batch.upload"):
+            with span("batch.check"):
+                for key in checked:
+                    check_item_ids(batch[key], self.item_emb.vocab_size)
+            return copy_to_device(batch, dtypes, device)
 
     def jax_leaves(self) -> List[Tuple[str, tuple, torch.Tensor, bool]]:
         raise NotImplementedError

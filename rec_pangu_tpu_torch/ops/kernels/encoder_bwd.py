@@ -47,8 +47,6 @@ from . import fused_encoder as fe
 
 SAVED_NAMES = ("x", "qkv", "ctx", "xc1", "x1", "xc2", "h", "inv1", "inv2")
 ROW_TILE = 64  # rows of R's blocks; its LayerNorm sums are per tile of these
-# stage launches so far, by stage (the main path counts fused_encoder.BACKWARD_LAUNCHES)
-STAGE_LAUNCHES = {"transpose": 0, "rows": 0, "attention": 0, "wgrad": 0, "sum": 0}
 
 _FNS = None
 
@@ -318,13 +316,13 @@ def transposed_weights_reference(packed: Sequence[torch.Tensor]) -> torch.Tensor
 class Stages:
     """K4b's launches for layer li one at a time, on CUDA buffers allocated
     here once (for holding each launch to its plain version, and for timing
-    it alone): ``calls[stage]()`` launches one kernel and counts it in
-    STAGE_LAUNCHES.  Each stage reads the buffers the previous one wrote:
-    ``transpose`` -> ``wt``; ``rows`` reads dy and writes dpre1, dx1, df,
-    dh, dattn, dctx and ln_part; ``attention`` turns dpre1 into the
-    layer's dx (in place) and writes dqkv; ``wgrad`` writes layer li's
-    entries of each chunk's slice of ``partials``; ``sum`` adds the slices
-    into ``grads`` (``layer_grads`` reads layer li's)."""
+    it alone): ``calls[stage]()`` launches one kernel.  Each stage reads
+    the buffers the previous one wrote: ``transpose`` -> ``wt``; ``rows``
+    reads dy and writes dpre1, dx1, df, dh, dattn, dctx and ln_part;
+    ``attention`` turns dpre1 into the layer's dx (in place) and writes
+    dqkv; ``wgrad`` writes layer li's entries of each chunk's slice of
+    ``partials``; ``sum`` adds the slices into ``grads`` (``layer_grads``
+    reads layer li's)."""
 
     NAMES = ("transpose", "rows", "attention", "wgrad", "sum")
 
@@ -367,15 +365,14 @@ class Stages:
             "sum": ("rp_encoder_bwd_sum_f32", self.partials.data_ptr(), self.grads.data_ptr(),
                     R, 1, D, layers, inner),
         }
-        self.calls = {stage: self._launcher(stage, *args[stage]) for stage in self.NAMES}
+        self.calls = {stage: self._launcher(*args[stage]) for stage in self.NAMES}
 
     @staticmethod
-    def _launcher(stage: str, name: str, *args):
+    def _launcher(name: str, *args):
         def call():
             err = _functions()[name](*args, torch.cuda.current_stream().cuda_stream)
             if err != 0:
                 raise RuntimeError(f"{name} failed: CUDA error {err}")
-            STAGE_LAUNCHES[stage] += 1
         return call
 
     def run(self, *stages: str) -> None:

@@ -54,6 +54,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from ...utils.trace import span
 from .embedding_grad import _check_ids, check_inputs, sort_ids, table_grad_reference
 
 # kernel launches so far; a run resets it and reads it to show the path
@@ -200,11 +201,13 @@ class SortedIds(NamedTuple):
 
 def sort_for(ids: torch.Tensor, num_rows: int) -> SortedIds:
     """[N] int32 fused ids -> ``SortedIds`` for tables of ``num_rows`` rows:
-    one radix sort on the card, shared by every such table's update."""
-    _check_ids(ids)
-    if ids.device.type == "cpu":
-        return SortedIds(ids, None, None, num_rows)
-    return SortedIds(ids, *sort_ids(ids, num_rows), num_rows)
+    one radix sort on the card, shared by every such table's update; the
+    span ``table.sort`` (``utils/trace.py``)."""
+    with span("table.sort"):
+        _check_ids(ids)
+        if ids.device.type == "cpu":
+            return SortedIds(ids, None, None, num_rows)
+        return SortedIds(ids, *sort_ids(ids, num_rows), num_rows)
 
 
 def _check_height(plan: SortedIds, table: torch.Tensor) -> None:

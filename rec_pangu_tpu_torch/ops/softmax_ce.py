@@ -53,16 +53,23 @@ from typing import List, Optional
 
 import torch
 
+from ..utils.trace import span
 from .kernels.multimax_ce import multimax_grads, multimax_lse
 
 CHUNK_V = 131_072         # items a chunk on the card
 _FUSED_MIN_VOCAB = 65_536  # below it, full_softmax_ce keeps the naive path, as in JAX
 
 
+def _product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """One of the CE's chunk products, spanned as ``ce.product``."""
+    with span("ce.product"):
+        return torch.matmul(a, b)
+
+
 def _chunk_logits(user, chunk, base: int, valid_v: int, zero_row0: bool) -> torch.Tensor:
     """[B, C] logits of one chunk, rows past ``valid_v`` -inf, row 0 pinned
     to 0 when ``zero_row0``."""
-    logits = torch.matmul(user, chunk.t())
+    logits = _product(user, chunk.t())
     stop = base + chunk.shape[0]
     if stop > valid_v:
         logits[:, max(valid_v - base, 0):] = -torch.inf
@@ -114,8 +121,8 @@ def _grads(user, items, pos, lse, g, valid_v: int, zero_row0: bool, chunk: int,
         p.scatter_add_(1, loc.clamp(0, c.shape[0] - 1)[:, None], -hit.to(p.dtype)[:, None])
         if zero_row0 and base == 0:
             p[:, 0] = 0.0  # row 0 reads as a zero vector: no gradient either way
-        d_user += torch.matmul(p, c)
-        d_items[local:local + c.shape[0]] = torch.matmul(p.t(), user) * scale
+        d_user += _product(p, c)
+        d_items[local:local + c.shape[0]] = _product(p.t(), user) * scale
     return d_user, d_items
 
 
@@ -153,20 +160,22 @@ class _StreamingCE(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, user, items, pos, first, valid_v, zero_row0, chunk, sink, group):
-        pos = pos.reshape(-1).long()
-        lse, ps = _lse_pos(user, items, pos, valid_v, zero_row0, chunk, first)
-        if group is not None:
-            lse, ps = _log_add(lse, group), _sum_over(ps, group)
-        ctx.save_for_backward(user, items, pos, lse)
-        ctx.options = (first, valid_v, zero_row0, chunk, sink, group)
-        return (lse - ps).mean()
+        with span("ce.forward"):
+            pos = pos.reshape(-1).long()
+            lse, ps = _lse_pos(user, items, pos, valid_v, zero_row0, chunk, first)
+            if group is not None:
+                lse, ps = _log_add(lse, group), _sum_over(ps, group)
+            ctx.save_for_backward(user, items, pos, lse)
+            ctx.options = (first, valid_v, zero_row0, chunk, sink, group)
+            return (lse - ps).mean()
 
     @staticmethod
     def backward(ctx, g):
         user, items, pos, lse = ctx.saved_tensors
         first, valid_v, zero_row0, chunk, sink, group = ctx.options
-        d_user, d_items = _grads(user, items, pos, lse, g, valid_v, zero_row0, chunk, first)
-        d_user = _sum_over(d_user, group) * (g / user.shape[0])
+        with span("ce.backward"):
+            d_user, d_items = _grads(user, items, pos, lse, g, valid_v, zero_row0, chunk, first)
+            d_user = _sum_over(d_user, group) * (g / user.shape[0])
         if sink is not None:
             sink.append(d_items)
             d_items = None

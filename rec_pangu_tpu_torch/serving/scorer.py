@@ -8,10 +8,14 @@
 Each scorer checks the ids on the host (ValueError before any upload),
 uploads the batch, runs the model under ``torch.inference_mode()`` and
 returns its answer on the host.  The lookup kernel needs no host sort plan,
-so none is built.
+so none is built.  A request is the top-level span ``serve.request``
+(``utils/trace.py``), numbered by the scorer's count of requests; the
+retriever's model forward and normalization are ``serve.encode`` and its
+scoring product ``serve.score``.
 """
 from __future__ import annotations
 
+import itertools
 from typing import Callable, Dict, Tuple
 
 import numpy as np
@@ -20,6 +24,7 @@ import torch
 from ..data.encoder import FeatureSpec
 from ..eval.retrieval import l2_normalize
 from ..utils.device import DeviceLike, resolve_device
+from ..utils.trace import span
 
 
 def construct_dummy_data(enc_dict: dict, batch_size: int = 2) -> Dict[str, np.ndarray]:
@@ -36,12 +41,14 @@ def make_ranking_scorer(model, device: DeviceLike = None
     """Move ``model`` to ``device`` in eval mode and return its batch scorer."""
     dev = resolve_device(device)
     model.to(dev).eval()
+    requests = itertools.count()
 
     def score(batch: Dict[str, np.ndarray]) -> np.ndarray:
-        inputs = model.upload_batch(batch, dev)
-        with torch.inference_mode():
-            pred = model(inputs, train=False)["pred"]
-        return pred.reshape(-1).cpu().numpy()
+        with span("serve.request", next(requests), dev):
+            inputs = model.upload_batch(batch, dev)
+            with torch.inference_mode():
+                pred = model(inputs, train=False)["pred"]
+            return pred.reshape(-1).cpu().numpy()
 
     return score
 
@@ -79,13 +86,20 @@ def make_retrieval_scorer(model, topk: int = 200, normalize: bool = True,
         if normalize:
             items = l2_normalize(items)
 
+    requests = itertools.count()
+
     def retrieve(batch: Dict[str, np.ndarray]) -> Tuple[np.ndarray, np.ndarray]:
-        inputs = model.upload_batch(batch, dev)
-        with torch.inference_mode():
-            user_emb = model(inputs, train=False)["user_emb"]
-            u = l2_normalize(user_emb) if normalize else user_emb
-            top, ids = torch.topk(score_items(u, items), topk, dim=-1)
-            ids = ids.to(torch.int32)
-        return top.cpu().numpy(), ids.cpu().numpy()
+        with span("serve.request", next(requests), dev):
+            inputs = model.upload_batch(batch, dev)
+            with torch.inference_mode():
+                with span("serve.encode"):
+                    user_emb = model(inputs, train=False)["user_emb"]
+                    u = l2_normalize(user_emb) if normalize else user_emb
+                with span("serve.score"):
+                    scores = score_items(u, items)
+                top, ids = torch.topk(scores, topk, dim=-1)
+                del scores  # the [B, V] scores (4 GB at 1 M items) go before the copies back
+                ids = ids.to(torch.int32)
+            return top.cpu().numpy(), ids.cpu().numpy()
 
     return retrieve

@@ -67,6 +67,7 @@ from ..ops.kernels.embedding_lookup import fused_ids
 from ..ops.kernels.fused_adam import adam_hyper, planned_adam_update, sort_for, update_sorted
 from ..ops.softmax_ce import fused_ce_enabled
 from ..parallel.comm import all_reduce_grads, all_reduce_sum, gather_rows
+from ..utils.trace import span
 from .ckpt import moment_arrays
 from .optim import ADAM_B1, ADAM_B2, ADAM_EPS, make_lr_schedule, make_optimizer, set_lr
 from .steps import (OPT_STATE_LAYOUT, adam_entries, adam_moments, draw_step_seed,
@@ -163,8 +164,10 @@ class FusedStep:
 
     def __call__(self, inputs: Dict[str, torch.Tensor], step: int) -> Dict[str, torch.Tensor]:
         lr = self.schedule(step)
-        out, rows = self._forward(inputs)
-        grads = torch.autograd.grad(out["loss"], self.dense + rows, allow_unused=True)
+        with span("step.forward"):
+            out, rows = self._forward(inputs)
+        with span("step.backward"):
+            grads = torch.autograd.grad(out["loss"], self.dense + rows, allow_unused=True)
         state = self.mesh_state
         split = state is not None and state.split
         if split:
@@ -175,11 +178,11 @@ class FusedStep:
                 p.grad = g  # None for a weight the loss does not reach: Adam skips it
             self.optimizer.step()
         hyper = adam_hyper(step + 1, lr, ADAM_B1, ADAM_B2, ADAM_EPS)
-        ids = fused_ids(inputs["sparse"], self.tables[0][1].offsets)
-        if split:
-            ids = gather_rows(ids, state.data_group)
-        sorted_ids = {}  # table height -> the ids sorted for it, once a step
-        with torch.no_grad():
+        with span("table.update"), torch.no_grad():
+            ids = fused_ids(inputs["sparse"], self.tables[0][1].offsets)
+            if split:
+                ids = gather_rows(ids, state.data_group)
+            sorted_ids = {}  # table height -> the ids sorted for it, once a step
             for (_, emb), (mu, nu), r, g in zip(self.tables, self.moments, rows,
                                                 grads[len(self.dense):]):
                 g = torch.zeros_like(r) if g is None else g
@@ -269,13 +272,15 @@ class SeqFusedStep:
             capture["ce"] = []
         state = self.mesh_state
         split = state is not None and state.split
-        out = self.model(inputs, train=True, capture=capture,
-                         seed=draw_step_seed(self.generator, state))
+        with span("step.forward"):
+            out = self.model(inputs, train=True, capture=capture,
+                             seed=draw_step_seed(self.generator, state))
         if len(capture["hist"]) != 1:  # the rows' ids are inputs[key]
             raise ValueError(f"the sequence fused step needs exactly one lookup of the item "
                              f"table in the forward, got {len(capture['hist'])}")
-        grads = torch.autograd.grad(out["loss"], self.dense + capture["hist"],
-                                    allow_unused=True)
+        with span("step.backward"):
+            grads = torch.autograd.grad(out["loss"], self.dense + capture["hist"],
+                                        allow_unused=True)
         dense = None
         if self.uses_ce:  # the CE's backward has appended its gradient by now
             if len(capture["ce"]) != 1:
@@ -291,16 +296,17 @@ class SeqFusedStep:
             for p, g in zip(self.dense, grads):
                 p.grad = g  # None for a weight the loss does not reach: Adam skips it
             self.optimizer.step()
-        rows = grads[-1]
-        table = self.model.item_emb.table
-        ids = inputs[key].reshape(-1).to(torch.int32)
-        rows = rows.reshape(-1, rows.shape[-1])
-        if split:
-            views = inputs[key].shape[0] // inputs["hist_item_list"].shape[0]
-            ids, rows = _gather_views(ids, rows / state.n_data, views, state.data_group)
-        with torch.no_grad():
-            planned_adam_update(ids, rows, table, self.mu, self.nu,
-                                adam_hyper(step + 1, lr, ADAM_B1, ADAM_B2, ADAM_EPS), dense)
+        with span("table.update"):
+            rows = grads[-1]
+            table = self.model.item_emb.table
+            ids = inputs[key].reshape(-1).to(torch.int32)
+            rows = rows.reshape(-1, rows.shape[-1])
+            if split:
+                views = inputs[key].shape[0] // inputs["hist_item_list"].shape[0]
+                ids, rows = _gather_views(ids, rows / state.n_data, views, state.data_group)
+            with torch.no_grad():
+                planned_adam_update(ids, rows, table, self.mu, self.nu,
+                                    adam_hyper(step + 1, lr, ADAM_B1, ADAM_B2, ADAM_EPS), dense)
         return out
 
     def opt_state(self, step: int) -> Dict[str, Any]:

@@ -24,13 +24,21 @@ Its options:
   where the checkpoint's run stopped: ``fit``'s generator skips one seed
   for each restored step (``ops/dropout.skip_seeds``).
 * ``steps_per_call=K`` is taken for the JAX package's signature, and every
-  K runs one step a call: the steps already queue on the card without a
-  host sync (the predictions stay there for the train metrics, the loss
-  is read only when it is logged), and K batches stacked into one pinned
-  copy ran slower on the card (``scripts/torch_k_steps.py``).  The
-  counterpart of JAX's one dispatch for K steps would be a CUDA graph.
+  K runs one step a call: a step's only wait for the card is its upload's
+  (``upload_batch`` waits for the queued work before its copies from
+  pageable memory; the predictions stay on the card for the train
+  metrics, the loss is read only when it is logged), and K batches
+  stacked into one pinned copy ran slower on the card
+  (``scripts/torch_k_steps.py``).  The counterpart of JAX's one dispatch
+  for K steps would be a CUDA graph.
 * ``profile_dir``: ``torch.profiler`` (CPU, and CUDA on the card) over the
-  first epoch, its Chrome trace written there (``trace_path``).
+  first epoch, its Chrome trace written there (``trace_path``).  Beside
+  torch's ops and kernels the trace holds the port's spans
+  (``utils/trace.py``): ``train.step`` a step, with ``batch.upload``,
+  ``batch.check`` and ``batch.wait`` in it, and in a fused step
+  ``step.forward``, ``step.backward``, ``table.update`` and
+  ``table.sort``, and the streamed CE's ``ce.forward``, ``ce.backward``
+  and ``ce.product``.
 * ``mesh``: a mesh from ``parallel.make_mesh``; every rank calls ``fit``
   with the same loaders.  ``fit`` shards the model in place
   (``parallel/sharding.shard_state``: the tables row-sharded over
@@ -120,6 +128,7 @@ from ..parallel.sharding import (shard_frozen, shard_opt_state, shard_state,
 from ..parallel.topk import distributed_masked_topk, pad_to_multiple
 from ..utils.device import DeviceLike, resolve_device
 from ..utils.logging import HAS_WANDB, logger, wandb
+from ..utils import trace
 from .ckpt import load_checkpoint, read_opt_state, save_checkpoint
 from .fused_update import maybe_enable_fused_update, maybe_enable_seq_fused_update
 from .steps import StandardStep, make_param_renorm, strip_host_keys
@@ -330,10 +339,12 @@ class _BaseTrainer:
         return out
 
     def _step_on(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-        out = self._train_step(self.model.upload_batch(self._host_inputs(batch),
-                                                       self._fit_device, train=True), self.step)
-        if self._renorm is not None:
-            self._renorm()
+        with trace.span("train.step", self.step, self._fit_device):
+            out = self._train_step(self.model.upload_batch(self._host_inputs(batch),
+                                                           self._fit_device, train=True),
+                                   self.step)
+            if self._renorm is not None:
+                self._renorm()
         self.step += 1
         return out
 
@@ -468,6 +479,7 @@ class RankTrainer(_BaseTrainer):
         if self._fit_device.type == "cuda":
             acts.append(ProfilerActivity.CUDA)
         prof = profile(activities=acts)
+        trace.reset()
         prof.start()
         return prof
 
@@ -491,7 +503,6 @@ class RankTrainer(_BaseTrainer):
         max_iter = len(train_loader)
         self.model.train()
         start = time.time()
-        n_seen = 0
         for idx, (batch, out) in enumerate(self._steps(train_loader)):
             if self.num_task == 1:
                 pred = out["pred"]
@@ -501,17 +512,11 @@ class RankTrainer(_BaseTrainer):
             preds.append(pred.detach())  # stays on the device until the epoch ends
             label = out.get("label", batch["label"])  # a sharded loader's step: all ranks' labels
             labels.append(label)
-            n_seen += len(label)
             self._log_iter(idx, out, max_iter, start, log_rounds)
         if prof is not None:
             self._stop_profile(prof)
         pred_arr = preds.concat()
         label_arr = labels.concat()
-        elapsed = time.time() - start
-        eps = n_seen / max(elapsed, 1e-9)
-        ranks = 1 if self.mesh is None else self.mesh.size()
-        logger.info(f"Epoch throughput: {eps:,.0f} examples/s ({eps / ranks:,.0f} "
-                    f"examples/s/rank)")
         return compute_ranking_metrics(label_arr, pred_arr, prefix="train_",
                                        num_task=self.num_task)
 
