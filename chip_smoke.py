@@ -32,7 +32,9 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                (``check_encoder_bwd_stages``), each launch timed alone
                (``encoder_bwd_parts``), and the masks' seed and keep share;
                the K-max CE (K5f, K5b) and each of K5b's launches against
-               its stage's plain version (``check_multimax_stages``).
+               its stage's plain version (``check_multimax_stages``); the
+               row top-k bit-equal to its plain version and equal to
+               torch.topk but at ties (``check_row_topk``).
 3b. kernel_d1, kernel_d40 -- K3 and K2 at the LR table's shape ([1,605,632,
                1], the 131,072 ids of a batch), and K1, K2 and K3 at the
                multi-task family's width ([1,605,632, 40]), against their
@@ -90,7 +92,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                heads, inner 32, gelu), random weights from a seed.
 10. seq_serving -- SequenceTrainer.load_model and make_retrieval_scorer:
                requests of 1024 histories, top-200 of the L2-normalized
-               corpus (K1 + K4f); latency, users/s, launches per request;
+               corpus (K1 + K4f + the row top-k); latency, users/s,
+               launches per request;
                a few requests held against the same model on the CPU.
 11. seq_profile -- host stages of a request (id check, upload, encoder,
                scoring, top-k, copy back) and torch.profiler's device time
@@ -237,6 +240,7 @@ from rec_pangu_tpu_torch.ops.kernels import fused_adam as adam
 from rec_pangu_tpu_torch.ops.kernels import fused_encoder as encoder
 from rec_pangu_tpu_torch.ops.kernels import global_attn as gattn
 from rec_pangu_tpu_torch.ops.kernels import multimax_ce as mmce
+from rec_pangu_tpu_torch.ops.kernels import row_topk as rtk
 from rec_pangu_tpu_torch.ops.sequence_enc import TransformerEncoder
 from rec_pangu_tpu_torch.ops import FiGNNLayer, HolographicInteraction, InteractionMachine, MLP
 from rec_pangu_tpu_torch.serving import export_program, make_ranking_scorer, make_retrieval_scorer
@@ -2151,6 +2155,7 @@ def phase_seq_serving(path: str, enc_dict: dict, device: str = "cuda"):
 
     # the main path: every count is 0 just before it and read just after
     reset_launches()
+    topk_before = rtk.LAUNCHES, rtk.PLAIN_ROUTE
     outs, latencies = [], []
     for i, req in enumerate(requests):
         t0 = time.perf_counter()
@@ -2167,6 +2172,11 @@ def phase_seq_serving(path: str, enc_dict: dict, device: str = "cuda"):
     n = len(requests)
     require_launches(launches, {"embedding_lookup": n, "embedding_grad": 0, "fused_adam": 0,
                                 "fused_encoder": n}, "seq_serving")
+    topk_launches = (rtk.LAUNCHES - topk_before[0], rtk.PLAIN_ROUTE - topk_before[1])
+    if topk_launches != (n, 0):
+        raise RuntimeError(f"seq_serving: row_topk (launches, plain route) {topk_launches}, "
+                           f"expected ({n}, 0)")
+    launches = {**launches, "row_topk": topk_launches[0]}
 
     cpu_model = load_seq_model(path, enc_dict, "cpu")
     cpu_retrieve = make_retrieval_scorer(cpu_model, topk=SEQ_TOPK + 1, device="cpu")
@@ -2204,7 +2214,7 @@ def phase_seq_profile(model, requests, phase: str = "seq_profile") -> dict:
     synchronize: the id check, the check plus upload, the encoder (lookup,
     K4f, the last-position gather; IOCRec's K6f and disentangling too), the
     scoring (normalize and the [1024, 64] x [64, 1,000,000] product, one an
-    interest), the top-200, the copy back.  Then torch.profiler over the
+    interest), the top-200 (``row_topk``), the copy back.  Then torch.profiler over the
     scorer: device time by operation and the card's idle share."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -2228,8 +2238,7 @@ def phase_seq_profile(model, requests, phase: str = "seq_profile") -> dict:
             scores = score_items(l2_normalize(user_emb), items)
             torch.cuda.synchronize()
             t.append(time.perf_counter())
-            top, ids = torch.topk(scores, SEQ_TOPK, dim=-1)
-            ids = ids.to(torch.int32)
+            top, ids = rtk.row_topk(scores, SEQ_TOPK)
             torch.cuda.synchronize()
             t.append(time.perf_counter())
         top.cpu().numpy(), ids.cpu().numpy()
@@ -3091,6 +3100,121 @@ def phase_multimax_ce(bandwidth: float, fp32: float, tf32: float) -> tuple:
                    "cases": cases, "stages": stages,
                    "seconds": time.perf_counter() - t_start})
     return tuple(out)
+
+
+def check_row_topk(scores, k: int, what: str, capacity: int = rtk.CAPACITY) -> dict:
+    """The row top-k kernel against its plain version on ``scores``: values
+    and ids bit-equal, the same bits on a second launch and the same count
+    of refined rows; against torch.topk: the values' bits equal and the ids
+    equal except where the scores tie."""
+    dev = scores.device
+    before = rtk.refined_rows(dev)
+    values, ids = rtk.launch(scores, k, capacity)
+    refined = rtk.refined_rows(dev) - before
+    again = rtk.launch(scores, k, capacity)
+    plain = rtk.row_topk_reference(scores, k, capacity)
+    plain_refined = rtk.refined_rows(dev) - before - 2 * refined
+    bits = values.view(torch.int32)
+    require_equal(bits, plain[0].view(torch.int32), f"row_topk {what}: values")
+    require_equal(ids, plain[1], f"row_topk {what}: ids")
+    require_equal(bits, again[0].view(torch.int32), f"row_topk {what}: values, second launch")
+    require_equal(ids, again[1], f"row_topk {what}: ids, second launch")
+    if plain_refined != refined:
+        raise RuntimeError(f"row_topk {what}: {refined} rows refined, the plain version "
+                           f"{plain_refined}")
+    lib_values, lib_ids = torch.topk(scores, k, dim=1)
+    require_equal(bits, lib_values.view(torch.int32), f"row_topk {what}: values against torch.topk")
+    differ = ids.long() != lib_ids
+    tied = scores.gather(1, ids.long()).view(torch.int32) == scores.gather(1, lib_ids).view(
+        torch.int32)
+    if bool((differ & ~tied).any()):
+        raise RuntimeError(f"row_topk {what}: ids differ from torch.topk's at untied scores")
+    return {"case": what, "shape": list(scores.shape), "k": k, "capacity": capacity,
+            "refined_rows": refined, "ids_differing_from_torch_topk_at_ties": int(differ.sum())}
+
+
+def events_ms(fn, calls: int, reps: int = 5) -> float:
+    """Device time a call: ``calls`` calls between two CUDA events, the
+    median over ``reps``; for calls long enough that the card never waits on
+    the host."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return statistics.median(times)
+
+
+def phase_row_topk(bandwidth: float) -> dict:
+    """The row top-k kernel against its plain version and torch.topk
+    (``check_row_topk``) at retrieval's shape ([1,024, 1,000,000] cosine
+    scores, top-200; also k = 256, N(0, 1) scores, and a capacity of k, so
+    rows refine) and on edge cases: ties crossing the k-th place (a few
+    distinct values; rows all equal), -inf padding, NaN, k = 1, N not a
+    multiple of 4 or of a slice, scores 4 bytes off 16-byte alignment, one
+    row.  Times of the kernel, its plain version and torch.topk (the
+    library call) at retrieval's shape, beside the bound: one read of the
+    scores."""
+    t_start = time.perf_counter()
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 140)
+    B, N, k = SEQ_BATCH, SEQ_VOCAB, SEQ_TOPK
+    users = l2_normalize(torch.randn(B, SEQ_DIM, generator=gen, device=dev))
+    items = l2_normalize(torch.randn(N, SEQ_DIM, generator=gen, device=dev))
+    scores = score_items(users, items)
+    del users, items
+    cases = [check_row_topk(scores, k, "retrieval shape, cosine scores"),
+             check_row_topk(scores, rtk.KMAX, "retrieval shape, k = KMAX"),
+             check_row_topk(scores, k, "retrieval shape, capacity k", capacity=k)]
+    if cases[0]["refined_rows"]:
+        raise RuntimeError(f"row_topk: {cases[0]['refined_rows']} rows of the retrieval shape "
+                           f"refined; the capacity is meant to hold them")
+    normal = torch.randn(B, N, generator=gen, device=dev)
+    cases.append(check_row_topk(normal, k, "retrieval shape, N(0, 1) scores"))
+    del normal
+    few = torch.randint(-8, 9, (256, 100_003), generator=gen, device=dev).float() / 4
+    cases.append(check_row_topk(few, rtk.KMAX, "17 distinct values, ties across the k-th"))
+    cases.append(check_row_topk(torch.full((8, N), 0.5, device=dev), rtk.KMAX, "rows all equal"))
+    padded = torch.randn(128, 30_000, generator=gen, device=dev)
+    padded[:, 150:] = -math.inf
+    cases.append(check_row_topk(padded, k, "-inf padding past 150 columns"))
+    nan = torch.randn(64, 50_001, generator=gen, device=dev)
+    nan[torch.rand(nan.shape, generator=gen, device=dev) < 1e-4] = math.nan
+    nan[0] = math.nan
+    cases.append(check_row_topk(nan, k, "NaN scattered, a row all NaN"))
+    cases.append(check_row_topk(torch.randn(333, 77_777, generator=gen, device=dev), 1, "k = 1"))
+    for b, n, kk in ((100, 10_001, k), (5, 257, rtk.KMAX), (3, 300, 255), (1, N, k)):
+        cases.append(check_row_topk(torch.randn(b, n, generator=gen, device=dev), kk,
+                                    f"B={b} N={n}"))
+    flat = torch.randn(64 * 100_000 + 1, generator=gen, device=dev)
+    cases.append(check_row_topk(flat[1:].view(64, 100_000), k, "4 bytes off alignment"))
+    del few, padded, nan, flat
+
+    before = rtk.refined_rows(dev)
+    ms = events_ms(lambda: rtk.launch(scores, k), 20)
+    refined = rtk.refined_rows(dev) - before
+    library_ms = events_ms(lambda: torch.topk(scores, k, dim=1), 5)
+    plain_ms = call_ms(lambda: rtk.row_topk_reference(scores, k), 3)
+    moved = scores.numel() * 4
+    return {
+        "name": "row_topk", "route": "cuda", "source": "rec_pangu_tpu_torch/csrc/row_topk.cu",
+        "replaces": "none: the JAX package calls jax.lax.top_k "
+                    "(rec_pangu_tpu/serving/scorer.py:72)",
+        "max_abs_err": 0.0, "tolerance": "bit-equal to the plain version",
+        "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "library": "torch.topk",
+        "bound_ms": moved / bandwidth * 1e3, "bound_by": "bytes", "bytes": moved,
+        "share_of_bound": moved / bandwidth * 1e3 / ms,
+        "refined_rows_timed": refined, "slices": rtk.plan_slices(B, N),
+        "shape": {"B": B, "N": N, "k": k, "capacity": rtk.CAPACITY},
+        "workspace_bytes": rtk.workspace_words(B, N) * 4, "cases": cases,
+        "seconds": time.perf_counter() - t_start}
 
 
 def write_model_checkpoint(path: str, name: str, config: dict, seed: int) -> dict:
@@ -5765,7 +5889,8 @@ def main() -> int:
     rows = [phase_kernel(bandwidth), phase_table_grad(bandwidth),
             phase_sorted_accumulate(bandwidth), phase_fused_adam(bandwidth),
             phase_fused_encoder(bandwidth, fp32), phase_fused_encoder_bwd(bandwidth, fp32),
-            *phase_global_attn(bandwidth, fp32), *phase_multimax_ce(bandwidth, fp32, tf32)]
+            *phase_global_attn(bandwidth, fp32), *phase_multimax_ce(bandwidth, fp32, tf32),
+            phase_row_topk(bandwidth)]
     for row in rows:
         emit({"phase": "kernel", **row})
     d1 = phase_width_tables(bandwidth, 1, SEED + 430, with_lookup=False)
@@ -5964,8 +6089,10 @@ def main() -> int:
     # gradient's on the standard-step fit, the encoder's on SASRec serving,
     # its backward's on the sequence fused fit, the global attention's on
     # IOCRec serving, its backward's and the K-max CE's on IOCRec's fused
-    # fit, the device-sorted gradient's (K7) on ContraRec's device views
+    # fit, the device-sorted gradient's (K7) on ContraRec's device views, the
+    # row top-k's on SASRec serving
     launches = {"embedding_lookup": serving["launches"]["embedding_lookup"],
+                "row_topk": seq_serving["launches"]["row_topk"],
                 "fused_adam": training["launches"]["fused_adam"],
                 "embedding_grad": training["standard_launches"]["embedding_grad"],
                 "embedding_grad_sorted": device_aug["launches"]["embedding_grad"],

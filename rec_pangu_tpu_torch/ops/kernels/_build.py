@@ -30,7 +30,8 @@ SOURCES = {"embedding_lookup": "embedding_lookup.cu",
            "fused_adam": "fused_adam.cu",
            "fused_encoder": "fused_encoder.cu",
            "global_attn": "global_attn.cu",
-           "multimax_ce": "multimax_ce.cu"}
+           "multimax_ce": "multimax_ce.cu",
+           "row_topk": "row_topk.cu"}
 
 _BUILD_TIMEOUT_S = 600
 _LOCK = threading.Lock()

@@ -10,8 +10,8 @@ uploads the batch, runs the model under ``torch.inference_mode()`` and
 returns its answer on the host.  The lookup kernel needs no host sort plan,
 so none is built.  A request is the top-level span ``serve.request``
 (``utils/trace.py``), numbered by the scorer's count of requests; the
-retriever's model forward and normalization are ``serve.encode`` and its
-scoring product ``serve.score``.
+retriever's model forward and normalization are ``serve.encode``, its
+scoring product ``serve.score`` and its top-k ``serve.select``.
 """
 from __future__ import annotations
 
@@ -23,6 +23,7 @@ import torch
 
 from ..data.encoder import FeatureSpec
 from ..eval.retrieval import l2_normalize
+from ..ops.kernels.row_topk import row_topk
 from ..utils.device import DeviceLike, resolve_device
 from ..utils.trace import span
 
@@ -77,8 +78,9 @@ def make_retrieval_scorer(model, topk: int = 200, normalize: bool = True,
     item ids [B, topk] int32), best first.  The corpus (``output_items``,
     L2-normalized when ``normalize``) is computed once, here; a request runs
     the model, normalizes its user embeddings, scores them against the corpus
-    with one matmul and takes ``torch.topk``.  A multi-interest model's
-    score for an item is its best over the interests (``score_items``)."""
+    with one matmul and takes each row's top-k (``ops/kernels/row_topk``:
+    exact, ties to the smallest ids).  A multi-interest model's score for an
+    item is its best over the interests (``score_items``)."""
     dev = resolve_device(device)
     model.to(dev).eval()
     with torch.inference_mode():
@@ -97,9 +99,9 @@ def make_retrieval_scorer(model, topk: int = 200, normalize: bool = True,
                     u = l2_normalize(user_emb) if normalize else user_emb
                 with span("serve.score"):
                     scores = score_items(u, items)
-                top, ids = torch.topk(scores, topk, dim=-1)
+                with span("serve.select"):
+                    top, ids = row_topk(scores, topk)
                 del scores  # the [B, V] scores (4 GB at 1 M items) go before the copies back
-                ids = ids.to(torch.int32)
             return top.cpu().numpy(), ids.cpu().numpy()
 
     return retrieve

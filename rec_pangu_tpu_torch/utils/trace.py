@@ -51,6 +51,7 @@ The spans (* in the store; ** with device time too):
 ``serve.request``   top level: one scorer request, id the scorer's count
 ``serve.encode`` ** retrieval's model forward and normalization
 ``serve.score`` **  retrieval's [B, V] scoring product
+``serve.select`` ** retrieval's top-k of the scores (``row_topk``)
 ==================  =========================================================
 
 No span lies inside a model's ``forward`` or an op ``serving/export.py``
@@ -66,7 +67,8 @@ import torch
 from torch.autograd import profiler as _profiler
 
 HOST = frozenset({"batch.upload", "batch.wait"})
-DEVICE = frozenset({"ce.forward", "ce.backward", "ce.product", "serve.encode", "serve.score"})
+DEVICE = frozenset({"ce.forward", "ce.backward", "ce.product", "serve.encode", "serve.score",
+                    "serve.select"})
 
 
 class _Off:

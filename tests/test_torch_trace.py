@@ -134,7 +134,7 @@ def test_spans_without_a_metric_are_bare_record_functions():
             for name in ("batch.check", "step.forward", "step.backward", "table.update",
                          "table.sort"):
                 assert isinstance(trace.span(name), torch.profiler.record_function), name
-            for name in sorted(STORED | {"serve.encode", "serve.score"}):
+            for name in sorted(STORED | {"serve.encode", "serve.score", "serve.select"}):
                 assert not isinstance(trace.span(name), torch.profiler.record_function), name
 
 
@@ -186,11 +186,12 @@ def test_a_retrieval_request_records_its_stages(span_args):
     retrieve(request)
     _, prof = _profiled(lambda: retrieve(request))
     names = ("serve.request", "batch.upload", "batch.check", "batch.wait", "serve.encode",
-             "serve.score")
+             "serve.score", "serve.select")
     calls = _calls(prof)
     assert {name: calls[name] for name in names} == dict.fromkeys(names, 1)
     got = trace.totals()
-    assert set(got) == {"batch.upload", "batch.wait", "serve.encode", "serve.score"}
+    assert set(got) == {"batch.upload", "batch.wait", "serve.encode", "serve.score",
+                        "serve.select"}
     assert all(e["calls"] == 1 for e in got.values())
     assert {args for name, args in span_args if name in names} == {"1"}  # the second request
 
